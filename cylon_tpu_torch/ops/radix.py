@@ -1,0 +1,134 @@
+"""LSD radix sort engine (counterpart of cylon_tpu/ops/radix.py).
+
+Every integer ordering of the port is a chain of stable 8-bit passes of
+kernel K1 (ops/cuda_radix.py) carrying a permutation: the JAX package's
+``radix_pallas`` tier made the only tier. A digit lane is a uint32 (held in
+an int32 tensor) or uint64 (held in int64) bit pattern whose unsigned order
+is the lane's order; the lane plan below maps each sort lane onto one, with
+an optional hint that narrows the bit span.
+
+Float lanes (the f64 total-order lane of ops/sort.orderable_key) have no
+digit decomposition: a lexsort holding one declines, exactly where the JAX
+package declines, and the caller sorts with ``torch.sort(stable=True)``.
+``COUNTS["declined"]`` counts those declines.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from . import cuda_radix as _cr
+
+#: digit width of every pass (the JAX package's PALLAS_RADIX_BITS)
+RADIX_BITS = 8
+
+COUNTS = {"declined": 0}
+
+#: ("span", lo, hi): unsigned values with significant bits in [lo, hi);
+#: ("bias", b, bits): small signed lane, (lane + b) fits ``bits`` bits
+Hint = Tuple[str, int, int]
+
+_SPAN = "span"
+_BIAS = "bias"
+
+
+def bias_hint(bias: int, bits: int) -> Hint:
+    return (_BIAS, int(bias), int(bits))
+
+
+def bound_hint(upper: int) -> Hint:
+    """Span hint for a non-negative integer lane with values <= upper."""
+    return (_SPAN, 0, max(int(upper).bit_length(), 1))
+
+
+def _digit_lane(
+    lane: torch.Tensor, hint: Optional[Hint]
+) -> Optional[Tuple[torch.Tensor, int, int]]:
+    """(digit lane, lo_bit, hi_bit), or None for a float lane. Lanes that
+    come from ops/sort.orderable_key are already int32/int64 unsigned bit
+    patterns; narrower or signed lanes are shifted into unsigned order."""
+    dt = lane.dtype
+    if hint is not None and hint[0] == _BIAS:
+        _, bias, bits = hint
+        return (lane.to(torch.int32) + bias).contiguous(), 0, int(bits)
+    if dt == torch.bool:
+        return lane.to(torch.int32), 0, 1
+    if dt.is_floating_point:
+        return None
+    if hint is not None and hint[0] == _SPAN:
+        _, lo, hi = hint
+        if dt in (torch.int64, torch.uint64) and hi > 32:
+            return lane.view(torch.int64).contiguous(), int(lo), int(hi)
+        return lane.to(torch.int32).contiguous(), int(lo), int(hi)
+    size = lane.element_size()
+    if dt in (torch.uint8, torch.uint16):
+        return lane.to(torch.int32), 0, 8 * size
+    if dt == torch.uint32:
+        return lane.view(torch.int32).contiguous(), 0, 32
+    if dt == torch.uint64:
+        return lane.view(torch.int64).contiguous(), 0, 64
+    if size == 1:
+        return lane.to(torch.int32) + 128, 0, 8
+    if size == 2:
+        return lane.to(torch.int32) + 32768, 0, 16
+    # int32 / int64 lanes are the orderable_key patterns themselves
+    return lane.contiguous(), 0, 8 * size
+
+
+def plan_lanes(
+    lanes: Sequence[torch.Tensor], hints: Optional[Sequence[Optional[Hint]]] = None
+) -> Optional[List[Tuple[torch.Tensor, int, int]]]:
+    """Digit-lane plan for a least-significant-first lane stack, or None
+    when any lane is a float lane (the whole sort then declines)."""
+    out = []
+    for i, lane in enumerate(lanes):
+        h = hints[i] if hints is not None and i < len(hints) else None
+        pl = _digit_lane(lane, h)
+        if pl is None:
+            return None
+        out.append(pl)
+    return out
+
+
+def lexsort_perm(
+    lanes: Sequence[torch.Tensor],
+    n: int,
+    hints: Optional[Sequence[Optional[Hint]]] = None,
+) -> Optional[torch.Tensor]:
+    """Stable lexsort permutation (int32) over ``lanes``, least-significant
+    FIRST, as 8-bit K1 passes; None when a float lane declines the sort.
+    The stable lexsort permutation is unique, so the result equals any
+    other stable lexsort's."""
+    planned = plan_lanes(lanes, hints)
+    if planned is None:
+        COUNTS["declined"] += 1
+        return None
+    device = lanes[0].device if lanes else torch.device("cpu")
+    perm = torch.arange(n, dtype=torch.int32, device=device)
+    for enc, lo, hi in planned:
+        shift = lo
+        while shift < hi:
+            bits = min(RADIX_BITS, hi - shift)
+            perm = _cr.radix_pass(enc, perm, shift, bits)
+            shift += bits
+    return perm
+
+
+def argsort_perm(
+    lane: torch.Tensor, hint: Optional[Hint] = None
+) -> Optional[torch.Tensor]:
+    """Radix replacement for a stable argsort of one lane."""
+    return lexsort_perm([lane], lane.shape[0], [hint])
+
+
+def kv_sort(
+    keys: torch.Tensor, pay: torch.Tensor, hint: Optional[Hint] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable 1-key kv-sort (the join probe's merged sort): radix when the
+    key is an integer lane, else ``torch.sort(stable=True)``."""
+    perm = argsort_perm(keys, hint)
+    if perm is None:
+        skey, order = torch.sort(keys, stable=True)
+        return skey, pay[order]
+    return keys.index_select(0, perm), pay.index_select(0, perm)
