@@ -27,7 +27,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
-SOURCES = ("radix_pass", "expand_rows")
+SOURCES = ("radix_pass", "expand_rows", "shuffle_codec")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -101,7 +101,13 @@ def library(name: str, setup: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
         return _libs[name]
 
 
-def check(rc: int, what: str) -> None:
-    """Raise on a nonzero cudaError_t returned by a C entry point."""
+def launch(device, entry, *args) -> None:
+    """Call the C entry point ``entry`` with ``device`` made current (a raw
+    launch goes to the current device, whichever device its stream belongs
+    to) and raise on the nonzero cudaError_t it returns."""
+    import torch
+
+    with torch.cuda.device(device):
+        rc = entry(*args)
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc}")
+        raise RuntimeError(f"{entry.__name__}: CUDA error {rc}")

@@ -62,11 +62,9 @@ def expand_rows(srcT: torch.Tensor, li: torch.Tensor) -> torch.Tensor:
         return out
     lib = _build.library("expand_rows", _setup)
     stream = torch.cuda.current_stream(srcT.device).cuda_stream
-    _build.check(
-        lib.ct_expand_rows(
-            srcT.data_ptr(), li.data_ptr(), out.data_ptr(), L, cap, n_out, stream
-        ),
-        "ct_expand_rows",
+    _build.launch(
+        srcT.device, lib.ct_expand_rows,
+        srcT.data_ptr(), li.data_ptr(), out.data_ptr(), L, cap, n_out, stream,
     )
     LAUNCHES["expand_rows"] += 1
     return out

@@ -97,12 +97,10 @@ def radix_hist(enc, perm, shift: int, bits: int) -> torch.Tensor:
     hist = torch.empty(RADIX * nt, dtype=torch.int32, device=enc.device)
     if n == 0:
         return hist
-    _build.check(
-        lib.ct_radix_hist(
-            enc.data_ptr(), enc.element_size(), perm.data_ptr(), hist.data_ptr(),
-            n, nt, shift, bits, stream,
-        ),
-        "ct_radix_hist",
+    _build.launch(
+        enc.device, lib.ct_radix_hist,
+        enc.data_ptr(), enc.element_size(), perm.data_ptr(), hist.data_ptr(),
+        n, nt, shift, bits, stream,
     )
     LAUNCHES["radix_hist"] += 1
     return hist
@@ -140,12 +138,10 @@ def radix_scatter(enc, perm, offs, shift: int, bits: int) -> torch.Tensor:
     out = torch.empty_like(perm)
     if n == 0:
         return out
-    _build.check(
-        lib.ct_radix_scatter(
-            enc.data_ptr(), enc.element_size(), perm.data_ptr(), offs.data_ptr(),
-            out.data_ptr(), n, nt, shift, bits, stream,
-        ),
-        "ct_radix_scatter",
+    _build.launch(
+        enc.device, lib.ct_radix_scatter,
+        enc.data_ptr(), enc.element_size(), perm.data_ptr(), offs.data_ptr(),
+        out.data_ptr(), n, nt, shift, bits, stream,
     )
     LAUNCHES["radix_scatter"] += 1
     return out

@@ -25,6 +25,8 @@ _AGG_NAMES = {
 
 #: the aggregations this slice ports
 PORTED = frozenset({SUM, COUNT, MIN, MAX, MEAN})
+#: ops a distributed groupby may pre-combine per shard before its shuffle
+ASSOCIATIVE = frozenset({SUM, MIN, MAX})
 
 
 def agg_op_id(name) -> int:

@@ -8,6 +8,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -86,9 +87,20 @@ def test_unported_arguments_raise(call):
         call(t)
 
 
-def test_world_size_above_one_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ctt.CylonContext.init_distributed(ctt.GPUConfig(device="cpu", world_size=2))
+def test_world_size_above_one_raises(monkeypatch):
+    """Above one shard only a missing card raises: a CPU context of two
+    shards splits rows in contiguous blocks and its to_pandas round-trips,
+    while GPUConfig(world_size=2) without a card is an error."""
+    ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device="cpu", world_size=2))
+    assert ctx.world_size == 2 and ctx.devices == [torch.device("cpu")] * 2
+    df = pd.DataFrame({"k": np.arange(7, dtype=np.int32), "s": list("abcabca"),
+                       "x": [1.5, np.nan, 2.5, 3.5, 4.5, 5.5, 6.5]})
+    t = ctt.Table.from_pandas(ctx, df)
+    assert t.row_counts.tolist() == [4, 3]
+    pd.testing.assert_frame_equal(t.to_pandas(), df)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctt.GPUConfig(world_size=2)
 
 
 def test_pandas_round_trip_and_errors():
