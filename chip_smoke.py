@@ -5,29 +5,41 @@
 
 1. builds the port's CUDA kernels from cylon_tpu_torch/csrc (one nvcc per
    source, all at once);
-2. drives the port's main path through its public entry points
-   (Table.from_pydict -> distributed_join -> distributed_groupby ->
-   to_pydict) on two workloads, each with the launch counters set to 0
-   just before and read just after:
+2. drives the port's main path through its public entry points on these
+   workloads, each with the launch counters set to 0 just before and read
+   just after:
      A: 8,000,000 rows a side, int32 keys uniform in [0, 8M) (about one
-        match per key), float32 payloads; inner join on k, then the sums of
-        both payloads by k_x;
+        match per key), float32 payloads; Table.from_pydict ->
+        distributed_join -> distributed_groupby (the sums of both payloads
+        by k_x) -> to_pydict;
      B: 1,000,000 orders (int64 cust in [0, 50k), float64 price) joined to
-        50,000 customers (int64 cust, string segment); sum of price by
-        segment;
-   and checks both against plain references (torch for A, numpy for B);
-   then the same two at world_size=4 through the chunked hash shuffle
-   (four shards round-robin over the visible cards, all on cuda:0 with
-   one card):
+        50,000 customers (int64 cust, string segment), the flow of
+        examples/join_groupby.py: CylonEnv, DataFrame.merge(on="cust"),
+        groupby("segment").agg({"price": "sum"});
+   checked against plain references (torch for A, numpy for B); then the
+   same two at world_size=4 through the chunked hash shuffle (four shards
+   round-robin over the visible cards, all on cuda:0 with one card):
      A4: workload A's data, once at the default 32 MiB shuffle budget
          (K = 1 round) and once at 4 MiB (K = 4), against A's reference;
      B4: workload B, whose groupby shuffles on the string segment;
+   then the PK-FK join (kernel B5), on benchmarks/pallas_bench.py's data
+   at workload A's scale:
+     PK: 8,000,000 unique int32 right keys permutation(16M)[:8M], 8M left
+         keys drawn from them, float32 payloads v and w;
+         distributed_join(on="k", algorithm="pallas_pk") ->
+         distributed_groupby("k_x", {"v": "sum", "w": "sum"}), with no
+         speculation miss, against the sort join on the same tables (join
+         rows as a multiset, exactly) and a plain float64 reference (sums);
+     PK4: PK's data at world_size=4;
+     and a small right side with one duplicate key, which must fall back
+     to the sort join exactly once and equal it;
 3. holds each kernel against its plain PyTorch version on the inputs the
    main path gave it (exact: the kernels move integers), and times kernel,
    plain version and the one PyTorch call that computes the same function
    where there is one;
-4. profiles one join + groupby of workloads A and A4 with torch.profiler
-   (device time by kernel and by op, and the card's busy share);
+4. profiles one join + groupby of workloads A, A4_K4, PK and PK4 with
+   torch.profiler (device time by kernel and by op, and the card's busy
+   share);
 5. prints the profile lines, a JSON line of kernels, one JSON line per
    workload, the card's name and power limit, and as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -54,9 +66,15 @@ REPS_E2E_4 = 3  # timed runs of workload A4 per budget
 WORLD = 4
 BUDGET_SMALL = 4 * 1024 * 1024  # A4's multi-round run: bucket_cap 131072, K = 4
 
+N_DUP = 100_000  # rows a side of the duplicate-key fallback check
+
 # peak memory bandwidth by card (NVIDIA data sheets); SXM5 H100 otherwise
 _PEAK_BW = {"PCIe": 2.0e12, "NVL": 3.9e12, "H200": 4.8e12}
 _H100_SXM_BW = 3.35e12
+# 32-bit integer issue rate per SM and cycle (Hopper white paper: 64 INT32
+# lanes per SM) and the H100 SXM5 boost clock (data sheet)
+_INT32_PER_SM_CLK = 64
+_BOOST_HZ = 1.98e9
 
 
 def fail(msg: str):
@@ -132,7 +150,7 @@ def main() -> None:
     try:
         import cylon_tpu_torch as ctt
         from cylon_tpu_torch import _build
-        from cylon_tpu_torch.ops import cuda_codec, cuda_gather, cuda_radix
+        from cylon_tpu_torch.ops import cuda_codec, cuda_gather, cuda_probe, cuda_radix, pk_join
         from cylon_tpu_torch.parallel import shuffle as _sh
         from cylon_tpu_torch.ops import radix as _radix
         from cylon_tpu_torch.ops.sort import orderable_key
@@ -170,6 +188,7 @@ def main() -> None:
 
     orig_hist, orig_dest = cuda_codec.pack_hist, cuda_codec.pack_dest
     orig_move, orig_plan = cuda_codec.compact_move, _sh.plan_rounds
+    orig_probe = cuda_probe.probe
     plans = []  # (bucket_cap, n_rounds) of every shuffle of a run
 
     def rec_hist(words, valids, has_valid, n, P, pid=None):
@@ -192,20 +211,29 @@ def main() -> None:
         plans.append(orig_plan(*args, **kw))
         return plans[-1]
 
+    def rec_probe(lk, rk, rid, nb, B):
+        if "probe" not in seen or lk.numel() > seen["probe"][0].numel():
+            seen["probe"] = (lk, rk, rid, nb, B)
+        return orig_probe(lk, rk, rid, nb, B)
+
     cuda_radix.radix_pass = rec_pass
     cuda_gather.expand_rows = rec_expand
     cuda_codec.pack_hist, cuda_codec.pack_dest = rec_hist, rec_dest
     cuda_codec.compact_move, _sh.plan_rounds = rec_move, rec_plan
+    cuda_probe.probe = rec_probe
+    launch_counters = (cuda_radix.LAUNCHES, cuda_gather.LAUNCHES, cuda_codec.LAUNCHES,
+                       cuda_probe.LAUNCHES)
 
     def reset_counts():
-        for d in (cuda_radix.LAUNCHES, cuda_gather.LAUNCHES, cuda_codec.LAUNCHES):
+        for d in launch_counters:
             for k in d:
                 d[k] = 0
         _radix.COUNTS["declined"] = 0
+        pk_join.COUNTS["fallback"] = 0
         plans.clear()
 
     def counts():
-        return {**cuda_radix.LAUNCHES, **cuda_gather.LAUNCHES, **cuda_codec.LAUNCHES}
+        return {k: v for d in launch_counters for k, v in d.items()}
 
     def require_launches(c, what, names):
         for k in names:
@@ -220,8 +248,11 @@ def main() -> None:
 
     local_kernels = list(cuda_radix.LAUNCHES) + list(cuda_gather.LAUNCHES)
     all_kernels = local_kernels + list(cuda_codec.LAUNCHES)
+    # the PK join has no left-order emit: K1 and B5, plus the codec at world 4
+    pk_kernels = list(cuda_radix.LAUNCHES) + list(cuda_probe.LAUNCHES)
 
-    ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig())
+    env = ctt.CylonEnv(config=ctt.GPUConfig())
+    ctx = env.context
     if ctx.device.type != "cuda":
         fail(f"GPUConfig() resolved to {ctx.device}")
 
@@ -325,9 +356,10 @@ def main() -> None:
                  "segment": rng.choice(["consumer", "corporate", "home"], N_CUST)}
 
     def run_b():
-        to, tc = ctt.Table.from_pydict(ctx, orders), ctt.Table.from_pydict(ctx, customers)
-        jb = to.distributed_join(tc, on="cust", how="inner")
-        return jb, jb.distributed_groupby("segment", {"price": "sum"}).to_pydict()
+        df_o = ctt.DataFrame(orders, ctx=ctx)
+        df_c = ctt.DataFrame(customers, ctx=ctx)
+        jb = df_o.merge(df_c, on="cust", env=env)
+        return jb, jb.groupby("segment", env=env).agg({"price": "sum"}).to_dict()
 
     run_b()
     seen.clear()
@@ -341,7 +373,7 @@ def main() -> None:
     seg_names, seg_code = np.unique(customers["segment"], return_inverse=True)
     want = np.bincount(seg_code[orders["cust"]], weights=orders["price"],
                        minlength=len(seg_names))
-    if jb.row_count != N_ORDERS or list(gb_host["segment"]) != list(seg_names):
+    if len(jb) != N_ORDERS or list(gb_host["segment"]) != list(seg_names):
         fail("workload B: join rows or segments differ from the reference")
     # float64 sums of ~330k terms in another order: rtol 1e-9
     if not np.allclose(np.asarray(gb_host["price_sum"], np.float64), want, rtol=1e-9, atol=0):
@@ -355,7 +387,8 @@ def main() -> None:
     # ------------------------------------------------------------------
     # workload A4: A's data at world 4 through the hash shuffle
     # ------------------------------------------------------------------
-    ctx4 = ctt.CylonContext.init_distributed(ctt.GPUConfig(world_size=WORLD))
+    env4 = ctt.CylonEnv(config=ctt.GPUConfig(world_size=WORLD))
+    ctx4 = env4.context
     placement = [str(d) for d in ctx4.devices]
     print(json.dumps({"world": WORLD, "shard_devices": placement}))
     tl4, tr4 = ctt.Table.from_pydict(ctx4, left), ctt.Table.from_pydict(ctx4, right)
@@ -429,9 +462,10 @@ def main() -> None:
     # workload B4: B at world 4 (the groupby shuffles on a string key)
     # ------------------------------------------------------------------
     def run_b4():
-        to, tc = ctt.Table.from_pydict(ctx4, orders), ctt.Table.from_pydict(ctx4, customers)
-        jb4 = to.distributed_join(tc, on="cust", how="inner")
-        return jb4, jb4.distributed_groupby("segment", {"price": "sum"})
+        df_o = ctt.DataFrame(orders, ctx=ctx4)
+        df_c = ctt.DataFrame(customers, ctx=ctx4)
+        jb4 = df_o.merge(df_c, on="cust", env=env4)
+        return jb4, jb4.groupby("segment", env=env4).agg({"price": "sum"})
 
     run_b4()
     seen.clear()
@@ -439,23 +473,150 @@ def main() -> None:
     reset_counts()
     t0 = time.perf_counter()
     jb4, gb4 = run_b4()
-    gb4_host = gb4.to_pydict()
+    gb4_host = gb4.to_dict()
     b4_s = time.perf_counter() - t0
     launches_b4, plans_b4 = counts(), list(plans)
     require_launches(launches_b4, "workload B4", all_kernels)
     order = np.argsort(np.asarray(gb4_host["segment"], dtype=str))
-    if jb4.row_count != N_ORDERS or [gb4_host["segment"][i] for i in order] != list(seg_names):
+    if len(jb4) != N_ORDERS or [gb4_host["segment"][i] for i in order] != list(seg_names):
         fail("workload B4: join rows or segments differ from the reference")
     if not np.allclose(np.asarray(gb4_host["price_sum"], np.float64)[order], want, rtol=1e-9, atol=0):
         fail("workload B4: price sums differ from the reference")
     work_b4 = {"workload": "B4", "world": WORLD, "orders": N_ORDERS, "customers": N_CUST,
                "end_to_end_s": b4_s, "launches": launches_b4, "shuffle_plans": plans_b4,
-               "group_shard_rows": gb4.row_counts.tolist()}
+               "group_shard_rows": gb4.table.row_counts.tolist()}
     captured_b4 = on_card(seen)
     del jb4, gb4
+
+    # ------------------------------------------------------------------
+    # workloads PK and PK4: the PK-FK join (algorithm="pallas_pk", B5)
+    # ------------------------------------------------------------------
+    rng_pk = np.random.default_rng(SEED)
+    r_key = rng_pk.permutation(np.arange(2 * N_A, dtype=np.int32))[:N_A]  # unique PK
+    l_key = rng_pk.choice(r_key, size=N_A, replace=True)  # FK, every row hits
+    pk_left = {"k": l_key, "v": rng_pk.normal(size=N_A).astype(np.float32)}
+    pk_right = {"k": r_key, "w": rng_pk.normal(size=N_A).astype(np.float32)}
+    # plain float64 reference of the sums by key
+    kl_pk = torch.from_numpy(l_key).to(dev).long()
+    cl_pk = torch.bincount(kl_pk, minlength=2 * N_A)
+    sv_pk = torch.zeros(2 * N_A, dtype=torch.float64, device=dev).index_add_(
+        0, kl_pk, torch.from_numpy(pk_left["v"]).to(dev).double())
+    wk_pk = torch.zeros(2 * N_A, dtype=torch.float64, device=dev)
+    wk_pk[torch.from_numpy(r_key).to(dev).long()] = torch.from_numpy(pk_right["w"]).to(dev).double()
+    keys_pk = torch.nonzero(cl_pk > 0).squeeze(1)
+    pk_sums = (("v_sum", sv_pk[keys_pk]), ("w_sum", cl_pk[keys_pk] * wk_pk[keys_pk]))
+    del kl_pk, sv_pk, wk_pk
+
+    def run_pk(tl_, tr_, algorithm):
+        j = tl_.distributed_join(tr_, on="k", how="inner", algorithm=algorithm)
+        torch.cuda.synchronize()
+        t_join = time.perf_counter()
+        g = j.distributed_groupby("k_x", {"v": "sum", "w": "sum"})
+        torch.cuda.synchronize()
+        return j, g, t_join
+
+    def row_sorted(j):
+        """The join's rows in (k_x, bits of v) order: its multiset, since
+        w follows from k (unique right keys)."""
+        kx, v = j.column("k_x").data.long(), j.column("v").data
+        order = torch.argsort((kx << 32) | (v.view(torch.int32).long() & 0xFFFFFFFF))
+        return [j.column(c).data[order] for c in ("k_x", "v", "k_y", "w")]
+
+    def check_pk(j, g, j_sort, g_sort, what):
+        if j.row_count != N_A or j_sort.row_count != N_A:
+            fail(f"{what}: join rows {j.row_count} (sort join {j_sort.row_count}) != {N_A}")
+        for c, (a, b) in zip(("k_x", "v", "k_y", "w"), zip(row_sorted(j), row_sorted(j_sort))):
+            if not torch.equal(a, b):
+                fail(f"{what}: join column {c} differs from the sort join's as a multiset")
+        gk, gk_sort = g.column("k_x").data.long(), g_sort.column("k_x").data.long()
+        order, order_sort = torch.argsort(gk), torch.argsort(gk_sort)
+        if not (torch.equal(gk[order], keys_pk) and torch.equal(gk_sort[order_sort], keys_pk)):
+            fail(f"{what}: group keys differ from the sort join's groupby or the reference")
+        # float32 sums of 1-10 terms against float64 references, workload
+        # A's tolerance: the card's segment sums add by atomics, in no fixed
+        # order, so two groupbys of the same rows agree only to rounding
+        for col, ref in pk_sums:
+            for gg, oo in ((g, order), (g_sort, order_sort)):
+                err = (gg.column(col).data.double()[oo] - ref).abs()
+                if not bool((err <= 1e-4 + 1e-5 * ref.abs()).all()):
+                    fail(f"{what}: {col} max abs err {float(err.max())}")
+
+    def measure_pk(what, c):
+        tl_, tr_ = ctt.Table.from_pydict(c, pk_left), ctt.Table.from_pydict(c, pk_right)
+        run_pk(tl_, tr_, "pallas_pk")  # warm-up
+        seen.pop("probe", None)
+        reset_counts()
+        t0 = time.perf_counter()
+        j, g, t_join = run_pk(tl_, tr_, "pallas_pk")
+        t_end = time.perf_counter()
+        launches, fallbacks = counts(), pk_join.COUNTS["fallback"]
+        require_launches(launches, what, pk_kernels + (list(cuda_codec.LAUNCHES) if c is ctx4 else []))
+        if fallbacks != 0:
+            fail(f"{what}: {fallbacks} speculation misses fell back to the sort join")
+        join_t, gb_t = [t_join - t0], [t_end - t_join]
+        for _ in range(REPS_E2E - 1):
+            t0 = time.perf_counter()
+            _j, _g, t_join = run_pk(tl_, tr_, "pallas_pk")
+            join_t.append(t_join - t0)
+            gb_t.append(time.perf_counter() - t_join)
+            del _j, _g
+        run_pk(tl_, tr_, "sort")  # warm-up of the sort join on the same data
+        sort_j, sort_g = [], []
+        for _ in range(REPS_E2E):
+            t0 = time.perf_counter()
+            j_sort, g_sort, t_join = run_pk(tl_, tr_, "sort")
+            sort_j.append(t_join - t0)
+            sort_g.append(time.perf_counter() - t_join)
+        check_pk(j, g, j_sort, g_sort, what)
+        if pk_join.COUNTS["fallback"] != 0:
+            fail(f"{what}: a speculation miss in the timed runs")
+        js, gs = float(np.median(join_t)), float(np.median(gb_t))
+        sjs, sgs = float(np.median(sort_j)), float(np.median(sort_g))
+        nb, B = seen["probe"][3], seen["probe"][4]
+        work = {
+            "workload": what, "world": c.world_size, "rows_per_side": N_A,
+            "join_rows": j.row_count, "groups": g.row_count, "nb": nb, "B": B,
+            "join_shard_rows": j.row_counts.tolist(),
+            "join_s": js, "groupby_s": gs, "join_s_all": join_t, "groupby_s_all": gb_t,
+            "input_rows_per_s": 2 * N_A / (js + gs),
+            "sort_join_s": sjs, "sort_groupby_s": sgs, "sort_join_s_all": sort_j,
+            "sort_input_rows_per_s": 2 * N_A / (sjs + sgs),
+            "launches": launches, "fallbacks": fallbacks,
+            "radix_declined": _radix.COUNTS["declined"],
+        }
+        return work, tl_, tr_
+
+    work_pk, tl_pk, tr_pk = measure_pk("PK", ctx)
+    captured_pk = dict(seen)
+    print(json.dumps({"profile_pk": profile(lambda: run_pk(tl_pk, tr_pk, "pallas_pk"))}))
+    del tl_pk, tr_pk
+    work_pk4, tl_pk, tr_pk = measure_pk("PK4", ctx4)
+    print(json.dumps({"profile_pk4": profile(lambda: run_pk(tl_pk, tr_pk, "pallas_pk"))}))
+    del tl_pk, tr_pk
+
+    # a duplicate right key: one speculation miss, then the exact sort join
+    dl = {"k": l_key[:N_DUP], "v": pk_left["v"][:N_DUP]}
+    dr = {"k": r_key[:N_DUP].copy(), "w": pk_right["w"][:N_DUP]}
+    dr["k"][7] = dr["k"][3]
+    tdl, tdr = ctt.Table.from_pydict(ctx, dl), ctt.Table.from_pydict(ctx, dr)
+    reset_counts()
+    j_dup = tdl.distributed_join(tdr, on="k", algorithm="pallas_pk")
+    dup_fallbacks = pk_join.COUNTS["fallback"]
+    j_dup_sort = tdl.distributed_join(tdr, on="k")
+    if dup_fallbacks != 1:
+        fail(f"duplicate-key case: {dup_fallbacks} fallbacks, expected 1")
+    if j_dup.column_names != j_dup_sort.column_names or not all(
+        torch.equal(j_dup.column(c).data, j_dup_sort.column(c).data) for c in j_dup.column_names
+    ):
+        fail("duplicate-key case: the fallback differs from the sort join")
+    work_dup = {"workload": "PK_dup", "rows_per_side": N_DUP, "join_rows": j_dup.row_count,
+                "fallbacks": dup_fallbacks}
+    del j_dup, j_dup_sort, tdl, tdr
+
     cuda_radix.radix_pass, cuda_gather.expand_rows = orig_pass, orig_expand
     cuda_codec.pack_hist, cuda_codec.pack_dest = orig_hist, orig_dest
     cuda_codec.compact_move, _sh.plan_rounds = orig_move, orig_plan
+    cuda_probe.probe = orig_probe
 
     # ------------------------------------------------------------------
     # each kernel against its plain version, at the main path's shapes
@@ -517,6 +678,14 @@ def main() -> None:
     if err_ph or err_pd or err_cm:
         fail(f"kernel mismatch: pack_hist {err_ph}, pack_dest {err_pd}, compact_move {err_cm}")
 
+    # B5 on the probe of PK's world-1 join (the largest it made)
+    p_lk, p_rk, p_rid, p_nb, p_B = captured_pk["probe"]
+    got_p = cuda_probe.probe(p_lk, p_rk, p_rid, p_nb, p_B)
+    torch.cuda.synchronize()
+    err_pk = max_err(got_p, cuda_probe.probe_plain(p_lk, p_rk, p_rid, p_nb, p_B))
+    if err_pk:
+        fail(f"kernel mismatch: pk_probe {err_pk}")
+
     esz = enc.element_size()
     ms_h = cuda_ms(lambda: cuda_radix.radix_hist(enc, perm, shift, bits))
     ms_hp = cuda_ms(lambda: cuda_radix.radix_hist_plain(enc, perm, shift, bits))
@@ -547,6 +716,18 @@ def main() -> None:
     bytes_h = 4 * n + esz * n + 4 * 256 * nt
     bytes_s = 4 * n + esz * n + 4 * 256 * nt + 4 * n
     bytes_x = 4 * L * touched + 4 * n_out + 4 * L * n_out
+    ms_p = cuda_ms(lambda: cuda_probe.probe(p_lk, p_rk, p_rid, p_nb, p_B))
+    ms_pp = cuda_ms(lambda: cuda_probe.probe_plain(p_lk, p_rk, p_rid, p_nb, p_B), reps=3)
+    # B5's bound: its bytes (left key, right key, right id in, result out).
+    # A per-bucket hash table answers each left slot in about one probe, so
+    # the function needs no more operations than slots; the compares of
+    # this all-pairs kernel (live right slots only, and all nb * B * B) are
+    # kept beside it for information
+    bytes_p = 16 * p_nb * p_B
+    live_r = int((p_rid >= 0).sum())
+    cmp_live, cmp_full = p_B * live_r, p_nb * p_B * p_B
+    int_rate = torch.cuda.get_device_properties(0).multi_processor_count * _INT32_PER_SM_CLK * _BOOST_HZ
+    bound_p_bytes, cmp_live_ms = bytes_p / bw * 1e3, cmp_live / int_rate * 1e3
     # a whole stable argsort of workload A's right keys: 4 K1 passes vs torch.sort
     kr32 = torch.from_numpy(right["k"]).to(dev)
     lane = orderable_key(kr32)
@@ -597,6 +778,14 @@ def main() -> None:
          "ms": ms_cm, "plain_ms": ms_cmp, "bound_ms": bytes_cm / bw * 1e3,
          "bound_by": "bytes", "library_ms": None, "argsort_gather_ms": ms_chain,
          "shape": [m_P, m_bc, lm], "launches_a4_k4": work_a4k["launches"]["compact_move"]},
+        {"name": "pk_probe", "route": "cuda", "source": "cylon_tpu_torch/csrc/pk_probe.cu",
+         "replaces": "cylon_tpu/ops/pallas_join.py:82",
+         "launches": work_pk["launches"]["pk_probe"], "max_abs_err": err_pk,
+         "ms": ms_p, "plain_ms": ms_pp, "bound_ms": bound_p_bytes, "bound_by": "bytes",
+         "library_ms": None, "shape": [p_nb, p_B], "bytes": bytes_p,
+         "compares_live": cmp_live, "compares_full": cmp_full,
+         "int32_ops_per_s": int_rate, "compares_live_ms": cmp_live_ms,
+         "launches_pk4": work_pk4["launches"]["pk_probe"]},
     ]
     print(json.dumps({"argsort": argsort, "peak_bw_bytes_per_s": bw}))
     print(json.dumps({"kernels": kernels}))
@@ -605,6 +794,9 @@ def main() -> None:
     print(json.dumps(work_a4))
     print(json.dumps(work_a4k))
     print(json.dumps(work_b4))
+    print(json.dumps(work_pk))
+    print(json.dumps(work_pk4))
+    print(json.dumps(work_dup))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -5,14 +5,20 @@ module structure and names and runs on one NVIDIA Hopper card (or on the
 CPU when the caller asks for it). It imports neither JAX nor ``cylon_tpu``.
 
     import cylon_tpu_torch as ctt
-    ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig())  # cuda:0
-    left = ctt.Table.from_pandas(ctx, df_left)
-    right = ctt.Table.from_pandas(ctx, df_right)
-    joined = left.distributed_join(right, on="k", how="inner")
-    out = joined.distributed_groupby("k_x", {"v": "sum"}).to_pandas()
+    env = ctt.CylonEnv(config=ctt.GPUConfig())  # cuda:0
+    orders = ctt.DataFrame(df_orders, ctx=env.context)
+    customers = ctt.DataFrame(df_customers, ctx=env.context)
+    joined = orders.merge(customers, on="cust", env=env)
+    by_seg = joined.groupby("segment", env=env).agg({"price": "sum"})
+
+or, one level down, ``Table.from_pandas(ctx, df)`` with
+``distributed_join(..., algorithm="sort" | "pallas_pk")`` and
+``distributed_groupby``.
 """
 from .config import GPUConfig
 from .context import CylonContext
+from .frame import CylonEnv, DataFrame
+from .join_config import JoinConfig
 from .table import Table
 
-__all__ = ["CylonContext", "GPUConfig", "Table"]
+__all__ = ["CylonContext", "CylonEnv", "DataFrame", "GPUConfig", "JoinConfig", "Table"]

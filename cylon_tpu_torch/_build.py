@@ -27,7 +27,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
-SOURCES = ("radix_pass", "expand_rows", "shuffle_codec")
+SOURCES = ("radix_pass", "expand_rows", "shuffle_codec", "pk_probe")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -23,10 +23,11 @@ import torch
 from .column import Column, unify_dictionaries
 from .context import CylonContext
 from .dtypes import DataType, numpy_dtype, promote_key_dtypes
-from .engine import shard_caps
+from .engine import round_cap, shard_caps
 from .ops import cuda_codec as _codec
 from .ops import groupby as _g
 from .ops import join as _j
+from .ops import pk_join as _pk
 from .ops.gather import KeyCol, lane_plan, pack_cols, pack_gather
 from .ops.hash import hash_dictionary_host
 from .parallel import shuffle as _sh
@@ -235,16 +236,37 @@ class Table:
         right_on: Optional[Sequence[str]] = None,
         suffixes: Tuple[str, str] = ("_x", "_y"),
         algorithm: str = "sort",
+        config: Optional[Any] = None,
         emit_order: str = "left",
     ) -> "Table":
         """Per-shard (local) equi-join, all four types; output rows in
         left-row order (pandas merge order), left columns then right
-        columns, suffixes on name collisions."""
+        columns, suffixes on name collisions.
+
+        ``algorithm``: 'sort' and 'hash' both run the sort join;
+        'pallas_pk' runs the bucketed PK-FK probe (kernel B5) for an inner
+        join on one null-free integer key of <= 32 bits, speculating that
+        the right keys are unique: a duplicate or a bucket overflow on any
+        shard reruns the exact sort join. ``config`` takes a
+        :class:`~cylon_tpu_torch.join_config.JoinConfig` and must then be
+        the only join argument."""
+        if config is not None:
+            if (
+                on is not None or left_on is not None or right_on is not None
+                or how != "inner" or suffixes != ("_x", "_y")
+                or algorithm != "sort" or emit_order != "left"
+            ):
+                raise ValueError(
+                    "pass either config= or explicit join arguments, not both"
+                )
+            return self.join(other, **config.kwargs())
         _check_join_args(algorithm, emit_order)
         if other.ctx.devices != self.ctx.devices:
             raise ValueError("join of tables on different devices")
-        howi = _j.join_type_id(how)
         l_names, r_names = self._resolve_join_keys(other, on, left_on, right_on)
+        if algorithm == "pallas_pk":
+            return self._pallas_pk_join(other, l_names, r_names, how, suffixes)
+        howi = _j.join_type_id(how)
         left, right = _unify_dict_pair(self, other, l_names, r_names)
         out_names = _suffix_names(left.column_names, right.column_names, suffixes)
         shards, counts = [], []
@@ -253,12 +275,69 @@ class Table:
                 left._flat_cols(s, l_names), right._flat_cols(s, r_names),
                 left._flat_cols(s), right._flat_cols(s), howi,
             )
-            src = list(left._shards[s].values()) + list(right._shards[s].values())
-            cols: Shard = OrderedDict()
-            for name, c, (d, v) in zip(out_names, src, out):
-                cols[name] = Column(d, c.dtype, v, c.dictionary)
-            shards.append(cols)
+            shards.append(_out_shard(out_names, left, right, s, out))
             counts.append(total)
+        return Table(self.ctx, shards, counts)
+
+    def _pallas_pk_join(
+        self, other: "Table", l_names, r_names, how: str, suffixes: Tuple[str, str]
+    ) -> "Table":
+        """``algorithm='pallas_pk'``: per shard, the bucketed PK-FK probe
+        (ops/pk_join.py, kernel B5), then one packed gather a side. One host
+        sync reads every shard's (total, bad); a miss on any shard reruns
+        the exact sort join on the original tables, left-order output."""
+        if how != "inner":
+            raise ValueError("algorithm='pallas_pk' supports how='inner' only")
+        left, right = _unify_dict_pair(self, other, l_names, r_names)
+        left, right = _promote_key_pair(left, right, l_names, r_names)
+        lk0, rk0 = left._shards[0][l_names[0]], right._shards[0][r_names[0]]
+        if len(l_names) != 1 or lk0.valid is not None or rk0.valid is not None:
+            raise ValueError(
+                "algorithm='pallas_pk' needs a single null-free key column"
+            )
+        kd = lk0.data.dtype
+        if kd not in _pk.KEY_DTYPES:
+            raise ValueError(
+                "algorithm='pallas_pk' needs an integer (or dictionary-"
+                f"encoded) key <= 32 bits, got {numpy_dtype(kd)}"
+            )
+        # the bucket count from the capacities the JAX package pads every
+        # shard to, so that the buckets, the overflow decision and the
+        # output order are its own
+        caps = (round_cap(left._counts.max()), round_cap(right._counts.max()))
+        # at a power-of-two W the shuffle routes a row to shard h & (W - 1)
+        # of the same hash, so within a shard those low bits are constant:
+        # the bucket id takes the bits above them, or a shard would fill 1/W
+        # of its buckets and overflow them (the JAX package takes the low
+        # bits at every world size, so after its shuffle a shard uses 1/W of
+        # its buckets). At other W the shuffle routes by h % W, no low bit is
+        # constant, and the shift only picks other bits of the same hash.
+        shift = (self.world_size - 1).bit_length()
+        parts = [
+            _pk.pk_inner_join(
+                left._shards[s][l_names[0]].data, right._shards[s][r_names[0]].data,
+                caps=caps, shift=shift,
+            )
+            for s in range(self.world_size)
+        ]
+        dev0 = self.ctx.device
+        stats = torch.stack(
+            [torch.stack([total, bad.to(total.dtype)]).to(dev0) for _l, _r, total, bad in parts]
+        ).cpu().numpy()  # the one host sync
+        if int(stats[:, 1].sum()) != 0:
+            _pk.COUNTS["fallback"] += 1
+            return self.join(
+                other, left_on=l_names, right_on=r_names, how=how, suffixes=suffixes
+            )
+        out_names = _suffix_names(left.column_names, right.column_names, suffixes)
+        shards, counts = [], []
+        for s, (l_idx, r_idx, _total, _bad) in enumerate(parts):
+            n = int(stats[s, 0])
+            out = pack_gather(left._flat_cols(s), l_idx[:n], all_valid=True) + pack_gather(
+                right._flat_cols(s), r_idx[:n], all_valid=True
+            )
+            shards.append(_out_shard(out_names, left, right, s, out))
+            counts.append(n)
         return Table(self.ctx, shards, counts)
 
     def distributed_join(
@@ -373,14 +452,24 @@ class Table:
 
 
 def _check_join_args(algorithm: str, emit_order: str) -> None:
-    if algorithm == "pallas_pk":
-        raise _not_ported("algorithm='pallas_pk'", "queue B, kernel B5")
-    if algorithm not in ("sort", "hash"):
+    if algorithm not in ("sort", "hash", "pallas_pk"):
         raise ValueError(f"unknown join algorithm {algorithm!r}")
-    if emit_order == "key":
-        raise _not_ported("emit_order='key'", "queue A, key-order join emit")
-    if emit_order != "left":
+    if emit_order not in ("left", "key"):
         raise ValueError(f"unknown emit_order {emit_order!r}")
+    if emit_order == "key":
+        if algorithm == "pallas_pk":
+            raise ValueError("emit_order='key' is not supported by algorithm='pallas_pk'")
+        raise _not_ported("emit_order='key'", "queue A, key-order join emit")
+
+
+def _out_shard(out_names, left: "Table", right: "Table", s: int, out) -> Shard:
+    """Shard s of a join output: the gathered (data, valid) pairs under the
+    output names, with the source columns' types and dictionaries."""
+    src = list(left._shards[s].values()) + list(right._shards[s].values())
+    cols: Shard = OrderedDict()
+    for name, c, (d, v) in zip(out_names, src, out):
+        cols[name] = Column(d, c.dtype, v, c.dictionary)
+    return cols
 
 
 def _suffix_names(lnames, rnames, suffixes):

@@ -75,7 +75,7 @@ def _tables():
     "call",
     [
         lambda t: t.distributed_join(t, on="k", mode="fused"),
-        lambda t: t.join(t, on="k", algorithm="pallas_pk"),
+        lambda t: t.groupby("k", {"v": "std"}),
         lambda t: t.join(t, on="k", emit_order="key"),
         lambda t: t.groupby("k", {"v": "var"}),
         lambda t: t.groupby("k", {"v": "nunique"}),

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import cylon_tpu_torch as ctt
-from cylon_tpu_torch.ops import cuda_codec, cuda_gather, cuda_radix
+from cylon_tpu_torch.ops import cuda_codec, cuda_gather, cuda_probe, cuda_radix, pk_join
 
 pytestmark = pytest.mark.cuda
 
@@ -184,3 +184,59 @@ def test_world4_main_path_on_card_matches_cpu(dev, how, placement):
                 assert (va is None) == (vb is None)
                 if va is not None:
                     np.testing.assert_array_equal(va, vb)
+
+
+@pytest.mark.parametrize("B", [4, 64, 256, 8192])
+def test_probe_kernel_matches_plain(dev, B):
+    """B5 against probe_plain: empty buckets and empty slots, duplicate
+    right keys in a bucket (the largest id wins), INT32_MIN as a live key
+    and as the empty slots' key, and uint32 keys above 2^31."""
+    rng = np.random.default_rng(B)
+    nb = max(4, 2**16 // B)
+    lk = rng.integers(-20, 20, nb * B).astype(np.int32)
+    rk = rng.integers(-20, 20, nb * B).astype(np.int32)
+    rid = rng.permutation(nb * B).astype(np.int32)
+    rid[rng.random(nb * B) < 0.3] = -1
+    empty = rng.choice(nb, nb // 4, replace=False)
+    for b in empty:  # whole buckets without rows
+        rid[b * B:(b + 1) * B] = -1
+    lk[::9] = np.iinfo(np.int32).min
+    rk[rid < 0] = np.iinfo(np.int32).min
+    big = torch.from_numpy((rng.integers(0, 40, nb * B) + 2**31 - 20).astype(np.uint32))
+    lk[1::5] = pk_join.probe_lane(big).numpy()[1::5]
+    rk[2::5] = pk_join.probe_lane(big).numpy()[2::5]
+    args = [torch.from_numpy(x) for x in (lk, rk, rid)]
+    got = cuda_probe.probe(*[x.to(dev) for x in args], nb, B)
+    torch.cuda.synchronize()
+    want = cuda_probe.probe_plain(*args, nb, B)
+    assert torch.equal(got.cpu(), want)
+    assert (want >= 0).any() and (want == -1).any()
+
+
+@pytest.mark.parametrize("world", [1, 4])
+def test_pallas_pk_join_on_card_matches_cpu(dev, world):
+    """The PK join on the card equals the same join on the CPU (the same
+    buckets, so the same rows in the same order), and a duplicate key
+    falls back on both."""
+    rng = np.random.default_rng(5)
+    n = 50_000
+    rk = rng.permutation(2 * n)[:n].astype(np.int32)
+    left = {"k": rng.choice(rk, n), "v": rng.normal(size=n).astype(np.float32)}
+    right = {"k": rk, "w": rng.normal(size=n)}
+    dup = dict(right, k=np.where(np.arange(n) == 7, rk[3], rk))
+    outs = []
+    for device in (dev, "cpu"):
+        ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=device, world_size=world))
+        tl = ctt.Table.from_pydict(ctx, left)
+        res = []
+        for r in (right, dup):
+            before = pk_join.COUNTS["fallback"]
+            j = tl.distributed_join(ctt.Table.from_pydict(ctx, r), on="k", algorithm="pallas_pk")
+            res.append((pk_join.COUNTS["fallback"] - before, j.row_counts, j.to_pydict()))
+        outs.append(res)
+    for (fa, ca, ja), (fb, cb, jb) in zip(*outs):
+        assert fa == fb
+        np.testing.assert_array_equal(ca, cb)
+        for c in ja:
+            np.testing.assert_array_equal(ja[c], jb[c])
+    assert [r[0] for r in outs[0]] == [0, 1]
