@@ -71,10 +71,6 @@ N_DUP = 100_000  # rows a side of the duplicate-key fallback check
 # peak memory bandwidth by card (NVIDIA data sheets); SXM5 H100 otherwise
 _PEAK_BW = {"PCIe": 2.0e12, "NVL": 3.9e12, "H200": 4.8e12}
 _H100_SXM_BW = 3.35e12
-# 32-bit integer issue rate per SM and cycle (Hopper white paper: 64 INT32
-# lanes per SM) and the H100 SXM5 boost clock (data sheet)
-_INT32_PER_SM_CLK = 64
-_BOOST_HZ = 1.98e9
 
 
 def fail(msg: str):
@@ -172,13 +168,13 @@ def main() -> None:
 
     # record the largest input each kernel wrapper sees on the main path
     seen = {}
-    orig_pass, orig_expand = cuda_radix.radix_pass, cuda_gather.expand_rows
+    orig_lane, orig_expand = cuda_radix.radix_sort_lane, cuda_gather.expand_rows
 
-    def rec_pass(enc, perm, shift, bits):
+    def rec_lane(enc, perm, lo, hi):
         key = f"radix_{enc.element_size() * 8}"
-        if key not in seen or perm.shape[0] > seen[key][1].shape[0]:
-            seen[key] = (enc, perm, shift, bits)
-        return orig_pass(enc, perm, shift, bits)
+        if key not in seen or enc.shape[0] > seen[key][0].shape[0]:
+            seen[key] = (enc, perm, lo, hi)
+        return orig_lane(enc, perm, lo, hi)
 
     def rec_expand(srcT, li):
         size = li.numel() * srcT.shape[0]
@@ -216,7 +212,7 @@ def main() -> None:
             seen["probe"] = (lk, rk, rid, nb, B)
         return orig_probe(lk, rk, rid, nb, B)
 
-    cuda_radix.radix_pass = rec_pass
+    cuda_radix.radix_sort_lane = rec_lane
     cuda_gather.expand_rows = rec_expand
     cuda_codec.pack_hist, cuda_codec.pack_dest = rec_hist, rec_dest
     cuda_codec.compact_move, _sh.plan_rounds = rec_move, rec_plan
@@ -613,7 +609,7 @@ def main() -> None:
                 "fallbacks": dup_fallbacks}
     del j_dup, j_dup_sort, tdl, tdr
 
-    cuda_radix.radix_pass, cuda_gather.expand_rows = orig_pass, orig_expand
+    cuda_radix.radix_sort_lane, cuda_gather.expand_rows = orig_lane, orig_expand
     cuda_codec.pack_hist, cuda_codec.pack_dest = orig_hist, orig_dest
     cuda_codec.compact_move, _sh.plan_rounds = orig_move, orig_plan
     cuda_probe.probe = orig_probe
@@ -626,30 +622,37 @@ def main() -> None:
             fail(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
         return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
-    enc, perm, shift, bits = captured_a["radix_32"]
-    n, nt = perm.shape[0], cuda_radix.n_tiles(perm.shape[0])
-    hist = cuda_radix.radix_hist(enc, perm, shift, bits)
-    offs = cuda_radix.scan_offsets(hist)
-    out = cuda_radix.radix_scatter(enc, perm, offs, shift, bits)
-    torch.cuda.synchronize()
-    err_h = max_err(hist, cuda_radix.radix_hist_plain(enc, perm, shift, bits))
-    err_s = max(max_err(out, cuda_radix.radix_scatter_plain(enc, perm, offs, shift, bits)),
-                max_err(out, cuda_radix.radix_pass_plain(enc, perm, shift, bits)))
+    def hold_lane(captured):
+        """K1a, one K1b pass and the whole lane sort against their plain
+        versions on a lane the main path sorted: (lane keys as the kernels
+        read them, errors)."""
+        enc, perm, lo, hi = captured
+        keys_in = enc if perm is None else enc.index_select(0, perm)
+        hist = cuda_radix.lane_hist(keys_in, lo, hi)
+        bits0 = min(8, hi - lo)
+        k1, p1 = cuda_radix.onesweep_pass(keys_in, perm, hist[0], lo, bits0)
+        sk, sp = cuda_radix.radix_sort_lane(enc, perm, lo, hi)
+        torch.cuda.synchronize()
+        e_h = max_err(hist, cuda_radix.lane_hist_plain(keys_in, lo, hi))
+        pk1, pp1 = cuda_radix.onesweep_pass_plain(keys_in, perm, lo, bits0)
+        psk, psp = cuda_radix.radix_sort_lane_plain(enc, perm, lo, hi)
+        e_s = max(max_err(k1, pk1), max_err(p1, pp1), max_err(sk, psk), max_err(sp, psp),
+                  max_err(sk, enc.index_select(0, sp)))
+        return keys_in, e_h, e_s
+
+    keys32, err_h, err_s = hold_lane(captured_a["radix_32"])
+    lo32, hi32 = captured_a["radix_32"][2:]
     wide = captured_b.get("radix_64")
     if wide is None:
-        fail("workload B made no 64-bit radix pass")
-    e64, p64, s64, b64 = wide
-    h64 = cuda_radix.radix_hist(e64, p64, s64, b64)
-    o64 = cuda_radix.radix_scatter(e64, p64, cuda_radix.scan_offsets(h64), s64, b64)
-    torch.cuda.synchronize()
-    err_h = max(err_h, max_err(h64, cuda_radix.radix_hist_plain(e64, p64, s64, b64)))
-    err_s = max(err_s, max_err(o64, cuda_radix.radix_pass_plain(e64, p64, s64, b64)))
+        fail("workload B made no 64-bit radix sort")
+    _k64, err_h64, err_s64 = hold_lane(wide)
+    err_h, err_s = max(err_h, err_h64), max(err_s, err_s64)
     srcT, li = captured_a["expand"]
     xk = cuda_gather.expand_rows(srcT, li)
     torch.cuda.synchronize()
     err_x = max_err(xk, cuda_gather.expand_rows_plain(srcT, li))
     if err_h or err_s or err_x:
-        fail(f"kernel mismatch: hist {err_h}, scatter {err_s}, expand {err_x}")
+        fail(f"kernel mismatch: lane_hist {err_h}, onesweep {err_s}, expand {err_x}")
 
     # B2a (hash mode at A4's main-path shape, a 64-bit key from B4, and
     # pid-input mode), B2b (A4 K = 4's largest round) and B3 (its largest
@@ -686,11 +689,46 @@ def main() -> None:
     if err_pk:
         fail(f"kernel mismatch: pk_probe {err_pk}")
 
-    esz = enc.element_size()
-    ms_h = cuda_ms(lambda: cuda_radix.radix_hist(enc, perm, shift, bits))
-    ms_hp = cuda_ms(lambda: cuda_radix.radix_hist_plain(enc, perm, shift, bits))
-    ms_s = cuda_ms(lambda: cuda_radix.radix_scatter(enc, perm, offs, shift, bits))
-    ms_sp = cuda_ms(lambda: cuda_radix.radix_scatter_plain(enc, perm, offs, shift, bits))
+    # K1 at the main path's largest 32-bit lane (A's merged kv-sort): the
+    # histogram of all its digits, and one pass that carries a perm (the
+    # first pass of a lane has none; it is timed too), then the same pass
+    # over random full-range keys with a random perm. Each timed pass gets
+    # its own zeroed status words, allocated before the timing.
+    n, esz = keys32.shape[0], keys32.element_size()
+    passes32 = cuda_radix.n_passes(lo32, hi32)
+    if passes32 < 2 or hi32 - lo32 < 16:
+        fail(f"workload A's largest lane spans [{lo32}, {hi32}): no full second digit to time")
+    hist32 = cuda_radix.lane_hist(keys32, lo32, hi32)
+    if int(hist32[1].max()) == n:
+        fail("workload A's timed digit is one value on every row: K1b would copy it through")
+    ident = torch.arange(n, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    keys_rand = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev, generator=gen)
+    perm_rand = torch.randperm(n, device=dev, generator=gen).to(torch.int32)
+    hist_rand = cuda_radix.lane_hist(keys_rand, 0, 32)
+    if int(hist_rand[1].max()) == n:
+        fail("random keys: the timed digit is one value on every row")
+    status = cuda_radix.status_words(n, 3 * REPS + 3, dev).view(3 * REPS + 3, -1)
+    bufs = (torch.empty_like(keys32), torch.empty_like(ident))
+    calls = iter(range(3 * REPS + 3))
+
+    def sweep(keys, perm, counts, shift):
+        return lambda: cuda_radix.onesweep_pass(keys, perm, counts, shift, 8,
+                                                status=status[next(calls)], out=bufs)
+
+    ms_h = cuda_ms(lambda: cuda_radix.lane_hist(keys32, lo32, hi32))
+    ms_hp = cuda_ms(lambda: cuda_radix.lane_hist_plain(keys32, lo32, hi32))
+    ms_s = cuda_ms(sweep(keys32, ident, hist32[1], lo32 + 8))
+    ms_s_ident = cuda_ms(sweep(keys32, None, hist32[1], lo32 + 8))
+    ms_s_rand = cuda_ms(sweep(keys_rand, perm_rand, hist_rand[1], 8))
+    k_r, p_r = cuda_radix.onesweep_pass(keys_rand, perm_rand, hist_rand[1], 8, 8)
+    torch.cuda.synchronize()
+    pk_r, pp_r = cuda_radix.onesweep_pass_plain(keys_rand, perm_rand, 8, 8)
+    err_s = max(err_s, max_err(k_r, pk_r), max_err(p_r, pp_r))
+    if err_s:
+        fail(f"kernel mismatch: onesweep on random keys {err_s}")
+    del keys_rand, perm_rand, k_r, p_r, pk_r, pp_r
+    ms_sp = cuda_ms(lambda: cuda_radix.onesweep_pass_plain(keys32, ident, lo32 + 8, 8))
     L, cap = srcT.shape
     n_out = li.numel()
     ms_x = cuda_ms(lambda: cuda_gather.expand_rows(srcT, li))
@@ -713,22 +751,17 @@ def main() -> None:
     bytes_pd = 4 * cap_d * 2 + 4 * d_P * nt_d
     bytes_cm = 4 * move.numel() + 4 * m_P * m_bc * lm
     touched = int(li.max()) + 1 if n_out else 0
-    bytes_h = 4 * n + esz * n + 4 * 256 * nt
-    bytes_s = 4 * n + esz * n + 4 * 256 * nt + 4 * n
+    bytes_h = esz * n + 4 * 256 * passes32  # keys in, counts out
+    bytes_s = 2 * (esz + 4) * n  # keys and perm in, keys and perm out
     bytes_x = 4 * L * touched + 4 * n_out + 4 * L * n_out
     ms_p = cuda_ms(lambda: cuda_probe.probe(p_lk, p_rk, p_rid, p_nb, p_B))
     ms_pp = cuda_ms(lambda: cuda_probe.probe_plain(p_lk, p_rk, p_rid, p_nb, p_B), reps=3)
-    # B5's bound: its bytes (left key, right key, right id in, result out).
-    # A per-bucket hash table answers each left slot in about one probe, so
-    # the function needs no more operations than slots; the compares of
-    # this all-pairs kernel (live right slots only, and all nb * B * B) are
-    # kept beside it for information
+    # B5's bound: its bytes (left key, right key, right id in, result out);
+    # its shared-memory hash table answers each left slot in about one probe
     bytes_p = 16 * p_nb * p_B
-    live_r = int((p_rid >= 0).sum())
-    cmp_live, cmp_full = p_B * live_r, p_nb * p_B * p_B
-    int_rate = torch.cuda.get_device_properties(0).multi_processor_count * _INT32_PER_SM_CLK * _BOOST_HZ
-    bound_p_bytes, cmp_live_ms = bytes_p / bw * 1e3, cmp_live / int_rate * 1e3
-    # a whole stable argsort of workload A's right keys: 4 K1 passes vs torch.sort
+    bound_p_bytes = bytes_p / bw * 1e3
+    # a whole stable argsort of workload A's right keys: one lane sort
+    # (a histogram, 4 one-sweep passes) vs torch.sort
     kr32 = torch.from_numpy(right["k"]).to(dev)
     lane = orderable_key(kr32)
     radix_perm = _radix.argsort_perm(lane)
@@ -739,22 +772,27 @@ def main() -> None:
         "n": N_A, "passes": 4,
         "radix_ms": cuda_ms(lambda: _radix.argsort_perm(lane)),
         "torch_sort_stable_ms": cuda_ms(lambda: torch.sort(kr32, stable=True)),
-        "bound_ms": (4 * N_A + 4 * N_A) / bw * 1e3,  # read the keys, write the perm
+        # the function: read the keys, write the perm
+        "bound_ms": (4 * N_A + 4 * N_A) / bw * 1e3,
+        # this design: the histogram's read, a first pass without a perm in
+        # (key in, key and perm out), 3 passes of key and perm in and out
+        "design_bound_ms": (4 + 12 + 3 * 16) * N_A / bw * 1e3,
     }
-
     src_radix = "cylon_tpu_torch/csrc/radix_pass.cu"
     src_codec = "cylon_tpu_torch/csrc/shuffle_codec.cu"
     kernels = [
-        {"name": "radix_hist", "route": "cuda", "source": src_radix,
+        {"name": "radix_lane_hist", "route": "cuda", "source": src_radix,
          "replaces": "cylon_tpu/ops/pallas_radix.py:86",
-         "launches": launches_a["radix_hist"], "max_abs_err": err_h,
+         "launches": launches_a["radix_lane_hist"], "max_abs_err": err_h,
          "ms": ms_h, "plain_ms": ms_hp, "bound_ms": bytes_h / bw * 1e3,
-         "bound_by": "bytes", "library_ms": None, "shape": [n, esz * 8]},
-        {"name": "radix_scatter", "route": "cuda", "source": src_radix,
+         "bound_by": "bytes", "library_ms": None, "shape": [n, esz * 8, passes32]},
+        {"name": "radix_onesweep", "route": "cuda", "source": src_radix,
          "replaces": "cylon_tpu/ops/pallas_radix.py:93",
-         "launches": launches_a["radix_scatter"], "max_abs_err": err_s,
+         "launches": launches_a["radix_onesweep"], "max_abs_err": err_s,
          "ms": ms_s, "plain_ms": ms_sp, "bound_ms": bytes_s / bw * 1e3,
-         "bound_by": "bytes", "library_ms": None, "shape": [n, esz * 8]},
+         "bound_by": "bytes", "library_ms": None, "shape": [n, esz * 8],
+         "ms_identity_perm": ms_s_ident, "bound_ms_identity_perm": (2 * esz + 4) * n / bw * 1e3,
+         "ms_random_keys": ms_s_rand},
         {"name": "expand_rows", "route": "cuda", "source": "cylon_tpu_torch/csrc/expand_rows.cu",
          "replaces": "cylon_tpu/ops/pallas_gather.py:52",
          "launches": launches_a["expand_rows"], "max_abs_err": err_x,
@@ -783,8 +821,6 @@ def main() -> None:
          "launches": work_pk["launches"]["pk_probe"], "max_abs_err": err_pk,
          "ms": ms_p, "plain_ms": ms_pp, "bound_ms": bound_p_bytes, "bound_by": "bytes",
          "library_ms": None, "shape": [p_nb, p_B], "bytes": bytes_p,
-         "compares_live": cmp_live, "compares_full": cmp_full,
-         "int32_ops_per_s": int_rate, "compares_live_ms": cmp_live_ms,
          "launches_pk4": work_pk4["launches"]["pk_probe"]},
     ]
     print(json.dumps({"argsort": argsort, "peak_bw_bytes_per_s": bw}))

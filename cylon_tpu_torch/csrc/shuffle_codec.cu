@@ -8,8 +8,9 @@
 // and round r's send slot dest = pid * bc + (pos - r * bc), or the sentinel
 // P * bc for rows of other rounds, dead rows and rows at or past n.
 // The Pallas kernel carries a running histogram across a sequential grid; a
-// CUDA grid runs its blocks in no order, so B2 is K1's structure
-// (csrc/radix_pass.cu) with the bucket in place of the digit:
+// CUDA grid runs its blocks in no order, so B2 takes two kernels and a scan
+// between them, the design the radix pass K1 had before its one-sweep
+// rewrite, with the bucket in place of the digit:
 //
 //   B2a ct_pack_hist: one block per TILE rows hashes them, writes the int32
 //                     partition-id lane (dead rows: P) and the tile's

@@ -2,7 +2,8 @@
 (csrc/shuffle_codec.cu; replace cylon_tpu/ops/pallas_codec.py's
 ``fused_pack_dest`` and ``fused_compact_move``).
 
-B2 is two kernels and one scan, as K1 is (ops/cuda_radix.py):
+B2 is two kernels and one scan between them (the design the radix pass K1
+had before its one-sweep rewrite):
 
 * B2a :func:`pack_hist` — per row the partition id (the murmur3 chain over
   the key words of :func:`key_words`, or a given pid lane), per tile the

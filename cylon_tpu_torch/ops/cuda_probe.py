@@ -5,8 +5,10 @@ cylon_tpu/ops/pallas_join.py::_pallas_probe and its _probe_block kernel).
 ``B`` slots (ops/pk_join.bucket_layout), keys as int32 bit patterns, right
 row ids int32 with -1 on an empty slot. For every left slot, the largest
 live right row id in its bucket whose key is equal, else -1. With unique
-right keys that is the unique match. Bound on the H100: bytes (see the
-note in the source).
+right keys that is the unique match. The kernel builds one open-addressing
+hash table per bucket in shared memory (its size rule lives in the
+source); a B whose table does not fit a block's 227 KB raises
+``ValueError``. Bound on the H100: bytes (see the note in the source).
 
 For a CUDA tensor the wrapper launches the kernel; for a CPU tensor it uses
 the plain version. ``LAUNCHES`` counts kernel launches.
@@ -43,6 +45,10 @@ def _setup(lib) -> None:
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.ct_pk_probe.argtypes = [p, p, p, p, i64, i64, p]
     lib.ct_pk_probe.restype = ctypes.c_int
+    lib.ct_pk_probe_shared_bytes.argtypes = [i64]
+    lib.ct_pk_probe_shared_bytes.restype = i64
+    lib.ct_pk_probe_shared_limit.argtypes = []
+    lib.ct_pk_probe_shared_limit.restype = i64
 
 
 def probe(lk: torch.Tensor, rk: torch.Tensor, rid: torch.Tensor, nb: int, B: int) -> torch.Tensor:
@@ -64,6 +70,11 @@ def probe(lk: torch.Tensor, rk: torch.Tensor, rid: torch.Tensor, nb: int, B: int
     if not (lk.is_contiguous() and rk.is_contiguous() and rid.is_contiguous()):
         raise ValueError("pk probe: inputs must be contiguous")
     lib = _build.library("pk_probe", _setup)
+    need, limit = lib.ct_pk_probe_shared_bytes(B), lib.ct_pk_probe_shared_limit()
+    if need > limit:
+        raise ValueError(
+            f"pk probe: B = {B} needs a {need}-byte hash table, more than the "
+            f"{limit} bytes ({limit // 1024} KB) of shared memory a block can have")
     out = torch.empty(nb * B, dtype=torch.int32, device=lk.device)
     stream = torch.cuda.current_stream(lk.device).cuda_stream
     _build.launch(

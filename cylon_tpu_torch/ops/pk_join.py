@@ -10,9 +10,9 @@ key), the probe needs no merged sort of both sides:
    shuffle's ``log2 W`` partition bits), a stable radix argsort by bucket
    id (two K1 passes at nb = 65536), per-bucket offsets and a padded
    gather. Equal keys land in the same bucket on both sides.
-2. kernel B5 (ops/cuda_probe.py) compares each bucket's left slots with
-   its right slots and keeps, per left slot, the largest matching right
-   row id.
+2. kernel B5 (ops/cuda_probe.py) finds, per left slot, the largest
+   matching right row id of its bucket (a shared-memory hash table of the
+   bucket's right keys on the card).
 3. the hits are compacted to the front in left-bucket order.
 
 Right-key uniqueness and bucket overflow are speculated: ``bad`` reports a
@@ -101,8 +101,9 @@ def _has_duplicates(keys: torch.Tensor) -> torch.Tensor:
     """Device bool: two equal keys (adjacent equality after a radix sort)."""
     if keys.shape[0] < 2:
         return torch.zeros((), dtype=torch.bool, device=keys.device)
-    lane = orderable_key(keys)  # lane equality is key equality
-    s = lane.index_select(0, _radix.argsort_perm(lane))
+    # an orderable_key lane is its own digit lane, so the sort returns it
+    # sorted; lane equality is key equality
+    s, _ = _radix.sort_lane(orderable_key(keys))
     return (s[1:] == s[:-1]).any()
 
 

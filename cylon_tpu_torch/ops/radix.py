@@ -1,8 +1,8 @@
 """LSD radix sort engine (counterpart of cylon_tpu/ops/radix.py).
 
-Every integer ordering of the port is a chain of stable 8-bit passes of
-kernel K1 (ops/cuda_radix.py) carrying a permutation: the JAX package's
-``radix_pallas`` tier made the only tier. A digit lane is a uint32 (held in
+Every integer ordering of the port is a chain of lane sorts of kernel K1
+(ops/cuda_radix.radix_sort_lane: stable 8-bit passes that carry the keys and
+a permutation): the JAX package's ``radix_pallas`` tier made the only tier. A digit lane is a uint32 (held in
 an int32 tensor) or uint64 (held in int64) bit pattern whose unsigned order
 is the lane's order; the lane plan below maps each sort lane onto one, with
 an optional hint that narrows the bit span.
@@ -44,43 +44,45 @@ def bound_hint(upper: int) -> Hint:
 
 def _digit_lane(
     lane: torch.Tensor, hint: Optional[Hint]
-) -> Optional[Tuple[torch.Tensor, int, int]]:
-    """(digit lane, lo_bit, hi_bit), or None for a float lane. Lanes that
-    come from ops/sort.orderable_key are already int32/int64 unsigned bit
-    patterns; narrower or signed lanes are shifted into unsigned order."""
+) -> Optional[Tuple[torch.Tensor, int, int, bool]]:
+    """(digit lane, lo_bit, hi_bit, whether the digit lane is ``lane``
+    itself), or None for a float lane. Lanes that come from
+    ops/sort.orderable_key are already int32/int64 unsigned bit patterns;
+    narrower or signed lanes are shifted into unsigned order."""
     dt = lane.dtype
     if hint is not None and hint[0] == _BIAS:
         _, bias, bits = hint
-        return (lane.to(torch.int32) + bias).contiguous(), 0, int(bits)
+        return (lane.to(torch.int32) + bias).contiguous(), 0, int(bits), False
     if dt == torch.bool:
-        return lane.to(torch.int32), 0, 1
+        return lane.to(torch.int32), 0, 1, False
     if dt.is_floating_point:
         return None
     if hint is not None and hint[0] == _SPAN:
         _, lo, hi = hint
         if dt in (torch.int64, torch.uint64) and hi > 32:
-            return lane.view(torch.int64).contiguous(), int(lo), int(hi)
-        return lane.to(torch.int32).contiguous(), int(lo), int(hi)
+            return lane.view(torch.int64).contiguous(), int(lo), int(hi), dt == torch.int64
+        return lane.to(torch.int32).contiguous(), int(lo), int(hi), dt == torch.int32
     size = lane.element_size()
     if dt in (torch.uint8, torch.uint16):
-        return lane.to(torch.int32), 0, 8 * size
+        return lane.to(torch.int32), 0, 8 * size, False
     if dt == torch.uint32:
-        return lane.view(torch.int32).contiguous(), 0, 32
+        return lane.view(torch.int32).contiguous(), 0, 32, False
     if dt == torch.uint64:
-        return lane.view(torch.int64).contiguous(), 0, 64
+        return lane.view(torch.int64).contiguous(), 0, 64, False
     if size == 1:
-        return lane.to(torch.int32) + 128, 0, 8
+        return lane.to(torch.int32) + 128, 0, 8, False
     if size == 2:
-        return lane.to(torch.int32) + 32768, 0, 16
+        return lane.to(torch.int32) + 32768, 0, 16, False
     # int32 / int64 lanes are the orderable_key patterns themselves
-    return lane.contiguous(), 0, 8 * size
+    return lane.contiguous(), 0, 8 * size, True
 
 
 def plan_lanes(
     lanes: Sequence[torch.Tensor], hints: Optional[Sequence[Optional[Hint]]] = None
-) -> Optional[List[Tuple[torch.Tensor, int, int]]]:
-    """Digit-lane plan for a least-significant-first lane stack, or None
-    when any lane is a float lane (the whole sort then declines)."""
+) -> Optional[List[Tuple[torch.Tensor, int, int, bool]]]:
+    """Digit-lane plan (:func:`_digit_lane` per lane) for a
+    least-significant-first lane stack, or None when any lane is a float
+    lane (the whole sort then declines)."""
     out = []
     for i, lane in enumerate(lanes):
         h = hints[i] if hints is not None and i < len(hints) else None
@@ -97,29 +99,45 @@ def lexsort_perm(
     hints: Optional[Sequence[Optional[Hint]]] = None,
 ) -> Optional[torch.Tensor]:
     """Stable lexsort permutation (int32) over ``lanes``, least-significant
-    FIRST, as 8-bit K1 passes; None when a float lane declines the sort.
-    The stable lexsort permutation is unique, so the result equals any
-    other stable lexsort's."""
+    FIRST, one K1 lane sort per lane (the next lane gathered through the
+    carried perm once, at its entry); None when a float lane declines the
+    sort. The stable lexsort permutation is unique, so the result equals
+    any other stable lexsort's."""
     planned = plan_lanes(lanes, hints)
     if planned is None:
         COUNTS["declined"] += 1
         return None
-    device = lanes[0].device if lanes else torch.device("cpu")
-    perm = torch.arange(n, dtype=torch.int32, device=device)
-    for enc, lo, hi in planned:
-        shift = lo
-        while shift < hi:
-            bits = min(RADIX_BITS, hi - shift)
-            perm = _cr.radix_pass(enc, perm, shift, bits)
-            shift += bits
+    perm = None
+    for enc, lo, hi, _ in planned:
+        _, perm = _cr.radix_sort_lane(enc, perm, lo, hi)
+    if perm is None:
+        device = lanes[0].device if lanes else torch.device("cpu")
+        perm = torch.arange(n, dtype=torch.int32, device=device)
     return perm
+
+
+def sort_lane(
+    lane: torch.Tensor, hint: Optional[Hint] = None
+) -> Optional[Tuple[Optional[torch.Tensor], torch.Tensor]]:
+    """One K1 lane sort of ``lane``: (``lane`` sorted, or None where the
+    digit lane is a transform of it (narrowed, biased, reinterpreted); its
+    stable argsort perm int32). None for a float lane, counted as a
+    decline."""
+    planned = plan_lanes([lane], [hint])
+    if planned is None:
+        COUNTS["declined"] += 1
+        return None
+    enc, lo, hi, is_lane = planned[0]
+    skeys, perm = _cr.radix_sort_lane(enc, None, lo, hi)
+    return (skeys if is_lane else None), perm
 
 
 def argsort_perm(
     lane: torch.Tensor, hint: Optional[Hint] = None
 ) -> Optional[torch.Tensor]:
     """Radix replacement for a stable argsort of one lane."""
-    return lexsort_perm([lane], lane.shape[0], [hint])
+    res = sort_lane(lane, hint)
+    return None if res is None else res[1]
 
 
 def kv_sort(
@@ -127,8 +145,11 @@ def kv_sort(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stable 1-key kv-sort (the join probe's merged sort): radix when the
     key is an integer lane, else ``torch.sort(stable=True)``."""
-    perm = argsort_perm(keys, hint)
-    if perm is None:
+    res = sort_lane(keys, hint)
+    if res is None:
         skey, order = torch.sort(keys, stable=True)
         return skey, pay[order]
-    return keys.index_select(0, perm), pay.index_select(0, perm)
+    skey, perm = res
+    if skey is None:
+        skey = keys.index_select(0, perm)
+    return skey, pay.index_select(0, perm)

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 import cylon_tpu_torch as ctt
-from cylon_tpu_torch.ops import cuda_codec, cuda_gather, cuda_probe, cuda_radix, pk_join
+from cylon_tpu_torch.ops import cuda_codec, cuda_gather, cuda_probe, cuda_radix, pk_join, radix
+from cylon_tpu_torch.ops.sort import orderable_key
 
 pytestmark = pytest.mark.cuda
 
@@ -22,23 +23,91 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("n", [1, 4095, 4096, 70_001])
-@pytest.mark.parametrize("wide", [False, True])
-def test_radix_kernels_match_plain(dev, n, wide):
-    g = torch.Generator(device="cpu").manual_seed(n)
+def _lane(n, wide, seed, dev):
+    g = torch.Generator(device="cpu").manual_seed(seed)
     dt = torch.int64 if wide else torch.int32
     info = torch.iinfo(dt)
-    enc = torch.randint(info.min, info.max, (n,), dtype=dt, generator=g).to(dev)
-    perm = torch.randperm(n, generator=g).to(torch.int32).to(dev)
+    enc = torch.randint(info.min, info.max, (n,), dtype=dt, generator=g)
+    enc[: n // 3] = enc[n // 3: 2 * (n // 3)]  # ties
+    return enc.to(dev), torch.randperm(n, generator=g).to(torch.int32).to(dev)
+
+
+T = cuda_radix.TILE
+
+
+@pytest.mark.parametrize("n", [0, 1, T - 1, T, T + 1, 70_001, 2**24 + 3])
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("identity", [False, True])
+def test_radix_kernels_match_plain(dev, n, wide, identity):
+    """K1a, single K1b passes and whole lane sorts (keys and perm) against
+    their plain versions: full spans, a span with a narrow last digit, a
+    one-digit span, with a random or an identity perm."""
+    enc, perm = _lane(n, wide, n + wide, dev)
+    if identity:
+        perm = None
     width = 8 * enc.element_size()
-    for shift, bits in [(s, 8) for s in range(0, width, 8)] + [(width - 3, 3), (5, 8)]:
-        hist = cuda_radix.radix_hist(enc, perm, shift, bits)
-        assert torch.equal(hist, cuda_radix.radix_hist_plain(enc, perm, shift, bits))
-        offs = cuda_radix.scan_offsets(hist)
-        got = cuda_radix.radix_scatter(enc, perm, offs, shift, bits)
+    for lo, hi in [(0, width), (5, width - 2), (width - 3, width)]:
+        keys = enc if perm is None else enc.index_select(0, perm)
+        hist = cuda_radix.lane_hist(keys, lo, hi)
+        assert torch.equal(hist, cuda_radix.lane_hist_plain(keys, lo, hi).to(dev))
+        got_k, got_p = cuda_radix.radix_sort_lane(enc, perm, lo, hi)
         torch.cuda.synchronize()
-        assert torch.equal(got, cuda_radix.radix_scatter_plain(enc, perm, offs, shift, bits))
-        assert torch.equal(got, cuda_radix.radix_pass_plain(enc, perm, shift, bits))
+        want_k, want_p = cuda_radix.radix_sort_lane_plain(enc, perm, lo, hi)
+        assert torch.equal(got_k, want_k) and torch.equal(got_p, want_p), (lo, hi)
+        assert torch.equal(got_k, enc.index_select(0, got_p))
+        bits = min(8, hi - lo)
+        k1, p1 = cuda_radix.onesweep_pass(keys, perm, hist[0], lo, bits)
+        pk, pp = cuda_radix.onesweep_pass_plain(keys, perm, lo, bits)
+        torch.cuda.synchronize()
+        assert torch.equal(k1, pk) and torch.equal(p1, pp), (lo, hi)
+
+
+@pytest.mark.parametrize("n", [T + 1, 70_001, 2**22 + 7])
+@pytest.mark.parametrize("wide", [False, True])
+def test_radix_all_equal_keys_keep_perm(dev, n, wide):
+    """Stability under total skew: every row on one digit in every pass,
+    so the carried perm comes back unchanged, and the identity too."""
+    enc = torch.full((n,), -12345, dtype=torch.int64 if wide else torch.int32, device=dev)
+    perm = torch.randperm(n, device=dev).to(torch.int32)
+    keys, p = cuda_radix.radix_sort_lane(enc, perm, 0, 8 * enc.element_size())
+    torch.cuda.synchronize()
+    assert torch.equal(p, perm) and torch.equal(keys, enc)
+    _, p = cuda_radix.radix_sort_lane(enc, None, 0, 8 * enc.element_size())
+    assert torch.equal(p, torch.arange(n, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_radix_short_circuit_passes_match_plain(dev, wide):
+    """Keys below 1000: every pass above the second has one digit on all
+    rows, and K1b copies those through; the lane sort still equals its
+    plain version and torch.sort's stable order."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    enc = torch.randint(0, 1000, (300_007,), generator=g).to(torch.int64 if wide else torch.int32).to(dev)
+    perm = torch.randperm(enc.shape[0], generator=g).to(torch.int32).to(dev)
+    for p in (None, perm):
+        got_k, got_p = cuda_radix.radix_sort_lane(enc, p, 0, 8 * enc.element_size())
+        torch.cuda.synchronize()
+        want_k, want_p = cuda_radix.radix_sort_lane_plain(enc, p, 0, 8 * enc.element_size())
+        assert torch.equal(got_k, want_k) and torch.equal(got_p, want_p)
+    assert torch.equal(radix.argsort_perm(enc).long(), torch.sort(enc, stable=True).indices)
+
+
+@pytest.mark.parametrize("dt", [torch.int32, torch.int64, torch.float32])
+def test_radix_argsort_equals_torch_sort(dev, dt):
+    """The whole argsort through K1 (orderable lanes, 4 or 8 passes) equals
+    torch.sort(stable=True)'s indices, as in chip_smoke.py at 8M rows."""
+    n = 3_000_017
+    g = torch.Generator(device="cpu").manual_seed(7)
+    if dt.is_floating_point:
+        x = torch.randn(n, generator=g).to(dt)
+    else:
+        x = torch.randint(-(2**30), 2**30, (n,), generator=g).to(dt) * 3
+    x[::11] = x[5]
+    x = x.to(dev)
+    before = cuda_radix.LAUNCHES["radix_onesweep"]
+    got = radix.argsort_perm(orderable_key(x))
+    assert cuda_radix.LAUNCHES["radix_onesweep"] - before == x.element_size()  # 8-bit passes
+    assert torch.equal(got.long(), torch.sort(x, stable=True).indices)
 
 
 @pytest.mark.parametrize("L", [1, 6, 19])
@@ -211,6 +280,52 @@ def test_probe_kernel_matches_plain(dev, B):
     want = cuda_probe.probe_plain(*args, nb, B)
     assert torch.equal(got.cpu(), want)
     assert (want >= 0).any() and (want == -1).any()
+
+
+def _colliding_keys(count, B, rng):
+    """Distinct int32 keys whose home slot in B5's table (the top log2 T
+    bits of key * 0x9E3779B1) is one and the same."""
+    log_t = max(1, (2 * B - 1).bit_length())
+    inv = pow(0x9E3779B1, -1, 2**32)
+    start = int(rng.integers(0, 2**32 - count)) >> (32 - log_t) << (32 - log_t)
+    keys = [(inv * (start + j)) % 2**32 for j in range(count)]
+    assert len({(k * 0x9E3779B1) % 2**32 >> (32 - log_t) for k in keys}) == 1
+    return np.array(keys, dtype=np.uint64).astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("case", ["full_distinct", "colliding", "all_equal"])
+@pytest.mark.parametrize("B", [64, 256, 8192])
+def test_probe_kernel_table_cases(dev, case, B):
+    """B5's hash table on the inputs that stress it: every slot of every
+    bucket live with distinct keys, keys that all land on one home slot
+    (the probe walks the whole cluster), and one key repeated over a whole
+    bucket (the largest id wins)."""
+    rng = np.random.default_rng(B + len(case))
+    nb = max(4, 2**15 // B)
+    n = nb * B
+    rid = rng.permutation(n).astype(np.int32)
+    if case == "full_distinct":
+        rk = rng.permutation(np.arange(-n, n, dtype=np.int32))[:n]
+    elif case == "colliding":
+        rk = np.concatenate([rng.permutation(_colliding_keys(B, B, rng)) for _ in range(nb)])
+        rid[rng.random(n) < 0.1] = -1
+    else:
+        rk = np.repeat(rng.integers(-(2**31), 2**31, nb).astype(np.int32), B)
+        rid[rng.random(n) < 0.2] = -1
+    hit = rng.random(n) < 0.6
+    lk = np.where(hit, rk[np.arange(n) // B * B + rng.integers(0, B, n)], rk ^ 0x5A5A).astype(np.int32)
+    args = [torch.from_numpy(x) for x in (lk, rk, rid)]
+    got = cuda_probe.probe(*[x.to(dev) for x in args], nb, B)
+    torch.cuda.synchronize()
+    want = cuda_probe.probe_plain(*args, nb, B)
+    assert torch.equal(got.cpu(), want)
+    assert (want >= 0).any()
+
+
+def test_probe_kernel_refuses_a_table_past_shared_memory(dev):
+    z = torch.zeros(8193, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="227 KB"):
+        cuda_probe.probe(z, z, z, 1, 8193)
 
 
 @pytest.mark.parametrize("world", [1, 4])

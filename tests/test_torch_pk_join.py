@@ -76,6 +76,40 @@ def test_probe_plain_matches_pallas_probe(rng, nb, B):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _probe_case(rng, case, nb, B):
+    """Probe inputs the shared-memory hash table of kernel B5 has to get
+    right: every slot of every bucket live with distinct keys, all right
+    keys of a bucket equal (the largest id wins), and INT32_MIN as a live
+    key on both sides next to empty slots that carry it as their pad key."""
+    n = nb * B
+    rid = rng.permutation(n).astype(np.int32)
+    if case == "full_distinct":
+        rk = rng.permutation(np.arange(-n, n, dtype=np.int32))[:n]
+        lk = np.where(rng.random(n) < 0.7, rng.permutation(rk), rk - 1).astype(np.int32)
+    elif case == "all_equal":
+        rk = np.repeat(rng.integers(-(2**31), 2**31, nb).astype(np.int32), B)
+        rid[rng.random(n) < 0.2] = -1
+        lk = np.where(rng.random(n) < 0.5, rk, rk ^ 1).astype(np.int32)
+    else:  # "int32_min_live"
+        rk = rng.integers(-50, 50, n).astype(np.int32)
+        rid[rng.random(n) < 0.3] = -1
+        rk[rid < 0] = I32_MIN
+        rk[::3] = I32_MIN  # live rows with the pad key
+        lk = np.where(rng.random(n) < 0.5, I32_MIN, rng.integers(-50, 50, n)).astype(np.int32)
+    return lk, rk, rid
+
+
+@pytest.mark.parametrize("case", ["full_distinct", "all_equal", "int32_min_live"])
+@pytest.mark.parametrize("nb,B", [(4, 64), (2, 256)])
+def test_probe_plain_matches_pallas_probe_table_cases(rng, case, nb, B):
+    lk, rk, rid = _probe_case(rng, case, nb, B)
+    want = np.asarray(jpk._pallas_probe(
+        jnp.asarray(lk), jnp.asarray(rk), jnp.asarray(rid), nb=nb, B=B, interpret=True))
+    got = cuda_probe.probe(torch.from_numpy(lk), torch.from_numpy(rk), torch.from_numpy(rid), nb, B)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want >= 0).any()
+
+
 def _pk_both(lk, rk, nb, B):
     want = jpk.pk_inner_join(jnp.asarray(lk), jnp.asarray(rk), jnp.int32(len(lk)),
                              jnp.int32(len(rk)), nb=nb, B=B, interpret=True)
