@@ -34,9 +34,11 @@
      and a small right side with one duplicate key, which must fall back
      to the sort join exactly once and equal it;
 3. holds each kernel against its plain PyTorch version on the inputs the
-   main path gave it (exact: the kernels move integers), and times kernel,
-   plain version and the one PyTorch call that computes the same function
-   where there is one;
+   main path gave it (exact: the kernels move integers; the compact B3
+   also on B4's largest received buffer whose rows are not a multiple of
+   16 bytes), and times kernel, plain version and the one PyTorch call
+   that computes the same function where there is one, beside each
+   kernel's ptxas registers and spills;
 4. profiles one join + groupby of workloads A, A4_K4, PK and PK4 with
    torch.profiler (device time by kernel and by op, and the card's busy
    share);
@@ -199,8 +201,11 @@ def main() -> None:
         return orig_dest(lane, base, round_idx, P, bc)
 
     def rec_move(move, recv, P, bc, n_header=0):
-        if "move" not in seen or move.numel() >= seen["move"][0].numel():
-            seen["move"] = (move, recv, P, bc, n_header)
+        # the largest buffer, and the largest whose rows are not a multiple
+        # of 16 bytes (B3's 4-byte store path)
+        for key in ("move", "move_odd") if move.shape[1] % 4 else ("move",):
+            if key not in seen or move.numel() >= seen[key][0].numel():
+                seen[key] = (move, recv, P, bc, n_header)
         return orig_move(move, recv, P, bc, n_header)
 
     def rec_plan(*args, **kw):
@@ -678,6 +683,13 @@ def main() -> None:
     moved = cuda_codec.compact_move(move, recv, m_P, m_bc, m_nh)
     torch.cuda.synchronize()
     err_cm = max_err(moved, cuda_codec.compact_move_plain(move, recv, m_P, m_bc, m_nh))
+    if "move_odd" not in captured_b4:
+        fail("workload B4 received no buffer whose rows are not a multiple of 16 bytes")
+    move_o, recv_o, o_P, o_bc, o_nh = captured_b4["move_odd"]
+    moved_o = cuda_codec.compact_move(move_o, recv_o, o_P, o_bc, o_nh)
+    torch.cuda.synchronize()
+    err_cm = max(err_cm, max_err(moved_o, cuda_codec.compact_move_plain(
+        move_o, recv_o, o_P, o_bc, o_nh)))
     if err_ph or err_pd or err_cm:
         fail(f"kernel mismatch: pack_hist {err_ph}, pack_dest {err_pd}, compact_move {err_cm}")
 
@@ -746,10 +758,14 @@ def main() -> None:
     data_rows = move.view(m_P, m_bc + m_nh, lm)[:, m_nh:].reshape(m_P * m_bc, lm)
     live_mask, _total = _sh.received_row_mask(recv.clamp(0, m_bc), m_P, m_bc)
     ms_chain = cuda_ms(lambda: data_rows[torch.argsort(~live_mask, stable=True)])
+    ms_cm_o = cuda_ms(lambda: cuda_codec.compact_move(move_o, recv_o, o_P, o_bc, o_nh))
+    ms_cmp_o = cuda_ms(lambda: cuda_codec.compact_move_plain(move_o, recv_o, o_P, o_bc, o_nh))
+    lm_o = move_o.shape[1]
     bytes_ph = 4 * cap_h * (words.shape[0] + (0 if valids is None else valids.shape[0]) + 1) \
         + 4 * P * nt_h
     bytes_pd = 4 * cap_d * 2 + 4 * d_P * nt_d
     bytes_cm = 4 * move.numel() + 4 * m_P * m_bc * lm
+    bytes_cm_o = 4 * move_o.numel() + 4 * o_P * o_bc * lm_o
     touched = int(li.max()) + 1 if n_out else 0
     bytes_h = esz * n + 4 * 256 * passes32  # keys in, counts out
     bytes_s = 2 * (esz + 4) * n  # keys and perm in, keys and perm out
@@ -815,7 +831,10 @@ def main() -> None:
          "launches": work_a4["launches"]["compact_move"], "max_abs_err": err_cm,
          "ms": ms_cm, "plain_ms": ms_cmp, "bound_ms": bytes_cm / bw * 1e3,
          "bound_by": "bytes", "library_ms": None, "argsort_gather_ms": ms_chain,
-         "shape": [m_P, m_bc, lm], "launches_a4_k4": work_a4k["launches"]["compact_move"]},
+         "shape": [m_P, m_bc, lm], "launches_a4_k4": work_a4k["launches"]["compact_move"],
+         # B4's largest received buffer whose LM is not a multiple of 4
+         "shape_lm_odd": [o_P, o_bc, lm_o], "ms_lm_odd": ms_cm_o, "plain_ms_lm_odd": ms_cmp_o,
+         "bound_ms_lm_odd": bytes_cm_o / bw * 1e3},
         {"name": "pk_probe", "route": "cuda", "source": "cylon_tpu_torch/csrc/pk_probe.cu",
          "replaces": "cylon_tpu/ops/pallas_join.py:82",
          "launches": work_pk["launches"]["pk_probe"], "max_abs_err": err_pk,
@@ -823,6 +842,20 @@ def main() -> None:
          "library_ms": None, "shape": [p_nb, p_B], "bytes": bytes_p,
          "launches_pk4": work_pk4["launches"]["pk_probe"]},
     ]
+    # ptxas's registers and spills of every kernel (the builds' -Xptxas -v)
+    usage = {n: _build.resource_usage(n) for n in _build.SOURCES}
+    kernel_fn = {"radix_lane_hist": ("radix_pass", "lane_hist_kernel"),
+                 "radix_onesweep": ("radix_pass", "onesweep_kernel"),
+                 "expand_rows": ("expand_rows", "expand_kernel"),
+                 "shuffle_pack_hist": ("shuffle_codec", "pack_hist_kernel"),
+                 "shuffle_pack_dest": ("shuffle_codec", "pack_dest_kernel"),
+                 "shuffle_compact_move": ("shuffle_codec", "compact_kernel"),
+                 "pk_probe": ("pk_probe", "probe_kernel")}
+    for k in kernels:
+        src, fn = kernel_fn[k["name"]]
+        k["ptxas"] = {m: u for m, u in usage[src].items() if fn in m}
+        if not k["ptxas"]:
+            fail(f"no ptxas report for {k['name']} ({fn} in {src}.cu)")
     print(json.dumps({"argsort": argsort, "peak_bw_bytes_per_s": bw}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps(work_a))

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds) and
 loaded with ``ctypes``. Libraries land in ``build/cylon_tpu_torch/`` beside
 the package, named by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one is reused. :func:`build_all` starts one
-``nvcc`` per source at once; :func:`library` builds on first use.
+rebuilds and an unchanged one is reused; ptxas's resource report of each
+build is kept beside its library (:func:`resource_usage`). :func:`build_all`
+starts one ``nvcc`` per source at once; :func:`library` builds on first use.
 
 Nothing here runs at import time: the CPU tests import every module and
 there is no ``nvcc`` without the CUDA toolkit.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cylon_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 SOURCES = ("radix_pass", "expand_rows", "shuffle_codec", "pk_probe")
 
@@ -74,6 +76,7 @@ def _finish(name: str, started) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    out.with_suffix(".ptxas.txt").write_text(log)
     os.replace(tmp, out)
 
 
@@ -84,6 +87,35 @@ def build_all(names: List[str] = SOURCES) -> Dict[str, Path]:
         for n, s in started.items():
             _finish(n, s)
     return {n: _target(n) for n in names}
+
+
+def resource_usage(name: str) -> Dict[str, Dict[str, int]]:
+    """ptxas's report of the built ``csrc/<name>.cu``, by mangled kernel
+    name: registers a thread, spill stores and spill loads in bytes, static
+    shared memory in bytes. Empty when the library was not built here."""
+    log = _target(name).with_suffix(".ptxas.txt")
+    if not log.exists():
+        return {}
+    usage: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = usage.setdefault(m.group(1), {"registers": 0, "spill_stores": 0,
+                                                "spill_loads": 0, "smem": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem"] = int(m.group(1))
+    return usage
 
 
 def library(name: str, setup: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:

@@ -9,8 +9,7 @@
 // P * bc for rows of other rounds, dead rows and rows at or past n.
 // The Pallas kernel carries a running histogram across a sequential grid; a
 // CUDA grid runs its blocks in no order, so B2 takes two kernels and a scan
-// between them, the design the radix pass K1 had before its one-sweep
-// rewrite, with the bucket in place of the digit:
+// between them, with the bucket in place of a radix digit:
 //
 //   B2a ct_pack_hist: one block per TILE rows hashes them, writes the int32
 //                     partition-id lane (dead rows: P) and the tile's
@@ -21,12 +20,31 @@
 //   (the caller)      an exclusive scan of hist along the tiles of each
 //                     bucket (torch.cumsum): every tile's first position
 //                     within each bucket.
-//   B2b ct_pack_dest: the same tile, 256 rows per round in row order; each
-//                     warp groups its lanes by bucket with __match_any_sync,
-//                     the per-warp bucket counts are scanned across the
-//                     block's warps in shared memory, a running per-bucket
-//                     base carries from round to round. The rank is stable
-//                     by construction (no atomics). One launch per round.
+//   B2b ct_pack_dest: one block per tile of the same TILE rows, one launch
+//                     per round, the design of K1b's one-sweep pass
+//                     (radix_pass.cu) without its look-back, since B2a's
+//                     scanned histogram already gives each tile its start
+//                     in every bucket. The tile is warp-striped: warp w
+//                     owns rows [w * 512, w * 512 + 512), item k of lane l
+//                     is row w * 512 + 32 k + l, so each item is one
+//                     coalesced 128-byte load and a warp's items are in row
+//                     order. A thread issues all ITEMS loads before it
+//                     ranks any. Each warp then ranks its items in order
+//                     with no block barrier: __match_any_sync gives the
+//                     item's rows of each bucket; a row's rank is its
+//                     bucket's running count in the warp's own [P] slice
+//                     of shared memory plus its peers in lower lanes, and
+//                     the group's last lane writes the count back, under
+//                     __syncwarp only. That is one population count a
+//                     row, the instruction the ranks are short of on this
+//                     card (the warp-level multisplit of Ashkiani et al.
+//                     2016, with its running counts in registers, needs
+//                     two). After one __syncthreads each bucket's warp
+//                     counts are scanned in warp order, seeded with the
+//                     tile's start; after a second, every thread adds its
+//                     warp's start to its ranks and writes its ITEMS
+//                     slots, coalesced. Two block barriers per tile,
+//                     stable by construction (no atomics).
 //
 // B3 replaces pallas_codec.py::fused_compact_move (_compact_kernel): the
 // received [P * (bc + n_header), LM] int32 rows, chunk p holding c_p =
@@ -36,15 +54,25 @@
 // windows masked; here the destinations are disjoint and computed directly:
 // with ls_p = sum of c_q (q < p) and ds_p = sum(c) + p * bc - ls_p, live row
 // j < c_p of chunk p goes to ls_p + j and dead row j >= c_p to ds_p + j - c_p.
-// So B3 is a row copy with no size limit. It reads the chunk counts where
-// they arrived (lane 0 of each chunk's header row, given a stride) and
-// skips the header rows, so the received buffer is never re-laid out.
+// In elements a chunk is two contiguous runs, [0, c_p * LM) and the rest,
+// each copied at a constant offset. A block owns a fixed window of one
+// chunk, 16-byte aligned in the source, whose addresses depend on p, bc,
+// n_header and LM alone: it issues its 16-byte loads first and reads the
+// chunk counts while they are in flight (where they arrived: lane 0 of each
+// chunk's header row, given a stride; one thread per chunk and a block
+// reduction). A vector whose run keeps its alignment in the output (always
+// when LM % 4 == 0) is stored in one 16-byte store, any other element alone;
+// the window's ragged ends load and store element by element. So B3 is a
+// copy with no size limit and no per-row index arithmetic, and the received
+// buffer is never re-laid out.
 //
 // Bound on the H100: memory for all three. B2a reads the key words (8 bytes
 // per key column per row, 4 more per nullable key) and writes the 4-byte pid
 // lane; the murmur chain is some 30 integer operations per key and row,
 // far below the integer rate. B2b reads the pid lane and writes dest. B3
-// reads and writes every received int32 once.
+// reads and writes every received int32 once. On the card B2b and B3 run
+// at about 60% of that bound. B2b's grid is a single wave whose blocks
+// load, rank and store in turn, so the memory idles while they rank.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,10 +80,17 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int ROUNDS = 16;                 // rounds of THREADS rows per tile
-constexpr int TILE = THREADS * ROUNDS;     // 4096 rows, must match ops/cuda_codec.py
+constexpr int ITEMS = 16;                  // rows per thread and tile
+constexpr int WARP_ROWS = 32 * ITEMS;      // 512: a warp's rows in a B2b tile
+constexpr int TILE = THREADS * ITEMS;      // 4096 rows, must match ops/cuda_codec.py
 constexpr int MAX_P = 1024;                // buckets a block's shared histogram holds
+constexpr int P_PER_THREAD = MAX_P / THREADS;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr unsigned NO_PID = 0xFFFFFFFFu;   // dead rows in the warp match
+constexpr unsigned DEAD = 0xFFFFu;         // dead rows' bucket in a packed rank
+constexpr int COMPACT_THREADS = 128;
+constexpr int VECS = 4;                    // int4 vectors a B3 thread moves
+constexpr int WINDOW_VECS = COMPACT_THREADS * VECS;  // a B3 block's window: 8 KB
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -92,7 +127,7 @@ pack_hist_kernel(const uint32_t* __restrict__ words, int n_key,
   __syncthreads();
   const int64_t base = static_cast<int64_t>(blockIdx.x) * TILE;
   const bool pow2 = (P & (P - 1)) == 0;
-  for (int r = 0; r < ROUNDS; ++r) {
+  for (int r = 0; r < ITEMS; ++r) {
     const int64_t i = base + static_cast<int64_t>(r) * THREADS + threadIdx.x;
     if (i >= cap) continue;
     int32_t p = P;
@@ -125,95 +160,183 @@ pack_hist_kernel(const uint32_t* __restrict__ words, int n_key,
     hist[static_cast<int64_t>(b) * n_tiles + blockIdx.x] = h[b];
 }
 
-// base: [P * n_tiles] exclusive scan of hist along each bucket's tiles.
-// Dynamic shared memory: P + WARPS * P int32.
+// tile_base: [P * n_tiles] exclusive scan of hist along each bucket's tiles.
+// Dynamic shared memory: WARPS * P int32.
 __global__ void __launch_bounds__(THREADS)
 pack_dest_kernel(const int32_t* __restrict__ pid, const int32_t* __restrict__ tile_base,
                  int32_t* __restrict__ dest, int64_t cap, int64_t n_tiles, int P,
                  int64_t round_lo, int64_t bc) {
-  extern __shared__ int32_t smem[];
-  int32_t* base = smem;        // [P] next position within each bucket
-  int32_t* wdst = smem + P;    // [WARPS][P] per-warp count, then per-warp start
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  extern __shared__ int32_t wcnt[];  // [WARPS][P]: warp counts, then warp starts
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const unsigned lower = (1u << lane) - 1u;
-  const int32_t sentinel = static_cast<int32_t>(static_cast<int64_t>(P) * bc);
-  for (int b = threadIdx.x; b < P; b += THREADS)
-    base[b] = tile_base[static_cast<int64_t>(b) * n_tiles + blockIdx.x];
-  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * TILE;
-  for (int r = 0; r < ROUNDS; ++r) {
-    for (int k = threadIdx.x; k < WARPS * P; k += THREADS) wdst[k] = 0;
-    __syncthreads();
-    // rows of this round in (warp, lane) order == row order
-    const int64_t i = tile0 + static_cast<int64_t>(r) * THREADS + threadIdx.x;
-    unsigned d = NO_PID;
-    if (i < cap) {
-      const int32_t p = pid[i];
-      if (p >= 0 && p < P) d = static_cast<unsigned>(p);
-    }
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * TILE + warp * WARP_ROWS + lane;
+  int32_t* wc = wcnt + warp * P;
+  for (int b = lane; b < P; b += 32) wc[b] = 0;
+
+  // 1. every load of the thread in flight before any rank
+  unsigned dr[ITEMS];  // the pid, then bucket << 16 | rank within the warp
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const int64_t i = row0 + 32 * k;
+    dr[k] = i < cap ? static_cast<unsigned>(pid[i]) : NO_PID;
+  }
+  int32_t tb[P_PER_THREAD];  // the tile's first position in buckets t, t + THREADS, ...
+#pragma unroll
+  for (int u = 0; u < P_PER_THREAD; ++u) {
+    const int b = t + u * THREADS;
+    tb[u] = b < P ? tile_base[static_cast<int64_t>(b) * n_tiles + blockIdx.x] : 0;
+  }
+  __syncwarp();
+
+  // 2. stable ranks within the warp, items in row order: every lane reads
+  // its bucket's running count, the group's last lane writes it back
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const unsigned p = dr[k];
+    const bool live = p < static_cast<unsigned>(P);
+    const unsigned peers = __match_any_sync(FULL, live ? p : NO_PID);
     const int rank = __popc(peers & lower);
-    if (d != NO_PID && rank == 0) wdst[warp * P + d] = __popc(peers);
-    __syncthreads();
-    for (int b = threadIdx.x; b < P; b += THREADS) {  // scan bucket b over warps
-      int32_t run = base[b];
+    const int before = live ? wc[p] : 0;
+    __syncwarp();
+    if (live && (peers >> lane) == 1u) wc[p] = before + rank + 1;
+    __syncwarp();
+    dr[k] = live ? (p << 16) | static_cast<unsigned>(before + rank) : (DEAD << 16);
+  }
+  __syncthreads();
+
+  // 3. each bucket's warp counts -> warp starts, in warp order
+#pragma unroll
+  for (int u = 0; u < P_PER_THREAD; ++u) {
+    const int b = t + u * THREADS;
+    if (b < P) {
+      int32_t run = tb[u];
 #pragma unroll
       for (int w = 0; w < WARPS; ++w) {
-        const int32_t c = wdst[w * P + b];
-        wdst[w * P + b] = run;
+        const int32_t c = wcnt[w * P + b];
+        wcnt[w * P + b] = run;
         run += c;
       }
-      base[b] = run;
     }
-    __syncthreads();
+  }
+  __syncthreads();
+
+  // 4. the slots, coalesced
+  const int32_t sentinel = static_cast<int32_t>(static_cast<int64_t>(P) * bc);
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const int64_t i = row0 + 32 * k;
     if (i < cap) {
+      const unsigned p = dr[k] >> 16;
       int32_t out = sentinel;
-      if (d != NO_PID) {
-        const int64_t slot = static_cast<int64_t>(wdst[warp * P + d] + rank) - round_lo;
+      if (p != DEAD) {
+        const int64_t slot = static_cast<int64_t>(wc[p] + static_cast<int>(dr[k] & 0xFFFFu)) - round_lo;
         if (slot >= 0 && slot < bc)
-          out = static_cast<int32_t>(static_cast<int64_t>(d) * bc + slot);
+          out = static_cast<int32_t>(static_cast<int64_t>(p) * bc + slot);
       }
       dest[i] = out;
     }
-    __syncthreads();
   }
 }
 
-// grid (row blocks of a chunk, P): block (x, p) copies rows
-// [x * rows_per_block, ...) of chunk p to their front-packed places
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ int64_t warp_sum(int64_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
+  return v;
+}
+
+// Element e of a vector (e a compile-time constant once unrolled).
+__device__ __forceinline__ int32_t& elem(int4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// grid (windows of a chunk, P): block (x, p) moves window x of chunk p. All
+// element indices below are in the 16-byte grid of the aligned-down source
+// (g = element index in src + sa) or output (o = element index in out + oa).
+__global__ void __launch_bounds__(COMPACT_THREADS)
 compact_kernel(const int32_t* __restrict__ src, const int32_t* __restrict__ counts,
                int64_t count_stride, int32_t* __restrict__ out, int P, int64_t bc,
-               int64_t n_header, int lm, int rows_per_block) {
-  __shared__ int64_t s_ls, s_ds, s_c;
-  const int p = blockIdx.y;
-  if (threadIdx.x == 0) {
-    int64_t ls = 0, total = 0, c = 0;
-    for (int q = 0; q < P; ++q) {
-      int64_t cq = counts[static_cast<int64_t>(q) * count_stride];
-      cq = cq < 0 ? 0 : (cq > bc ? bc : cq);
-      if (q < p) ls += cq;
-      if (q == p) c = cq;
-      total += cq;
+               int64_t n_header, int64_t lm) {
+  constexpr int NW = COMPACT_THREADS / 32;
+  __shared__ int64_t red[2][NW];
+  __shared__ int64_t s_c;
+  const int p = blockIdx.y, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int sa = static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3u);
+  const int oa = static_cast<int>((reinterpret_cast<uintptr_t>(out) >> 2) & 3u);
+  const int32_t* src_al = src - sa;
+  int32_t* out_al = out - oa;
+  const int4* src4 = reinterpret_cast<const int4*>(src_al);
+  int4* out4 = reinterpret_cast<int4*>(out_al);
+  // chunk p's data rows, and this block's window of them
+  const int64_t c0 = (static_cast<int64_t>(p) * (bc + n_header) + n_header) * lm + sa;
+  const int64_t c1 = c0 + bc * lm;
+  const int64_t v0 = c0 / 4 + static_cast<int64_t>(blockIdx.x) * WINDOW_VECS;
+  const int64_t lo = c0 > 4 * v0 ? c0 : 4 * v0;
+  const int64_t hi = c1 < 4 * (v0 + WINDOW_VECS) ? c1 : 4 * (v0 + WINDOW_VECS);
+  if (lo >= hi) return;  // uniform over the block
+
+  // 1. the loads: they do not depend on the counts
+  int4 val[VECS];
+#pragma unroll
+  for (int u = 0; u < VECS; ++u) {
+    const int64_t g = 4 * (v0 + u * COMPACT_THREADS + t);
+    if (g >= lo && g + 4 <= hi) {
+      val[u] = src4[g >> 2];
+    } else {
+      val[u] = make_int4(0, 0, 0, 0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (g + e >= lo && g + e < hi) elem(val[u], e) = src_al[g + e];
     }
-    s_ls = ls;
-    s_c = c;
-    s_ds = total + static_cast<int64_t>(p) * bc - ls;
+  }
+
+  // 2. the counts while the loads are in flight: ls_p, c_p and the total
+  int64_t before = 0, total = 0;
+  for (int q = t; q < P; q += COMPACT_THREADS) {
+    int64_t cq = counts[static_cast<int64_t>(q) * count_stride];
+    cq = cq < 0 ? 0 : (cq > bc ? bc : cq);
+    total += cq;
+    if (q < p) before += cq;
+    if (q == p) s_c = cq;
+  }
+  before = warp_sum(before);
+  total = warp_sum(total);
+  if (lane == 0) {
+    red[0][warp] = before;
+    red[1][warp] = total;
   }
   __syncthreads();
-  const int64_t ls = s_ls, ds = s_ds, c = s_c;
-  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
-  if (j0 >= bc) return;
-  const int64_t rows = (bc - j0) < rows_per_block ? (bc - j0) : rows_per_block;
-  const int elems = static_cast<int>(rows) * lm;
-  const int32_t* chunk =
-      src + (static_cast<int64_t>(p) * (bc + n_header) + n_header + j0) * lm;
-  for (int k = threadIdx.x; k < elems; k += THREADS) {
-    const int jj = k / lm;
-    const int l = k - jj * lm;
-    const int64_t j = j0 + jj;
-    const int64_t to = j < c ? ls + j : ds + j - c;
-    out[to * lm + l] = chunk[k];
+  int64_t ls = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    ls += red[0][w];
+    all += red[1][w];
+  }
+  const int64_t c = s_c;
+  const int64_t ds = all + static_cast<int64_t>(p) * bc - ls;
+  // run 1 (live rows) is [c0, split), run 2 (dead rows) [split, c1); each
+  // moves by a constant: o = g + shift
+  const int64_t split = c0 + c * lm;
+  const int64_t shift1 = ls * lm - c0 + oa;
+  const int64_t shift2 = (ds - c) * lm - c0 + oa;
+
+  // 3. the stores: 16 bytes where the run keeps its alignment
+#pragma unroll
+  for (int u = 0; u < VECS; ++u) {
+    const int64_t g = 4 * (v0 + u * COMPACT_THREADS + t);
+    if (g >= lo && g + 4 <= hi && (g + 4 <= split || g >= split)) {
+      const int64_t shift = g < split ? shift1 : shift2;
+      if ((shift & 3) == 0) {
+        out4[(g + shift) >> 2] = val[u];
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) out_al[g + e + shift] = elem(val[u], e);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (g + e >= lo && g + e < hi)
+          out_al[g + e + (g + e < split ? shift1 : shift2)] = elem(val[u], e);
+    }
   }
 }
 
@@ -242,11 +365,10 @@ extern "C" int ct_pack_dest(const void* pid, const void* tile_base, void* dest,
                             int64_t cap, int64_t n_tiles, int64_t P,
                             int64_t round_idx, int64_t bc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(P) * (1 + WARPS) * sizeof(int32_t);
+  const size_t smem = static_cast<size_t>(WARPS) * P * sizeof(int32_t);
   pack_dest_kernel<<<static_cast<unsigned>(n_tiles), THREADS, smem, s>>>(
       static_cast<const int32_t*>(pid), static_cast<const int32_t*>(tile_base),
-      static_cast<int32_t*>(dest), cap, n_tiles, static_cast<int>(P),
-      round_idx * bc, bc);
+      static_cast<int32_t*>(dest), cap, n_tiles, static_cast<int>(P), round_idx * bc, bc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -254,14 +376,15 @@ extern "C" int ct_pack_dest(const void* pid, const void* tile_base, void* dest,
 // chunk q's received count; out: int32 [P * bc, lm].
 extern "C" int ct_compact_move(const void* src, const void* counts,
                                int64_t count_stride, void* out, int64_t P,
-                               int64_t bc, int64_t n_header, int64_t lm,
-                               int64_t rows_per_block, void* stream) {
+                               int64_t bc, int64_t n_header, int64_t lm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>((bc + rows_per_block - 1) / rows_per_block),
+  // a chunk's window grid starts at its first element's 16-byte line: up to
+  // 3 elements before the chunk share its first window
+  const int64_t per_window = 4 * static_cast<int64_t>(WINDOW_VECS);
+  const dim3 grid(static_cast<unsigned>((bc * lm + 3 + per_window - 1) / per_window),
                   static_cast<unsigned>(P));
-  compact_kernel<<<grid, THREADS, 0, s>>>(
+  compact_kernel<<<grid, COMPACT_THREADS, 0, s>>>(
       static_cast<const int32_t*>(src), static_cast<const int32_t*>(counts),
-      count_stride, static_cast<int32_t*>(out), static_cast<int>(P), bc, n_header,
-      static_cast<int>(lm), static_cast<int>(rows_per_block));
+      count_stride, static_cast<int32_t*>(out), static_cast<int>(P), bc, n_header, lm);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,11 +12,13 @@ had before its one-sweep rewrite):
 * :func:`scan_tiles` — each tile's first position within each bucket
   (``torch.cumsum`` along the tiles);
 * B2b :func:`pack_dest` — round r's send slot of every row (sentinel
-  ``P * bc``). One launch per round.
+  ``P * bc``): per tile, stable ranks within each warp and one scan of the
+  warp counts seeded with the tile's start. One launch per round.
 
 :func:`fused_pack_dest` composes them into the Pallas function's
 ``(dest, counts)``. B3 :func:`compact_move` front-packs the live rows of a
-received buffer.
+received buffer: two contiguous copies per chunk, 16 bytes wide where the
+alignment allows.
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and uses its plain
 PyTorch version for a CPU tensor; there is no other route. ``LAUNCHES``
@@ -38,8 +40,6 @@ from .partition import partition_of_hash
 TILE = 4096
 #: partitions a block's shared-memory histogram holds
 MAX_PARTITIONS = 1024
-#: int32 elements one compact block copies
-_COMPACT_BLOCK_ELEMS = 4096
 
 LAUNCHES = {"pack_hist": 0, "pack_dest": 0, "compact_move": 0}
 
@@ -58,7 +58,7 @@ def _setup(lib) -> None:
     lib.ct_pack_hist.restype = ctypes.c_int
     lib.ct_pack_dest.argtypes = [p, p, p, i64, i64, i64, i64, i64, p]
     lib.ct_pack_dest.restype = ctypes.c_int
-    lib.ct_compact_move.argtypes = [p, p, i64, p, i64, i64, i64, i64, i64, p]
+    lib.ct_compact_move.argtypes = [p, p, i64, p, i64, i64, i64, i64, p]
     lib.ct_compact_move.restype = ctypes.c_int
 
 
@@ -290,11 +290,10 @@ def compact_move(move, recv_counts, P: int, bc: int, n_header: int = 0) -> torch
     out = torch.empty((P * bc, lm), dtype=torch.int32, device=move.device)
     if lm == 0:
         return out
-    rows_per_block = max(1, _COMPACT_BLOCK_ELEMS // lm)
     _build.launch(
         move.device, lib.ct_compact_move,
         move.data_ptr(), recv_counts.data_ptr(), recv_counts.stride(0), out.data_ptr(),
-        P, bc, n_header, lm, rows_per_block, stream,
+        P, bc, n_header, lm, stream,
     )
     LAUNCHES["compact_move"] += 1
     return out

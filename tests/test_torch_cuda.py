@@ -164,57 +164,79 @@ def _key_cols(rng, n, wide, device):
     k = torch.from_numpy(rng.integers(info.min, info.max, n, dtype=dt))
     valid = torch.from_numpy(rng.random(n) > 0.05)
     x = torch.from_numpy(rng.normal(size=n) * 1e3)
-    x[:4] = torch.tensor([0.0, -0.0, float("nan"), float("inf")], dtype=torch.float64)
+    x[:4] = torch.tensor([0.0, -0.0, float("nan"), float("inf")], dtype=torch.float64)[:n]
     return [(k.to(device), valid.to(device)), (x.to(device), None)]
 
 
-@pytest.mark.parametrize("P", [3, 4, 8])
-@pytest.mark.parametrize("wide", [False, True])
-def test_pack_kernels_match_plain(dev, P, wide):
-    """B2a and B2b (hash mode: 32- or 64-bit key words, nulls, a float64
-    key; pid-input mode with out-of-range pids) against their plain
-    versions, over several rounds and with rows past n."""
-    rng = np.random.default_rng(P + 10 * wide)
-    cap, n = 70_001, 69_000
-    words, valids, hv = cuda_codec.key_words(_key_cols(rng, cap, wide, dev))
-    lane, hist = cuda_codec.pack_hist(words, valids, hv, n, P)
-    lane_p, hist_p = cuda_codec.pack_hist_plain(words.cpu(), valids.cpu(), hv, n, P)
-    torch.cuda.synchronize()
-    assert torch.equal(lane.cpu(), lane_p) and torch.equal(hist.cpu(), hist_p)
-    bc = max(8, (n // P) // 3)
-    for r in range(5):
-        dest = cuda_codec.pack_dest(lane, cuda_codec.scan_tiles(hist), r, P, bc)
+@pytest.mark.parametrize("P", [1, 3, 4, 8, 32, 33, 1024])
+@pytest.mark.parametrize("cap", [1, 4095, 4096, 4097, 70_001])
+@pytest.mark.parametrize("mode", ["hash32", "hash64", "one_bucket"])
+def test_pack_kernels_match_plain(dev, P, cap, mode):
+    """B2a and B2b against their plain versions, with rows past n: hash mode
+    (32- or 64-bit key words, nulls, a float64 key) and then pid-input mode
+    with out-of-range pids, or every live row in one bucket (the warp match
+    and the running counts at their most skewed). B2b over the first rounds,
+    the last and rounds beyond it; B2b's register path (P <= 32) and its
+    shared-memory path (P > 32), ragged last tiles."""
+    rng = np.random.default_rng(P + cap + len(mode))
+    n = cap - max(1, cap // 50)
+    bc = max(1, (n // P) // 3)
+
+    def rounds(hist):
+        last = max(0, (int(hist.sum(1).max()) - 1) // bc)
+        return sorted({0, 1, last, last + 1, last + 3})
+
+    def check_dest(lane, hist, lane_p):
+        for r in rounds(hist):
+            dest = cuda_codec.pack_dest(lane, cuda_codec.scan_tiles(hist), r, P, bc)
+            torch.cuda.synchronize()
+            assert torch.equal(dest.cpu(), cuda_codec.pack_dest_plain(lane_p, None, r, P, bc)), r
+
+    if mode == "one_bucket":
+        pid = torch.full((cap,), P - 1, dtype=torch.int32, device=dev)
+    else:
+        words, valids, hv = cuda_codec.key_words(_key_cols(rng, cap, mode == "hash64", dev))
+        lane, hist = cuda_codec.pack_hist(words, valids, hv, n, P)
+        lane_p, hist_p = cuda_codec.pack_hist_plain(words.cpu(), valids.cpu(), hv, n, P)
         torch.cuda.synchronize()
-        assert torch.equal(dest.cpu(), cuda_codec.pack_dest_plain(lane_p, None, r, P, bc)), r
-        d2, c2 = cuda_codec.fused_pack_dest(words, valids, hv, n, r, P, bc)
-        d3, c3 = cuda_codec.fused_pack_dest_plain(words.cpu(), valids.cpu(), hv, n, r, P, bc)
-        assert torch.equal(d2.cpu(), d3) and torch.equal(c2.cpu(), c3)
-    pid = torch.from_numpy(rng.integers(-1, P + 2, cap).astype(np.int32)).to(dev)
+        assert torch.equal(lane.cpu(), lane_p) and torch.equal(hist.cpu(), hist_p)
+        check_dest(lane, hist, lane_p)
+        for r in rounds(hist)[:2]:
+            d2, c2 = cuda_codec.fused_pack_dest(words, valids, hv, n, r, P, bc)
+            d3, c3 = cuda_codec.fused_pack_dest_plain(words.cpu(), valids.cpu(), hv, n, r, P, bc)
+            assert torch.equal(d2.cpu(), d3) and torch.equal(c2.cpu(), c3)
+        pid = torch.from_numpy(rng.integers(-1, P + 2, cap).astype(np.int32)).to(dev)
     lane, hist = cuda_codec.pack_hist(None, None, (), n, P, pid=pid)
     lane_p, hist_p = cuda_codec.pack_hist_plain(None, None, (), n, P, pid=pid.cpu())
     assert torch.equal(lane.cpu(), lane_p) and torch.equal(hist.cpu(), hist_p)
-    for r in range(2):
-        assert torch.equal(cuda_codec.pack_dest(lane, cuda_codec.scan_tiles(hist), r, P, bc).cpu(),
-                           cuda_codec.pack_dest_plain(lane_p, None, r, P, bc))
+    check_dest(lane, hist, lane_p)
 
 
-@pytest.mark.parametrize("P,bc,lm", [(8, 16, 3), (4, 5000, 1), (3, 4097, 7), (1, 64, 2)])
+@pytest.mark.parametrize("P,bc", [(8, 16), (4, 5000), (3, 4097), (1, 64), (4, 65536)])
+@pytest.mark.parametrize("lm", [1, 2, 3, 4, 7, 8])
 def test_compact_kernel_matches_plain(dev, P, bc, lm):
-    rng = np.random.default_rng(bc)
+    """B3 against its plain version: with and without a header row per
+    chunk (the counts read where they arrive), from a buffer that starts on
+    a 16-byte line or one row past it, with counts random, 0, bc, negative,
+    above bc and mixed."""
+    rng = np.random.default_rng(bc + lm)
     for n_header in (0, 1):
         rows = P * (bc + n_header)
-        move = torch.from_numpy(
-            rng.integers(-(2**31), 2**31 - 1, (rows, lm)).astype(np.int32)).to(dev)
-        for counts in (rng.integers(0, bc + 1, P), np.zeros(P), np.full(P, bc),
-                       rng.integers(-3, bc + 4, P)):
-            rc = torch.from_numpy(np.asarray(counts, np.int32)).to(dev)
-            if n_header:  # the counts read where they arrive: lane 0 of the headers
-                move.view(P, bc + 1, lm)[:, 0, 0] = rc
-                rc = move.view(P, bc + 1, lm)[:, 0, 0]
-            got = cuda_codec.compact_move(move, rc, P, bc, n_header)
-            torch.cuda.synchronize()
-            want = cuda_codec.compact_move_plain(move.cpu(), rc.cpu(), P, bc, n_header)
-            assert torch.equal(got.cpu(), want), (counts, n_header)
+        for offset in (0, 1):
+            big = torch.from_numpy(
+                rng.integers(-(2**31), 2**31 - 1, (rows + offset, lm)).astype(np.int32)).to(dev)
+            move = big[offset:]
+            for counts in (rng.integers(0, bc + 1, P), np.zeros(P), np.full(P, bc),
+                           rng.integers(-3, bc + 4, P), np.full(P, -5), np.full(P, bc + 7),
+                           np.resize([0, bc, -2, bc + 3], P)):
+                rc = torch.from_numpy(np.asarray(counts, np.int32)).to(dev)
+                if n_header:  # the counts read where they arrive: lane 0 of the headers
+                    move.view(P, bc + 1, lm)[:, 0, 0] = rc
+                    rc = move.view(P, bc + 1, lm)[:, 0, 0]
+                got = cuda_codec.compact_move(move, rc, P, bc, n_header)
+                torch.cuda.synchronize()
+                want = cuda_codec.compact_move_plain(move.cpu(), rc.cpu(), P, bc, n_header)
+                assert torch.equal(got.cpu(), want), (counts, n_header, offset)
 
 
 @pytest.mark.parametrize("placement", ["one_card", "round_robin"])
