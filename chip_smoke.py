@@ -33,13 +33,30 @@
      PK4: PK's data at world_size=4;
      and a small right side with one duplicate key, which must fall back
      to the sort join exactly once and equal it;
+   then the sort and the set operations of benchmarks/run_bench.py
+   (configs 3 and 4) on its make_tables at A's scale (left: A's left
+   side; left2: the same with seed 1):
+     S: left.distributed_sort("k") at world 1, against numpy's stable
+        argsort, row for row;
+     S4: the same at world_size=4 through the range shuffle (kernel B2a in
+         pid mode), at the default budget and at 4 MiB (several rounds):
+         shards in global order, shard rows equal to numpy's float64 range
+         bins, the rows a multiset of the input;
+     U: union, subtract and intersect of left and left2, the same three on
+        project(["k"]), and unique(["k"]) keeping the first and the last,
+        at world 1, against numpy in first-occurrence order;
+     U4: their distributed forms at world_size=4: each shard's rows, as a
+         multiset, the plain result's rows of that shard's murmur3
+         partition;
 3. holds each kernel against its plain PyTorch version on the inputs the
    main path gave it (exact: the kernels move integers; the compact B3
    also on B4's largest received buffer whose rows are not a multiple of
-   16 bytes), and times kernel, plain version and the one PyTorch call
-   that computes the same function where there is one, beside each
-   kernel's ptxas registers and spills;
-4. profiles one join + groupby of workloads A, A4_K4, PK and PK4 with
+   16 bytes; B2a in pid mode, B2b and B3 also on S4's range shuffle), and
+   times kernel, plain version and the one PyTorch call that computes the
+   same function where there is one, beside each kernel's ptxas registers
+   and spills;
+4. profiles one join + groupby of workloads A, A4_K4, PK and PK4, one
+   distributed_sort of S4 and one union of U and of U4 with
    torch.profiler (device time by kernel and by op, and the card's busy
    share);
 5. prints the profile lines, a JSON line of kernels, one JSON line per
@@ -65,6 +82,7 @@ REPS = 20      # launches per kernel timing
 SPIN_CYCLES = 100_000_000  # about 60 ms of card time ahead of each timed run
 REPS_E2E = 5   # timed runs of workload A (the first one is counted)
 REPS_E2E_4 = 3  # timed runs of workload A4 per budget
+REPS_OPS = 3   # timed runs of each sort and set operation (S, S4, U, U4)
 WORLD = 4
 BUDGET_SMALL = 4 * 1024 * 1024  # A4's multi-round run: bucket_cap 131072, K = 4
 
@@ -151,6 +169,7 @@ def main() -> None:
         from cylon_tpu_torch.ops import cuda_codec, cuda_gather, cuda_probe, cuda_radix, pk_join
         from cylon_tpu_torch.parallel import shuffle as _sh
         from cylon_tpu_torch.ops import radix as _radix
+        from cylon_tpu_torch.ops.partition import hash_partition_ids
         from cylon_tpu_torch.ops.sort import orderable_key
     except ImportError as e:
         print(f"chip_smoke: cylon_tpu_torch not found beside this script: {e}", file=sys.stderr)
@@ -193,6 +212,8 @@ def main() -> None:
         key = "hist_64" if seen.get("key64_next") else "hist"
         if pid is None and (key not in seen or words.shape[1] > seen[key][0].shape[1]):
             seen[key] = (words, valids, has_valid, n, P)
+        if pid is not None and ("hist_pid" not in seen or pid.shape[0] > seen["hist_pid"][5].shape[0]):
+            seen["hist_pid"] = (None, None, (), n, P, pid)  # the range shuffle's pid lane
         return orig_hist(words, valids, has_valid, n, P, pid)
 
     def rec_dest(lane, base, round_idx, P, bc):
@@ -614,6 +635,212 @@ def main() -> None:
                 "fallbacks": dup_fallbacks}
     del j_dup, j_dup_sort, tdl, tdr
 
+    # ------------------------------------------------------------------
+    # workloads S, S4, U and U4: distributed_sort and the set operations on
+    # benchmarks/run_bench.py's make_tables at A's scale (left is workload
+    # A's left side, seed 0; left2 the same with seed 1)
+    # ------------------------------------------------------------------
+    rng2 = np.random.default_rng(1)
+    left2 = {"k": rng2.integers(0, N_A, N_A).astype(np.int32),
+             "v": rng2.normal(size=N_A).astype(np.float32)}
+    sort_kernels = list(cuda_radix.LAUNCHES)
+    shuffle_kernels = sort_kernels + list(cuda_codec.LAUNCHES)
+
+    def measure(fn, what, kernels, reps=REPS_OPS):
+        """Warm-up, then ``reps`` timed calls; the first one's result, its
+        launches and shuffle plans, and every call's seconds."""
+        fn()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times = [time.perf_counter() - t0]
+        launches, plan = counts(), list(plans)
+        require_launches(launches, what, kernels)
+        if _radix.COUNTS["declined"]:
+            fail(f"{what}: a sort declined the radix engine")
+        for _ in range(reps - 1):
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del r
+        return out, {"launches": launches, "shuffle_plans": plan, "s": float(np.median(times)),
+                     "s_all": times}
+
+    def host_cols(t, names):
+        return [t.column(c).data.cpu().numpy() for c in names]
+
+    def row_keys(k, v=None):
+        """One int64 per row: k, or (k, bits of v with -0.0 as +0.0), the
+        set operations' row equality."""
+        k = np.asarray(k).astype(np.int64)
+        if v is None:
+            return k
+        v = np.where(v == 0, np.float32(0), v).astype(np.float32)
+        return (k << 32) | v.view(np.uint32).astype(np.int64)
+
+    def row_keys_dev(cols):
+        k = cols[0].long()
+        if len(cols) == 1:
+            return k
+        v = torch.where(cols[1] == 0, torch.zeros_like(cols[1]), cols[1])
+        return (k << 32) | (v.view(torch.int32).long() & 0xFFFFFFFF)
+
+    # S: left.distributed_sort("k") at world 1 (run_bench.py:499-506)
+    s_out, work_s = measure(lambda: tl.distributed_sort("k"), "S", sort_kernels)
+    order = np.argsort(left["k"], kind="stable")
+    got_k, got_v = host_cols(s_out, ["k", "v"])
+    if not (np.diff(got_k) >= 0).all():
+        fail("S: k is not non-decreasing")
+    if not (np.array_equal(got_k, left["k"][order])
+            and np.array_equal(got_v.view(np.int32), left["v"][order].view(np.int32))):
+        fail("S: rows differ from numpy's stable argsort of k")
+    work_s.update({"workload": "S", "world": 1, "rows": N_A, "input_rows_per_s": N_A / work_s["s"]})
+    del s_out, order, got_k, got_v
+
+    # S4: the same at world 4 through the range shuffle (B2a in pid mode)
+    tl4 = ctt.Table.from_pydict(ctx4, left)
+    in_keys = torch.sort(row_keys_dev([torch.from_numpy(left[c]).to(dev) for c in ("k", "v")]))[0]
+    x = left["k"].astype(np.float64)  # numpy's range bins, float64
+    nb = 16 * WORLD
+    lo, hi = x.min(), x.max()
+    bins = np.clip(((x - lo) / max(hi - lo, 1e-300) * nb).astype(np.int32), 0, nb - 1)
+    hist = np.bincount(bins, minlength=nb)
+    per_part = max(hist.sum() / WORLD, 1.0)
+    bin_part = np.clip(((np.cumsum(hist) - hist) / per_part).astype(np.int32), 0, WORLD - 1)
+    want_counts = np.bincount(bin_part[bins], minlength=WORLD)
+    del x, bins
+
+    def check_s4(out, what):
+        if out.row_counts.tolist() != want_counts.tolist():
+            fail(f"{what}: shard rows {out.row_counts.tolist()} != range bins {want_counts.tolist()}")
+        last = None
+        for sh in out._shards:
+            k = sh["k"].data.to(dev)
+            if k.numel() == 0:
+                continue
+            if not bool((k[1:] >= k[:-1]).all()) or (last is not None and int(k[0]) < last):
+                fail(f"{what}: keys out of order within or across shards")
+            last = int(k[-1])
+        got = torch.sort(row_keys_dev([out.column(c).data.to(dev) for c in ("k", "v")]))[0]
+        if not torch.equal(got, in_keys):
+            fail(f"{what}: rows differ from the input as a multiset")
+
+    s4_out, work_s4 = measure(lambda: tl4.distributed_sort("k"), "S4", shuffle_kernels)
+    check_s4(s4_out, "S4")
+    if work_s4["shuffle_plans"][0][1] != 1:
+        fail(f"S4: plan {work_s4['shuffle_plans']} at the default budget is not one round")
+    print(json.dumps({"profile_s4": profile(lambda: tl4.distributed_sort("k"))}))
+    seen.clear()
+    ctx4.add_config("shuffle_byte_budget", BUDGET_SMALL)
+    s4k_out, work_s4k = measure(lambda: tl4.distributed_sort("k"), "S4_K4", shuffle_kernels)
+    captured_s4 = on_card(seen)
+    check_s4(s4k_out, "S4_K4")
+    if work_s4k["shuffle_plans"][0][1] < 2:
+        fail(f"S4_K4: plan {work_s4k['shuffle_plans']} at 4 MiB is not several rounds")
+    ctx4.add_config("shuffle_byte_budget", "")
+    for w, o, budget in ((work_s4, s4_out, None), (work_s4k, s4k_out, BUDGET_SMALL)):
+        w.update({"workload": "S4" if budget is None else "S4_K4", "world": WORLD, "rows": N_A,
+                  "budget_bytes": budget or ctx4.shuffle_byte_budget,
+                  "shard_rows": o.row_counts.tolist(), "input_rows_per_s": N_A / w["s"]})
+    del s4_out, s4k_out, in_keys
+
+    # U: the set operations (run_bench.py:547-562) at world 1, on (k, v) and
+    # on project(["k"]), then unique on k, against numpy in first-occurrence
+    # order
+    tl2 = ctt.Table.from_pydict(ctx, left2)
+    pl, pl2 = tl.project(["k"]), tl2.project(["k"])
+    keys_l, keys_r = row_keys(left["k"], left["v"]), row_keys(left2["k"], left2["v"])
+    cat_k = np.concatenate([left["k"], left2["k"]])
+    cat_v = np.concatenate([left["v"], left2["v"]])
+
+    def first_rows(keys):
+        return np.sort(np.unique(keys, return_index=True)[1])
+
+    def last_rows(keys):
+        return np.sort(len(keys) - 1 - np.unique(keys[::-1], return_index=True)[1])
+
+    def set_refs(kl, kr):
+        """Row indices of the plain results: union into [left ++ left2],
+        subtract and intersect into left."""
+        fl = first_rows(kl)
+        hit = np.isin(kl[fl], kr)
+        return {"union": first_rows(np.concatenate([kl, kr])), "subtract": fl[~hit],
+                "intersect": fl[hit]}
+
+    refs = {"": set_refs(keys_l, keys_r), "_k": set_refs(left["k"], left2["k"])}
+    refs["_k"]["unique"] = first_rows(left["k"])
+    refs["_k"]["unique_last"] = last_rows(left["k"])
+    del keys_l, keys_r
+    u_calls = [
+        ("union", "", lambda a, b: a.union(b)), ("subtract", "", lambda a, b: a.subtract(b)),
+        ("intersect", "", lambda a, b: a.intersect(b)),
+        ("union", "_k", lambda a, b: a.union(b)), ("subtract", "_k", lambda a, b: a.subtract(b)),
+        ("intersect", "_k", lambda a, b: a.intersect(b)),
+        ("unique", "_k", lambda a, b: a.unique(["k"])),
+        ("unique_last", "_k", lambda a, b: a.unique(["k"], keep="last")),
+    ]
+    work_u = {"workload": "U", "world": 1, "rows_per_side": N_A, "ops": {}}
+    for op, sfx, call in u_calls:
+        a, b = (tl, tl2) if sfx == "" or op.startswith("unique") else (pl, pl2)
+        out, w = measure(lambda: call(a, b), f"U {op}{sfx}", sort_kernels)
+        idx = refs[sfx][op]
+        src_k, src_v = (cat_k, cat_v) if op == "union" else (left["k"], left["v"])
+        names = out.column_names
+        got = host_cols(out, names)
+        if names != (["k", "v"] if a is tl else ["k"]) or len(got[0]) != len(idx):
+            fail(f"U {op}{sfx}: {names}, {len(got[0])} rows != {len(idx)}")
+        if not np.array_equal(got[0], src_k[idx]) or (
+                len(got) > 1 and not np.array_equal(got[1].view(np.int32), src_v[idx].view(np.int32))):
+            fail(f"U {op}{sfx}: rows differ from numpy's first-occurrence result")
+        n_in = N_A if op.startswith("unique") else 2 * N_A
+        w.update({"rows": len(idx), "input_rows_per_s": n_in / w["s"]})
+        work_u["ops"][op + sfx] = w
+        del out, got
+    print(json.dumps({"profile_u": profile(lambda: tl.union(tl2))}))
+    del pl, pl2
+
+    # U4: the distributed forms at world 4: each shard's rows, as a
+    # multiset, are the plain result's rows of that shard's murmur3
+    # partition (of all columns; of k for distributed_unique)
+    tl4b = ctt.Table.from_pydict(ctx4, left2)
+    pl4, pl4b = tl4.project(["k"]), tl4b.project(["k"])
+    u4_calls = [
+        ("union", "", lambda a, b: a.distributed_union(b)),
+        ("subtract", "", lambda a, b: a.distributed_subtract(b)),
+        ("intersect", "", lambda a, b: a.distributed_intersect(b)),
+        ("union", "_k", lambda a, b: a.distributed_union(b)),
+        ("subtract", "_k", lambda a, b: a.distributed_subtract(b)),
+        ("intersect", "_k", lambda a, b: a.distributed_intersect(b)),
+        ("unique", "_k", lambda a, b: a.distributed_unique(["k"])),
+        ("unique_last", "_k", lambda a, b: a.distributed_unique(["k"], keep="last")),
+    ]
+    work_u4 = {"workload": "U4", "world": WORLD, "rows_per_side": N_A, "ops": {}}
+    for op, sfx, call in u4_calls:
+        a, b = (tl4, tl4b) if sfx == "" or op.startswith("unique") else (pl4, pl4b)
+        out, w = measure(lambda: call(a, b), f"U4 {op}{sfx}", shuffle_kernels)
+        idx = torch.from_numpy(refs[sfx][op]).to(dev)
+        src_k, src_v = (cat_k, cat_v) if op == "union" else (left["k"], left["v"])
+        want = [torch.from_numpy(src_k).to(dev)[idx]]
+        if a is tl4:
+            want.append(torch.from_numpy(src_v).to(dev)[idx])
+        part_by = want[:1] if op.startswith("unique") else want
+        pid = hash_partition_ids([(c, None) for c in part_by], None, WORLD)
+        want_keys = row_keys_dev(want)
+        for s_, sh in enumerate(out._shards):
+            got = torch.sort(row_keys_dev([sh[c].data.to(dev) for c in out.column_names]))[0]
+            if not torch.equal(got, torch.sort(want_keys[pid == s_])[0]):
+                fail(f"U4 {op}{sfx}: shard {s_} differs from the plain result's partition")
+        n_in = N_A if op.startswith("unique") else 2 * N_A
+        w.update({"rows": out.row_count, "shard_rows": out.row_counts.tolist(),
+                  "input_rows_per_s": n_in / w["s"]})
+        work_u4["ops"][op + sfx] = w
+        del out, want, pid, want_keys
+    print(json.dumps({"profile_u4": profile(lambda: tl4.distributed_union(tl4b))}))
+    del tl4, tl4b, pl4, pl4b, tl2, cat_k, cat_v
+
     cuda_radix.radix_sort_lane, cuda_gather.expand_rows = orig_lane, orig_expand
     cuda_codec.pack_hist, cuda_codec.pack_dest = orig_hist, orig_dest
     cuda_codec.compact_move, _sh.plan_rounds = orig_move, orig_plan
@@ -690,6 +917,24 @@ def main() -> None:
     torch.cuda.synchronize()
     err_cm = max(err_cm, max_err(moved_o, cuda_codec.compact_move_plain(
         move_o, recv_o, o_P, o_bc, o_nh)))
+    # the range shuffle of S4_K4: B2a in pid mode on its range pid lane, B2b
+    # and B3 at its largest round and received buffer
+    if "hist_pid" not in captured_s4:
+        fail("workload S4_K4 gave B2a no pid lane")
+    s_args = captured_s4["hist_pid"]
+    s_lane, s_hist = cuda_codec.pack_hist(*s_args)
+    torch.cuda.synchronize()
+    want_h = cuda_codec.pack_hist_plain(*s_args)
+    err_ph_s = max(max_err(s_lane, want_h[0]), max_err(s_hist, want_h[1]))
+    sd_args = captured_s4["dest"]
+    s_dest = cuda_codec.pack_dest(*sd_args)
+    torch.cuda.synchronize()
+    err_pd_s = max_err(s_dest, cuda_codec.pack_dest_plain(*sd_args))
+    sm_args = captured_s4["move"]
+    s_moved = cuda_codec.compact_move(*sm_args)
+    torch.cuda.synchronize()
+    err_cm_s = max_err(s_moved, cuda_codec.compact_move_plain(*sm_args))
+    err_ph, err_pd, err_cm = max(err_ph, err_ph_s), max(err_pd, err_pd_s), max(err_cm, err_cm_s)
     if err_ph or err_pd or err_cm:
         fail(f"kernel mismatch: pack_hist {err_ph}, pack_dest {err_pd}, compact_move {err_cm}")
 
@@ -766,6 +1011,19 @@ def main() -> None:
     bytes_pd = 4 * cap_d * 2 + 4 * d_P * nt_d
     bytes_cm = 4 * move.numel() + 4 * m_P * m_bc * lm
     bytes_cm_o = 4 * move_o.numel() + 4 * o_P * o_bc * lm_o
+    cap_s, P_s = s_args[5].shape[0], s_args[4]
+    ms_ph_s = cuda_ms(lambda: cuda_codec.pack_hist(*s_args))
+    ms_php_s = cuda_ms(lambda: cuda_codec.pack_hist_plain(*s_args))
+    ms_pd_s = cuda_ms(lambda: cuda_codec.pack_dest(*sd_args))
+    ms_pdp_s = cuda_ms(lambda: cuda_codec.pack_dest_plain(*sd_args))
+    ms_cm_s = cuda_ms(lambda: cuda_codec.compact_move(*sm_args))
+    ms_cmp_s = cuda_ms(lambda: cuda_codec.compact_move_plain(*sm_args))
+    # pid mode reads the pid lane and writes the lane and the histogram
+    bytes_ph_s = 4 * cap_s * 2 + 4 * P_s * cuda_codec.n_tiles(cap_s)
+    sd_cap, sd_P, sd_bc = sd_args[0].shape[0], sd_args[3], sd_args[4]
+    bytes_pd_s = 4 * sd_cap * 2 + 4 * sd_P * cuda_codec.n_tiles(sd_cap)
+    sm_move, sm_P, sm_bc = sm_args[0], sm_args[2], sm_args[3]
+    bytes_cm_s = 4 * sm_move.numel() + 4 * sm_P * sm_bc * sm_move.shape[1]
     touched = int(li.max()) + 1 if n_out else 0
     bytes_h = esz * n + 4 * 256 * passes32  # keys in, counts out
     bytes_s = 2 * (esz + 4) * n  # keys and perm in, keys and perm out
@@ -819,13 +1077,20 @@ def main() -> None:
          "launches": work_a4["launches"]["pack_hist"], "max_abs_err": err_ph,
          "ms": ms_ph, "plain_ms": ms_php, "bound_ms": bytes_ph / bw * 1e3,
          "bound_by": "bytes", "library_ms": None,
-         "shape": [cap_h, len(hv), P], "launches_a4_k4": work_a4k["launches"]["pack_hist"]},
+         "shape": [cap_h, len(hv), P], "launches_a4_k4": work_a4k["launches"]["pack_hist"],
+         "s4_pid_mode": {"shape": [cap_s, P_s], "max_abs_err": err_ph_s, "ms": ms_ph_s,
+                         "plain_ms": ms_php_s, "bound_ms": bytes_ph_s / bw * 1e3,
+                         "launches_s4": work_s4["launches"]["pack_hist"],
+                         "launches_s4_k4": work_s4k["launches"]["pack_hist"]}},
         {"name": "shuffle_pack_dest", "route": "cuda", "source": src_codec,
          "replaces": "cylon_tpu/ops/pallas_codec.py:344",
          "launches": work_a4["launches"]["pack_dest"], "max_abs_err": err_pd,
          "ms": ms_pd, "plain_ms": ms_pdp, "bound_ms": bytes_pd / bw * 1e3,
          "bound_by": "bytes", "library_ms": None,
-         "shape": [cap_d, d_P, d_bc], "launches_a4_k4": work_a4k["launches"]["pack_dest"]},
+         "shape": [cap_d, d_P, d_bc], "launches_a4_k4": work_a4k["launches"]["pack_dest"],
+         "s4_k4": {"shape": [sd_cap, sd_P, sd_bc], "max_abs_err": err_pd_s, "ms": ms_pd_s,
+                   "plain_ms": ms_pdp_s, "bound_ms": bytes_pd_s / bw * 1e3,
+                   "launches": work_s4k["launches"]["pack_dest"]}},
         {"name": "shuffle_compact_move", "route": "cuda", "source": src_codec,
          "replaces": "cylon_tpu/ops/pallas_codec.py:508",
          "launches": work_a4["launches"]["compact_move"], "max_abs_err": err_cm,
@@ -834,7 +1099,10 @@ def main() -> None:
          "shape": [m_P, m_bc, lm], "launches_a4_k4": work_a4k["launches"]["compact_move"],
          # B4's largest received buffer whose LM is not a multiple of 4
          "shape_lm_odd": [o_P, o_bc, lm_o], "ms_lm_odd": ms_cm_o, "plain_ms_lm_odd": ms_cmp_o,
-         "bound_ms_lm_odd": bytes_cm_o / bw * 1e3},
+         "bound_ms_lm_odd": bytes_cm_o / bw * 1e3,
+         "s4_k4": {"shape": [sm_P, sm_bc, sm_move.shape[1]], "max_abs_err": err_cm_s,
+                   "ms": ms_cm_s, "plain_ms": ms_cmp_s, "bound_ms": bytes_cm_s / bw * 1e3,
+                   "launches": work_s4k["launches"]["compact_move"]}},
         {"name": "pk_probe", "route": "cuda", "source": "cylon_tpu_torch/csrc/pk_probe.cu",
          "replaces": "cylon_tpu/ops/pallas_join.py:82",
          "launches": work_pk["launches"]["pk_probe"], "max_abs_err": err_pk,
@@ -866,6 +1134,8 @@ def main() -> None:
     print(json.dumps(work_pk))
     print(json.dumps(work_pk4))
     print(json.dumps(work_dup))
+    for w in (work_s, work_s4, work_s4k, work_u, work_u4):
+        print(json.dumps(w))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

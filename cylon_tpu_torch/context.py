@@ -16,6 +16,9 @@ import torch
 from .config import GPUConfig, shuffle_byte_budget
 
 
+_REDUCE = {"sum": torch.sum, "min": torch.amin, "max": torch.amax}
+
+
 class LocalCommunicator:
     """All shards in this process; collectives are copies between them."""
 
@@ -43,6 +46,19 @@ class LocalCommunicator:
             ])
             for d in range(w)
         ]
+
+    def all_reduce(self, tensors: Sequence[torch.Tensor], op: str = "sum") -> List[torch.Tensor]:
+        """``tensors[s]`` is shard s's contribution (one shape for all);
+        returns the elementwise ``op`` (sum, min or max) over the shards,
+        one copy on each shard's device: the JAX package's
+        ``lax.psum``/``pmin``/``pmax``."""
+        if op not in _REDUCE:
+            raise ValueError(f"all_reduce op must be one of {sorted(_REDUCE)}, got {op!r}")
+        if len(tensors) != self.world_size:
+            raise ValueError(f"all_reduce needs {self.world_size} tensors, got {len(tensors)}")
+        dev0 = self.devices[0]
+        red = _REDUCE[op](torch.stack([t.to(dev0) for t in tensors]), dim=0)
+        return [red.to(d) for d in self.devices]
 
 
 class CylonContext:

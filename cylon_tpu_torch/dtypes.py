@@ -170,3 +170,30 @@ def promote_key_dtypes(a: torch.dtype, b: torch.dtype) -> torch.dtype:
     would narrow some pairs and wrap values."""
     common = np.promote_types(numpy_dtype(a), numpy_dtype(b))
     return torch_dtype(common)
+
+
+def promote_concat_dtypes(a: torch.dtype, b: torch.dtype) -> torch.dtype:
+    """Common dtype of two columns stacked by a concat, by the JAX package's
+    promotion lattice (``jnp.promote_types`` with 64-bit types on), which
+    differs from numpy's: an integer with a float takes the float's width
+    (int32 with float32 is float32), float16 with bfloat16 is float32, and
+    uint64 with any signed integer is float64."""
+    if a == b or b == torch.bool:
+        return a
+    if a == torch.bool:
+        return b
+    fa, fb = a.is_floating_point, b.is_floating_point
+    if fa and fb:
+        if {a, b} == {torch.float16, torch.bfloat16}:
+            return torch.float32
+        return a if a.itemsize > b.itemsize else b
+    if fa or fb:
+        return a if fa else b
+    if a.is_signed == b.is_signed:
+        return a if a.itemsize > b.itemsize else b
+    u, s = (b, a) if a.is_signed else (a, b)
+    if u == torch.uint64:
+        return torch.float64
+    if s.itemsize > u.itemsize:
+        return s
+    return {1: torch.int16, 2: torch.int32, 4: torch.int64}[u.itemsize]

@@ -104,8 +104,14 @@ def aggregate_column(
     cnt = _seg(ones, live_ids, num_groups, "sum", 0)
     if op == COUNT:
         return cnt, None
+    if data.dtype == torch.bool and op in (SUM, MIN, MAX):
+        # the JAX package's segment reductions refuse a bool column: its sum
+        # raises TypeError, its min/max ValueError (no integer extrema of b)
+        if op == SUM:
+            raise TypeError("sum does not accept a bool column; cast it to an integer type")
+        raise ValueError("min/max do not accept a bool column; cast it to an integer type")
     if op == SUM:
-        acc = data.to(wide_int()) if not (data.dtype.is_floating_point or data.dtype == torch.bool) else data
+        acc = data if data.dtype.is_floating_point else data.to(wide_int())
         s = _seg(acc, live_ids, num_groups, "sum", 0)
         return s, (cnt > 0) if valid is not None else None
     if op in (MIN, MAX):

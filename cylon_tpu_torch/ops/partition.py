@@ -1,9 +1,12 @@
-"""Hash partitioning (counterpart of the hash part of
-cylon_tpu/ops/partition.py): murmur3 row hash mod P, with the power-of-two
-fast path ``h & (P - 1)``; rows at or past ``n`` get the sentinel P."""
+"""Partition-id assignment (counterpart of cylon_tpu/ops/partition.py):
+hash partitioning, murmur3 row hash mod P with the power-of-two fast path
+``h & (P - 1)`` (rows at or past ``n`` get the sentinel P), and the
+sample-sort range partitioning of ``distributed_sort``, whose global
+min/max and bin histogram come through the communicator's ``all_reduce``
+(the JAX package's ``lax.pmin``/``pmax``/``psum``)."""
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -26,3 +29,75 @@ def hash_partition_ids(
     if n is not None and n < pid.shape[0]:
         pid[n:] = num_partitions
     return pid
+
+
+_F64_MAX = torch.finfo(torch.float64).max
+
+
+def _as_float(data: torch.Tensor) -> torch.Tensor:
+    """The key as float64, NaN as 0. uint64 converts as two exact halves
+    whose sum rounds once: the nearest float64, as XLA's conversion."""
+    if data.dtype.is_floating_point:
+        data = torch.where(torch.isnan(data), torch.zeros_like(data), data)
+    if data.dtype == torch.uint64:
+        bits = data.view(torch.int64)
+        hi = ((bits >> 32) & 0xFFFFFFFF).to(torch.float64)
+        return hi * 4294967296.0 + (bits & 0xFFFFFFFF).to(torch.float64)
+    return data.to(torch.float64)
+
+
+def _to_int32(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> int32 truncating toward zero, saturating, NaN -> 0: XLA's
+    conversion, which a plain ``.to(torch.int32)`` leaves undefined out of
+    range. Every caller clips the result into ``[0, hi)``, so saturating at
+    -1 and at the top is enough."""
+    x = torch.where(torch.isnan(x), torch.zeros_like(x), x)
+    return x.clamp(-1.0, 2147483647.0).to(torch.int32)
+
+
+def range_partition_ids(
+    keys: Sequence[KeyCol],
+    num_partitions: int,
+    comm,
+    num_bins: Optional[int] = None,
+    ascending: bool = True,
+) -> List[torch.Tensor]:
+    """Sample-sort range partitioning on one key column, bit for bit the
+    JAX package's: ``keys[s]`` is shard s's (data, valid) and the result is
+    shard s's int32 partition lane.
+
+    Global lo/hi over the live keys and a ``num_bins`` equal-width histogram
+    (default 16 * P) come through ``comm.all_reduce``; bin -> partition is
+    the equal-weight split of the exclusive cumulative counts, so partition
+    i holds keys <= partition i+1's (reversed when descending). Nulls go to
+    the last partition, as the nulls-last sort puts them."""
+    P = num_partitions
+    nb = 16 * P if not num_bins else int(num_bins)
+    xs = [_as_float(d) for d, _v in keys]
+    oks = [torch.ones_like(x, dtype=torch.bool) if v is None else v for x, (_d, v) in zip(xs, keys)]
+
+    def extreme(x, ok, fill, fn):
+        vals = torch.where(ok, x, torch.full_like(x, fill))
+        return fn(torch.cat([vals, vals.new_full((1,), fill)]))
+
+    lo = comm.all_reduce([extreme(x, ok, _F64_MAX, torch.amin) for x, ok in zip(xs, oks)], "min")
+    hi = comm.all_reduce([extreme(x, ok, -_F64_MAX, torch.amax) for x, ok in zip(xs, oks)], "max")
+    bins = []
+    for x, ok, lo_s, hi_s in zip(xs, oks, lo, hi):
+        span = torch.clamp(hi_s - lo_s, min=1e-300)
+        b = _to_int32((x - lo_s) / span * nb).clamp(0, nb - 1)
+        bins.append(torch.where(ok, b, nb))  # nulls counted out of range
+    hists = comm.all_reduce(
+        [torch.bincount(b.to(torch.int64), minlength=nb + 1)[:nb] for b in bins], "sum"
+    )
+    out = []
+    for b, ok, hist in zip(bins, oks, hists):
+        total = hist.sum()
+        cum = torch.cumsum(hist, 0) - hist  # exclusive
+        per_part = torch.clamp(total.to(torch.float64) / P, min=1.0)
+        bin_to_part = _to_int32(cum.to(torch.float64) / per_part).clamp(0, P - 1)
+        pid = bin_to_part.index_select(0, b.clamp(0, nb - 1).to(torch.int64))
+        if not ascending:
+            pid = P - 1 - pid
+        out.append(torch.where(ok, pid, P - 1).to(torch.int32))
+    return out

@@ -1,14 +1,35 @@
-"""Set-operation primitives (counterpart of cylon_tpu/ops/setops.py).
+"""Set operations over whole rows: unique / union / intersect / subtract
+(counterpart of cylon_tpu/ops/setops.py).
 
-Only :func:`compact_mask` is ported yet, for the PK-FK join
-(ops/pk_join.py); unique, union, subtract and intersect are ROADMAP.md
-queue A3.
+The set algebra runs in sorted space, as in the JAX package: one stable
+lexsort (kernel K1) orders the rows of one table, or of both tables
+concatenated left first, by their canonical key lanes (ops/sort.py); run
+boundaries and run counts decide which rows are kept. The kept rows come
+back in ascending original-row order, which is first-occurrence order
+(pandas' and the reference's keep-first): the keep mask is scattered back
+to row order once and front-packed (:func:`compact_mask`), where the JAX
+package sorts by a sentinel key. Each emit returns (idx [n] int64 with -1
+padding, count as a device scalar), so a caller reads every shard's count
+in one host sync.
+
+The JAX package's sorted-input fast paths need ordering descriptors
+(ROADMAP.md A4) and give the same output; they are not ported.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+from ..dtypes import promote_key_dtypes
+from .sort import (
+    KeyCol,
+    canonical_row_lanes,
+    lane_runs_differ,
+    lexsort_indices,
+    run_count_from,
+    sorted_runs,
+)
 
 
 def compact_mask(mask: torch.Tensor, cap_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -32,3 +53,89 @@ def compact_mask(mask: torch.Tensor, cap_out: int) -> Tuple[torch.Tensor, torch.
         order = torch.cat([order, order.new_full((cap_out - n,), -1)])
     keep = torch.arange(cap_out, dtype=torch.int64, device=mask.device) < total
     return torch.where(keep, order, -1), total
+
+
+def _emit_by_pay(keep: torch.Tensor, spay: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kept rows of sorted space back in ascending original-row order:
+    ``keep`` scattered to row order through ``spay`` (the sorted position's
+    original row), then front-packed."""
+    rows = torch.zeros_like(keep).scatter_(0, spay.to(torch.int64), keep)
+    return compact_mask(rows, rows.shape[0])
+
+
+def _unique_keep(
+    key_cols: Sequence[KeyCol], keep: str, order_lane: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(keep mask in sorted space, spay) for single-table dedup.
+
+    ``order_lane``: an optional least-significant ordering lane (a global
+    row id carried through a shuffle) that decides which duplicate is
+    "first"/"last" in place of the row position; runs are still detected
+    from the key lanes alone."""
+    lanes = canonical_row_lanes(key_cols)  # msb first
+    if order_lane is None:
+        spay, new_run = sorted_runs(lanes)
+    else:
+        n = order_lane.shape[0]
+        spay = lexsort_indices(list(reversed(lanes + [order_lane])), n)
+        new_run = lane_runs_differ([lane.index_select(0, spay) for lane in lanes])
+    if keep == "last":
+        # within a run rows are in (order lane, row) order: keep its last,
+        # the row before the next run's start (new_run[0] is True)
+        return torch.roll(new_run, -1), spay
+    return new_run, spay
+
+
+def unique_emit(
+    key_cols: Sequence[KeyCol], keep: str = "first", order_lane: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row indices of the deduplicated table, in row order."""
+    return _emit_by_pay(*_unique_keep(key_cols, keep, order_lane))
+
+
+def concat_two_tables(l_cols: Sequence[KeyCol], r_cols: Sequence[KeyCol]) -> List[KeyCol]:
+    """Column-wise [left ++ right] with key-dtype promotion (numpy rules)
+    and merged validity: row i < n_l is left row i, row n_l + j right row j."""
+    out: List[KeyCol] = []
+    for (ld, lv), (rd, rv) in zip(l_cols, r_cols):
+        if ld.dtype != rd.dtype:
+            common = promote_key_dtypes(ld.dtype, rd.dtype)
+            ld, rd = ld.to(common), rd.to(common)
+        valid = None
+        if lv is not None or rv is not None:
+            lv = torch.ones_like(ld, dtype=torch.bool) if lv is None else lv
+            rv = torch.ones_like(rd, dtype=torch.bool) if rv is None else rv
+            valid = torch.cat([lv, rv])
+        out.append((torch.cat([ld, rd]), valid))
+    return out
+
+
+def _two_table_sorted(l_cols: Sequence[KeyCol], r_cols: Sequence[KeyCol]):
+    """One stable sort of both tables' rows by canonical key lanes:
+    (spay, new_run, whether the sorted row is a left row, the
+    concatenation). Lefts precede rights within a run, so a run's first
+    row is a left whenever it has one."""
+    n_l = l_cols[0][0].shape[0]
+    cat_cols = concat_two_tables(l_cols, r_cols)
+    spay, new_run = sorted_runs(canonical_row_lanes(cat_cols))
+    return spay, new_run, spay < n_l, cat_cols
+
+
+def union_emit(l_cols: Sequence[KeyCol], r_cols: Sequence[KeyCol]):
+    """Distinct union: the first row of every run of the shared sort, which
+    is its first occurrence in [left ++ right]. Returns (idx, count, the
+    concatenation ``idx`` indexes)."""
+    spay, new_run, _is_l, cat_cols = _two_table_sorted(l_cols, r_cols)
+    idx, total = _emit_by_pay(new_run, spay)
+    return idx, total, cat_cols
+
+
+def setop_emit(l_cols: Sequence[KeyCol], r_cols: Sequence[KeyCol], want_in_r: bool):
+    """Subtract (``want_in_r`` False) or intersect (True): the first left
+    row of each run that does not / does hold a right row. Returns (idx
+    into the left rows, count)."""
+    spay, new_run, is_l, _cat = _two_table_sorted(l_cols, r_cols)
+    # read at run starts only, where count-from is the run's total
+    r_in_run = run_count_from(new_run, ~is_l)
+    hit = r_in_run > 0 if want_in_r else r_in_run == 0
+    return _emit_by_pay(new_run & is_l & hit, spay)

@@ -1,6 +1,5 @@
 """Table of the PyTorch port (counterpart of cylon_tpu/table.py): the
-join -> groupby main path over W shards, with the chunked hash shuffle
-between them.
+relational operators over W shards, with the chunked shuffle between them.
 
 A table is W shards of exact-length columns, shard s on the context's
 ``devices[s]``: no padding rows, no shard capacities. A column's dtype,
@@ -8,9 +7,13 @@ dictionary and whether it has a validity mask are the same in every
 shard. Rows loaded from the host split into contiguous blocks
 (``engine.shard_caps``), as in the JAX package, and every host read
 concatenates the shards in order.
-``join`` and ``groupby`` are per-shard local ops; ``distributed_join`` and
-``distributed_groupby`` hash-shuffle first (``_shuffle_many``) and are the
-local ops when the world is one device, as there.
+``join``, ``groupby``, ``sort``, the set operations and ``unique`` are
+per-shard local ops (their per-shard logic in ``ops/``); their
+``distributed_*`` forms shuffle first (``_shuffle_many``: a hash shuffle,
+or the range shuffle of ``distributed_sort``) and are the local ops when
+the world is one device, as there. Ops whose output is a subset of the
+input rows (filter, set ops, unique) read every shard's row count in one
+host sync.
 """
 from __future__ import annotations
 
@@ -22,14 +25,17 @@ import torch
 
 from .column import Column, unify_dictionaries
 from .context import CylonContext
-from .dtypes import DataType, numpy_dtype, promote_key_dtypes
+from .dtypes import DataType, Type, numpy_dtype, promote_concat_dtypes, promote_key_dtypes
 from .engine import round_cap, shard_caps
 from .ops import cuda_codec as _codec
 from .ops import groupby as _g
 from .ops import join as _j
+from .ops import partition as _p
 from .ops import pk_join as _pk
+from .ops import setops as _s
 from .ops.gather import KeyCol, lane_plan, pack_cols, pack_gather
 from .ops.hash import hash_dictionary_host
+from .ops.sort import lexsort_rows_payload, orderable_key
 from .parallel import shuffle as _sh
 
 Encoded = Tuple[np.ndarray, Optional[np.ndarray], Any, Optional[np.ndarray]]
@@ -160,6 +166,210 @@ class Table:
         return self._with_shards(
             [OrderedDict(zip(new_names, sh.values())) for sh in self._shards]
         )
+
+    def project(self, columns: Sequence[Union[str, int]]) -> "Table":
+        names = self._resolve_cols(columns)
+        return self._with_shards([OrderedDict((n, sh[n]) for n in names) for sh in self._shards])
+
+    def drop(self, columns: Sequence[str]) -> "Table":
+        gone = set(columns)
+        return self._with_shards([
+            OrderedDict((n, c) for n, c in sh.items() if n not in gone) for sh in self._shards
+        ])
+
+    def add_prefix(self, prefix: str) -> "Table":
+        return self.rename([prefix + n for n in self.column_names])
+
+    def add_suffix(self, suffix: str) -> "Table":
+        return self.rename([n + suffix for n in self.column_names])
+
+    def _split_rows(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """A tensor over the table's rows in order, as one slice per shard
+        on that shard's device."""
+        offs = np.concatenate([[0], np.cumsum(self._counts)])
+        return [x[int(offs[s]):int(offs[s + 1])].to(d) for s, d in enumerate(self.ctx.devices)]
+
+    def add_column(self, name: str, col: Union[Column, Sequence[Column]]) -> "Table":
+        """A new (or replaced) column: one :class:`Column` per shard, or one
+        Column over all rows in table order, split into the shards."""
+        if isinstance(col, Column):
+            if col.length != self.row_count:
+                raise ValueError(f"add_column: {col.length} rows for a table of {self.row_count}")
+            valid = None if col.valid is None else self._split_rows(col.valid)
+            parts = [
+                Column(d, col.dtype, None if valid is None else valid[s], col.dictionary)
+                for s, d in enumerate(self._split_rows(col.data))
+            ]
+        elif (
+            isinstance(col, (list, tuple)) and len(col) == self.world_size
+            and all(isinstance(c, Column) for c in col)
+        ):
+            if [c.length for c in col] != self._counts.tolist():
+                raise ValueError("add_column: a shard's column length differs from its rows")
+            parts = list(col)
+        else:
+            raise TypeError(
+                "add_column expects a Column or one Column per shard; use from_pydict for host data"
+            )
+        shards = []
+        for sh, c, dev in zip(self._shards, parts, self.ctx.devices):
+            out = OrderedDict(sh)
+            out[name] = Column(
+                c.data.to(dev), c.dtype, None if c.valid is None else c.valid.to(dev), c.dictionary
+            )
+            shards.append(out)
+        return self._with_shards(shards)
+
+    def _global_rowid_column(self) -> List[Column]:
+        """Per shard, an int32 column of each row's global index in table
+        order. Carried through a shuffle it lets unique keep='first'/'last'
+        pick by the original order, which the rounds do not keep."""
+        if self.row_count > 2**31 - 1:
+            raise ValueError(
+                f"global row ids exceed int32 range ({self.row_count} rows); order-sensitive "
+                "distributed ops (unique keep='first'/'last') are limited to 2^31-1 global rows"
+            )
+        offs = np.concatenate([[0], np.cumsum(self._counts)])
+        i32 = DataType(Type.INT32)
+        return [
+            Column(torch.arange(int(offs[s]), int(offs[s + 1]), dtype=torch.int32, device=d), i32)
+            for s, d in enumerate(self.ctx.devices)
+        ]
+
+    # ------------------------------------------------------------------
+    # row selection
+    # ------------------------------------------------------------------
+    def _shard_masks(self, mask) -> List[torch.Tensor]:
+        """One bool row mask per shard from a one-column Table, a Column
+        over all rows, one bool tensor (or Column) per shard, or a host
+        mask over all rows. A null entry counts as False."""
+
+        def as_bool(m):
+            if isinstance(m, Column):
+                return m.data.to(torch.bool) if m.valid is None else m.data.to(torch.bool) & m.valid
+            return m.to(torch.bool)
+
+        if isinstance(mask, Table):
+            if not (mask._counts == self._counts).all():
+                raise ValueError("filter: the mask table's shards differ from the table's")
+            mask = [next(iter(sh.values())) for sh in mask._shards]
+        if isinstance(mask, (list, tuple)) and mask and all(
+            isinstance(m, (torch.Tensor, Column)) for m in mask
+        ):
+            if len(mask) != self.world_size or [m.shape[0] if isinstance(m, torch.Tensor)
+                                                else m.length for m in mask] != self._counts.tolist():
+                raise ValueError("filter: a per-shard mask must match every shard's rows")
+            return [as_bool(m).to(d) for m, d in zip(mask, self.ctx.devices)]
+        if isinstance(mask, Column):
+            mask = as_bool(mask)
+        elif not isinstance(mask, torch.Tensor):
+            mask = torch.from_numpy(np.asarray(mask, dtype=bool).reshape(-1))
+        if mask.shape[0] != self.row_count:
+            raise ValueError(f"filter: a mask of {mask.shape[0]} rows for {self.row_count}")
+        return self._split_rows(mask.to(torch.bool))
+
+    def _shard_like(self, s: int, names: Sequence[str], out: Sequence[KeyCol]) -> Shard:
+        """Shard s of an output: the gathered (data, valid) pairs under
+        ``names``, with the types and dictionaries of this table's columns."""
+        return OrderedDict(
+            (n, Column(d, self._shards[s][n].dtype, v, self._shards[s][n].dictionary))
+            for n, (d, v) in zip(names, out)
+        )
+
+    def _emit(self, parts, out_names: Optional[Sequence[str]] = None) -> "Table":
+        """Rows picked per shard: ``parts[s]`` is (columns, idx with -1
+        padding, count as a device scalar). Reads every count in one host
+        sync and gathers each shard's rows into the columns ``out_names``
+        (default: all) of this table."""
+        out_names = self.column_names if out_names is None else out_names
+        dev0 = self.ctx.device
+        counts = torch.stack([t.to(dev0) for _c, _i, t in parts]).cpu().numpy()
+        shards = [
+            self._shard_like(s, out_names, pack_gather(cols, idx[: int(n)], all_valid=True))
+            for s, ((cols, idx, _t), n) in enumerate(zip(parts, counts))
+        ]
+        return Table(self.ctx, shards, counts)
+
+    def filter(self, mask) -> "Table":
+        """Keep the rows where ``mask`` is True, in order (see
+        :meth:`_shard_masks` for the mask's forms)."""
+        masks = self._shard_masks(mask)
+        return self._emit([
+            (self._flat_cols(s), *_s.compact_mask(m, m.shape[0])) for s, m in enumerate(masks)
+        ])
+
+    def select(self, predicate) -> "Table":
+        """Keep the rows where ``predicate`` holds; it maps each shard's dict
+        of column tensors to that shard's bool mask."""
+        return self.filter([
+            predicate({n: c.data for n, c in sh.items()}) for sh in self._shards
+        ])
+
+    def take(self, indices) -> "Table":
+        """Rows by global (table-order) index, negative from the end; the
+        output's rows split evenly over the shards, as a loaded table's."""
+        idx = np.asarray(indices, np.int64).reshape(-1)
+        n_total = self.row_count
+        idx = np.where(idx < 0, idx + n_total, idx)
+        if len(idx) and (idx.min() < 0 or idx.max() >= n_total):
+            raise IndexError("take index out of range")
+        offs = np.concatenate([[0], np.cumsum(self._counts)])
+        src = np.searchsorted(offs[1:], idx, side="right")
+        local = idx - offs[src]
+        counts, _cap = shard_caps(len(idx), self.world_size)
+        o = np.concatenate([[0], np.cumsum(counts)])
+        shards = []
+        for d, dev in enumerate(self.ctx.devices):
+            sd, ld = src[o[d]:o[d + 1]], local[o[d]:o[d + 1]]
+            order = np.argsort(sd, kind="stable")
+            pieces = [
+                pack_gather(self._flat_cols(s),
+                            torch.from_numpy(ld[sd == s]).to(self.ctx.devices[s]), all_valid=True)
+                for s in np.unique(sd)
+            ]
+            inv = torch.from_numpy(np.argsort(order, kind="stable")).to(dev)
+            cols: Shard = OrderedDict()
+            for ci, (name, c) in enumerate(self._shards[0].items()):
+                if pieces:
+                    data = torch.cat([p[ci][0].to(dev) for p in pieces])[inv]
+                    valid = None if c.valid is None else torch.cat(
+                        [p[ci][1].to(dev) for p in pieces])[inv]
+                else:
+                    data = c.data.new_empty(0).to(dev)
+                    valid = None if c.valid is None else c.valid.new_empty(0).to(dev)
+                cols[name] = Column(data, c.dtype, valid, c.dictionary)
+            shards.append(cols)
+        return Table(self.ctx, shards, counts)
+
+    def hash_partition(
+        self, hash_columns: Sequence[Union[str, int]], num_partitions: int
+    ) -> Dict[int, "Table"]:
+        """Local hash partition of every shard into ``num_partitions``
+        tables by the murmur3 row hash, through :meth:`filter`."""
+        khash = self._key_hash_cols(self._resolve_cols(hash_columns))
+        pids = [_p.hash_partition_ids(k, None, num_partitions) for k in khash]
+        return {p: self.filter([pid == p for pid in pids]) for p in range(num_partitions)}
+
+    @staticmethod
+    def concat(tables: Sequence["Table"], axis: int = 0) -> "Table":
+        """Row-stack same-schema tables shard by shard (axis=0; the
+        reference's Merge). axis=1 aligns tables on their index and is not
+        ported."""
+        tables = list(tables)
+        if not tables:
+            raise ValueError("need at least one table")
+        if any(not isinstance(t, Table) for t in tables):
+            raise ValueError("concat expects Tables")
+        if axis == 1:
+            raise _not_ported("concat(axis=1)", "A2, index alignment (set_index/loc)")
+        if axis != 0:
+            raise ValueError(f"invalid axis {axis}, must be 0 or 1")
+        return _concat_tables(tables)
+
+    @staticmethod
+    def merge(tables: Sequence["Table"]) -> "Table":
+        """Row-stack same-schema tables: :meth:`concat` with axis=0."""
+        return Table.concat(tables, axis=0)
 
     # ------------------------------------------------------------------
     # shuffle (the distributed backbone)
@@ -444,11 +654,155 @@ class Table:
                 return shuffled.groupby(by, newagg, **kw)
         return t._shuffle_impl(key_names).groupby(by, agg, **kw)
 
+    # ------------------------------------------------------------------
+    # sort
+    # ------------------------------------------------------------------
+    def sort(
+        self,
+        order_by: Union[str, int, Sequence[Union[str, int]]],
+        ascending: Union[bool, Sequence[bool]] = True,
+    ) -> "Table":
+        """Per-shard stable sort by several keys, each ascending or not,
+        nulls last (NaN last too, in either direction): one lexsort (kernel
+        K1) and one packed gather a shard."""
+        names = self._resolve_cols(order_by)
+        asc = _resolve_asc(ascending, len(names))
+        shards = []
+        for s, n in enumerate(self._counts):
+            perm, _ = lexsort_rows_payload(self._flat_cols(s, names), int(n), ascending=asc)
+            out = pack_gather(self._flat_cols(s), perm, all_valid=True)
+            shards.append(self._shard_like(s, self.column_names, out))
+        return self._with_shards(shards)
+
+    def distributed_sort(
+        self,
+        order_by: Union[str, int, Sequence[Union[str, int]]],
+        ascending: Union[bool, Sequence[bool]] = True,
+        num_bins: int = 0,
+        num_samples: int = 0,
+    ) -> "Table":
+        """Global sample sort: a range shuffle on the first key (its global
+        ``num_bins``-bin histogram, default 16 x W), then the local sort, so
+        shard i's rows all precede shard i+1's. ``num_samples`` is accepted
+        and unused, as in the JAX package. One device: the local sort."""
+        names = self._resolve_cols(order_by)
+        asc = _resolve_asc(ascending, len(names))
+        if self.world_size == 1:
+            return self.sort(names, asc)
+        shuffled = _shuffle_many([
+            _ShuffleSpec(self, (names[0],), kind="range", asc0=asc[0], num_bins=num_bins)
+        ])[0]
+        return shuffled.sort(names, asc)
+
+    # ------------------------------------------------------------------
+    # set operations and unique
+    # ------------------------------------------------------------------
+    def _setop_pair(self, other: "Table") -> Tuple["Table", "Table"]:
+        if self.column_names != other.column_names:
+            raise ValueError("set operations require identical schemas")
+        if other.ctx.devices != self.ctx.devices:
+            raise ValueError("set operation of tables on different devices")
+        return _unify_dict_pair(self, other, self.column_names, other.column_names)
+
+    def union(self, other: "Table") -> "Table":
+        """Distinct rows of both tables, in first-occurrence order of
+        [self ++ other], per shard."""
+        return self._two_table_setop(other, "union")
+
+    def subtract(self, other: "Table") -> "Table":
+        """Distinct rows of self not in other, in self's order, per shard."""
+        return self._two_table_setop(other, "subtract")
+
+    def intersect(self, other: "Table") -> "Table":
+        """Distinct rows of self also in other, in self's order, per shard."""
+        return self._two_table_setop(other, "intersect")
+
+    def _two_table_setop(self, other: "Table", op: str) -> "Table":
+        a, b = self._setop_pair(other)
+        if op == "union" and any(
+            ca.dtype != cb.dtype for ca, cb in zip(a._shards[0].values(), b._shards[0].values())
+        ):
+            # mixed dtypes: the union takes concat's promoted column types
+            return _concat_tables([a, b]).unique()
+        parts = []
+        for s in range(self.world_size):
+            lc, rc = a._flat_cols(s), b._flat_cols(s)
+            if op == "union":
+                idx, total, cat = _s.union_emit(lc, rc)
+                parts.append((cat, idx, total))
+            else:
+                parts.append((lc, *_s.setop_emit(lc, rc, op == "intersect")))
+        return a._emit(parts)
+
+    def distributed_union(self, other: "Table") -> "Table":
+        return self._dist_setop(other, "union")
+
+    def distributed_subtract(self, other: "Table") -> "Table":
+        return self._dist_setop(other, "subtract")
+
+    def distributed_intersect(self, other: "Table") -> "Table":
+        return self._dist_setop(other, "intersect")
+
+    def _dist_setop(self, other: "Table", op: str) -> "Table":
+        """Both tables hash-shuffled on all columns in one engine call, then
+        the local op per shard. One device: the local op."""
+        if self.world_size == 1:
+            return getattr(self, op)(other)
+        a, b = self._setop_pair(other)
+        asf, bsf = _shuffle_pair(a, a.column_names, b, b.column_names)
+        return getattr(asf, op)(bsf)
+
+    def unique(
+        self,
+        columns: Optional[Sequence[Union[str, int]]] = None,
+        keep: str = "first",
+        _order_col: Optional[str] = None,
+    ) -> "Table":
+        """Per-shard dedup on ``columns`` (default: all), keeping the first
+        or last row of each key in row order. ``_order_col`` (internal)
+        names a column whose values decide first/last in place of the row
+        position; it is left out of the output."""
+        if keep not in ("first", "last"):
+            raise ValueError(f"keep must be 'first' or 'last', got {keep!r}")
+        names = self.column_names if columns is None else self._resolve_cols(columns)
+        names = [n for n in names if n != _order_col]
+        out_names = [n for n in self.column_names if n != _order_col]
+        parts = []
+        for s, sh in enumerate(self._shards):
+            order_lane = None if _order_col is None else orderable_key(sh[_order_col].data)
+            idx, total = _s.unique_emit(self._flat_cols(s, names), keep, order_lane)
+            parts.append((self._flat_cols(s, out_names), idx, total))
+        return self._emit(parts, out_names)
+
+    def distributed_unique(
+        self, columns: Optional[Sequence[Union[str, int]]] = None, keep: str = "first"
+    ) -> "Table":
+        """A hash shuffle on the key columns, then the local unique, with a
+        global row id carried through the shuffle so that keep='first'/
+        'last' picks by the table's order. One device: the local unique."""
+        if self.world_size == 1:
+            return self.unique(columns, keep)
+        names = self.column_names if columns is None else self._resolve_cols(columns)
+        rid = "__rowid__"
+        while rid in self.column_names:  # never collide with a user column
+            rid += "_"
+        t = self.add_column(rid, self._global_rowid_column())
+        return t._shuffle_impl(names).unique(names, keep, _order_col=rid)
+
     def __repr__(self):
         return (
             f"Table(rows={self.row_count}, columns={self.column_names}, "
             f"world_size={self.world_size})"
         )
+
+
+def _resolve_asc(ascending, k: int) -> Tuple[bool, ...]:
+    if isinstance(ascending, bool):
+        return (ascending,) * k
+    asc = tuple(bool(a) for a in ascending)
+    if len(asc) != k:
+        raise ValueError(f"{len(asc)} ascending flags for {k} sort keys")
+    return asc
 
 
 def _check_join_args(algorithm: str, emit_order: str) -> None:
@@ -550,34 +904,81 @@ def _promote_key_pair(
     return a._with_shards(new_a), b._with_shards(new_b)
 
 
+def _concat_tables(tables: Sequence[Table]) -> Table:
+    """Row-wise concat of same-schema tables, per shard, as a balanced
+    binary fold (the reference's Merge)."""
+    if len(tables) == 1:
+        return tables[0]
+    mid = len(tables) // 2
+    a, b = _concat_tables(tables[:mid]), _concat_tables(tables[mid:])
+    if a.column_names != b.column_names:
+        raise ValueError("concat requires identical schemas")
+    if a.ctx.devices != b.ctx.devices:
+        raise ValueError("concat of tables on different devices")
+    a, b = _unify_dict_pair(a, b, a.column_names, b.column_names)
+    shards = []
+    for sa, sb in zip(a._shards, b._shards):
+        cols: Shard = OrderedDict()
+        for name, ca in sa.items():
+            cb = sb[name]
+            common = promote_concat_dtypes(ca.data.dtype, cb.data.dtype)
+            valid = None
+            if ca.valid is not None or cb.valid is not None:
+                valid = torch.cat([
+                    torch.ones_like(c.data, dtype=torch.bool) if c.valid is None else c.valid
+                    for c in (ca, cb)
+                ])
+            dt = ca.dtype if common == ca.data.dtype else DataType.from_numpy_dtype(numpy_dtype(common))
+            cols[name] = Column(
+                torch.cat([ca.data.to(common), cb.data.to(common)]), dt, valid, ca.dictionary
+            )
+        shards.append(cols)
+    return Table(a.ctx, shards, a._counts + b._counts)
+
+
 # ----------------------------------------------------------------------
 # the chunked shuffle engine
 # ----------------------------------------------------------------------
 
 class _ShuffleSpec(NamedTuple):
-    """One table of a shuffle: its hash keys and the per-round byte budget
-    (None: the context's). The port has the hash kind only."""
+    """One table of a shuffle: its keys, the per-round byte budget (None:
+    the context's) and the kind: "hash" routes a row by the murmur3 hash
+    of its keys, "range" by the range partition of its first key
+    (``asc0``: that key's direction; ``num_bins``: 0 for 16 x W)."""
 
     table: Table
     key_names: Tuple[str, ...]
     byte_budget: Optional[int] = None
+    kind: str = "hash"
+    asc0: bool = True
+    num_bins: int = 0
 
 
 def _shuffle_state(spec: _ShuffleSpec) -> dict:
     """Per-table state: the lane plan, and per source shard the row-major
-    lanes, the partition-id lane of kernel B2a, each tile's first position
-    within each bucket (the scan of B2a's histogram, for B2b) and the
-    bucket totals (the send counts)."""
+    lanes, the partition-id lane of kernel B2a (hash mode: from the key
+    words; range mode: the range pid lane it is given), each tile's first
+    position within each bucket (the scan of B2a's histogram, for B2b) and
+    the bucket totals (the send counts)."""
     t = spec.table
     world = t.world_size
     if not t.column_names:
         raise ValueError("cannot shuffle a table without columns")
-    khash = t._key_hash_cols(spec.key_names)
+    counts = [int(n) for n in t._counts]
+    if spec.kind == "range":
+        pids = _p.range_partition_ids(
+            [t._flat_cols(s, spec.key_names[:1])[0] for s in range(world)],
+            world, t.ctx.comm, spec.num_bins, spec.asc0,
+        )
+        packs = [_codec.pack_hist(None, None, (), n, world, pid=pid) for n, pid in zip(counts, pids)]
+    elif spec.kind == "hash":
+        packs = [_codec.pack_hist(*_codec.key_words(k), n, world)
+                 for n, k in zip(counts, t._key_hash_cols(spec.key_names))]
+    else:
+        raise ValueError(f"unknown shuffle kind {spec.kind!r}")
     flat = [t._flat_cols(s) for s in range(world)]
     shards = []
-    for s in range(world):
-        words, valids, has_valid = _codec.key_words(khash[s])
-        lane, hist = _codec.pack_hist(words, valids, has_valid, int(t._counts[s]), world)
+    for s, (lane, hist) in enumerate(packs):
         _plan, lanes = pack_cols(flat[s])
         shards.append({
             "packed": torch.stack(lanes, 1),  # [n, L] row-major

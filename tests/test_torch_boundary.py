@@ -79,6 +79,7 @@ def _tables():
         lambda t: t.join(t, on="k", emit_order="key"),
         lambda t: t.groupby("k", {"v": "var"}),
         lambda t: t.groupby("k", {"v": "nunique"}),
+        lambda t: ctt.Table.concat([t, t], axis=1),
     ],
 )
 def test_unported_arguments_raise(call):

@@ -377,3 +377,84 @@ def test_pallas_pk_join_on_card_matches_cpu(dev, world):
         for c in ja:
             np.testing.assert_array_equal(ja[c], jb[c])
     assert [r[0] for r in outs[0]] == [0, 1]
+
+
+def _shard_dump(t):
+    return t.row_counts, [{c: t._host_physical_shard(c, i) for c in t.column_names}
+                          for i in range(t.world_size)]
+
+
+def _dumps_equal(a, b):
+    (ca, sa), (cb, sb) = a, b
+    np.testing.assert_array_equal(ca, cb)
+    for xa, xb in zip(sa, sb):
+        assert list(xa) == list(xb)
+        for c in xa:
+            (da, va), (db, vb) = xa[c], xb[c]
+            np.testing.assert_array_equal(da, db)
+            assert (va is None) == (vb is None)
+            if va is not None:
+                np.testing.assert_array_equal(va, vb)
+
+
+@pytest.mark.parametrize("world", [1, 4])
+def test_sort_and_setops_on_card_match_cpu(dev, world):
+    """distributed_sort (the range shuffle at world 4, several rounds),
+    every set op and distributed_unique on the card against the same calls
+    on the CPU, shard by shard. 70,001 rows a side: more than one K1 tile
+    and one B2 tile per shard."""
+    from cylon_tpu_torch.ops import cuda_codec
+
+    rng = np.random.default_rng(6)
+    n = 70_001
+    f = rng.normal(size=n).astype(np.float32)
+    f[rng.random(n) < 0.01] = np.nan
+    left = {"k": rng.integers(0, 5000, n).astype(np.int32), "f": f,
+            "s": rng.choice(["a", "b", "c", "d"], n)}
+    right = {"k": rng.integers(2500, 7500, n).astype(np.int32), "f": f[::-1].copy(),
+             "s": rng.choice(["c", "d", "e"], n)}
+    outs = []
+    for device in (dev, "cpu"):
+        ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=device, world_size=world))
+        ctx.add_config("shuffle_byte_budget", world * 4096 * 16)
+        tl, tr = ctt.Table.from_pydict(ctx, left), ctt.Table.from_pydict(ctx, right)
+        pk, pr = tl.project(["k", "s"]), tr.project(["k", "s"])
+        before = cuda_codec.LAUNCHES["pack_hist"]
+        res = [tl.distributed_sort(["k", "f"], [False, True]), tl.distributed_sort("f")]
+        launched = cuda_codec.LAUNCHES["pack_hist"] - before
+        for op in ("union", "subtract", "intersect"):
+            res.append(getattr(tl, "distributed_" + op)(tr))
+            res.append(getattr(pk, "distributed_" + op)(pr))
+        res += [tl.distributed_unique(["k"]), pk.distributed_unique(["s", "k"], "last")]
+        outs.append([_shard_dump(t) for t in res])
+        if device is dev and world > 1:
+            assert launched == 2 * world  # B2a in pid mode, one launch a shard
+    for a, b in zip(*outs):
+        _dumps_equal(a, b)
+
+
+@pytest.mark.parametrize("cap", [1, 4097, 70_001])
+def test_pack_hist_pid_mode_on_range_pids(dev, cap):
+    """B2a in pid-input mode on the range partition lane of a float key
+    with NaN and nulls, against its plain version."""
+    from cylon_tpu_torch.ops import partition
+
+    rng = np.random.default_rng(cap)
+    P = 4
+    x = torch.from_numpy(rng.normal(size=cap)).to(dev)
+    x[:: 97] = float("nan")
+    valid = torch.from_numpy(rng.random(cap) > 0.02).to(dev)
+    cuts = [0, cap // 3, cap // 3, cap // 2, cap]
+    keys = [(x[a:b], valid[a:b]) for a, b in zip(cuts, cuts[1:])]
+    comm = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=dev, world_size=P)).comm
+    pids = partition.range_partition_ids(keys, P, comm)
+    want = partition.range_partition_ids([(k.cpu(), v.cpu()) for k, v in keys], P,
+                                         ctt.CylonContext.init_distributed(
+                                             ctt.GPUConfig(device="cpu", world_size=P)).comm)
+    for pid, pid_cpu in zip(pids, want):
+        assert torch.equal(pid.cpu(), pid_cpu)
+        n = pid.shape[0] - pid.shape[0] // 7
+        lane, hist = cuda_codec.pack_hist(None, None, (), n, P, pid=pid)
+        lane_p, hist_p = cuda_codec.pack_hist_plain(None, None, (), n, P, pid=pid_cpu)
+        torch.cuda.synchronize()
+        assert torch.equal(lane.cpu(), lane_p) and torch.equal(hist.cpu(), hist_p)

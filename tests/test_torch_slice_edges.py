@@ -7,6 +7,9 @@ tests/test_torch_slice.py.
 import numpy as np
 import pytest
 
+import cylon_tpu as ct
+import cylon_tpu_torch as ctt
+
 from test_torch_slice import AGG, _run_both, _sides, jctx, pallas_env, tctx  # noqa: F401
 
 def test_join_nullable_int64_key(jctx, tctx, rng, pallas_env):
@@ -64,3 +67,23 @@ def test_join_one_hot_key(jctx, tctx, rng, pallas_env):
 def test_join_empty_side(jctx, tctx, rng, pallas_env, n_l, n_r, key_dtype, how, by):
     left, right = _sides(rng, n_l, n_r, 100, key_dtype)
     _run_both(jctx, tctx, left, right, {"on": "k", "how": how}, by, {"w": "sum", "a": "max"})
+
+
+@pytest.mark.parametrize("world", [1, 4])
+def test_bool_value_column_aggregates_like_reference(rng, world):
+    """A bool value column: sum raises TypeError and min/max ValueError in
+    both packages, through groupby and distributed_groupby; count and mean
+    agree."""
+    from test_torch_shuffle_slice import _contexts, _encode, _shards_equal
+
+    jctx, tctx = _contexts(world)
+    enc = _encode({"k": rng.integers(0, 20, 400).astype(np.int32), "x": rng.random(400) < 0.4})
+    jt, tt = ct.Table.from_encoded(jctx, enc), ctt.Table.from_encoded(tctx, enc)
+    for op, err in (("sum", TypeError), ("min", ValueError), ("max", ValueError)):
+        for t in (jt, tt):
+            for call in (t.groupby, t.distributed_groupby):
+                with pytest.raises(err):
+                    call("k", {"x": op})
+    agg = {"x": ["count", "mean"]}
+    _shards_equal(jt.groupby("k", agg), tt.groupby("k", agg))
+    _shards_equal(jt.distributed_groupby("k", agg), tt.distributed_groupby("k", agg))
