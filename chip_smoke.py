@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of cylon_tpu_torch on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py           # every phase, on one card
+    python3 chip_smoke.py --mp4     # phase MP4 alone (NCCL where there are four cards)
 
 1. builds the port's CUDA kernels from cylon_tpu_torch/csrc (one nvcc per
    source, all at once);
@@ -48,6 +49,20 @@
      U4: their distributed forms at world_size=4: each shard's rows, as a
          multiset, the plain result's rows of that shard's murmur3
          partition;
+   then the torch.distributed backend, one process per shard:
+     MP4: four processes of this script (``--mp4-worker``), each one rank
+          of ``GPUConfig(coordinator_address=..., num_processes=4)``: gloo
+          with every rank on cuda:0, or NCCL with rank r on cuda:r where
+          there are four cards. Each makes A4's, S4's, U4's and PK4's
+          data from the same seeds, stages only its own block, and runs
+          distributed_join -> distributed_groupby, distributed_sort("k"),
+          distributed_union and distributed_unique(["k"]), and the
+          pallas_pk join -> groupby; it reports a sha256 of each output
+          column of its shard, its kernel launches and the median of 3
+          barrier-synchronised calls on rank 0's clock. Rank d's digests
+          must equal those of shard d of the same calls at world_size=4
+          in this process, in row order (float sums, which the card adds
+          in no fixed order, within workload A's tolerance);
 3. holds each kernel against its plain PyTorch version on the inputs the
    main path gave it (exact: the kernels move integers; the compact B3
    also on B4's largest received buffer whose rows are not a multiple of
@@ -60,17 +75,21 @@
    torch.profiler (device time by kernel and by op, and the card's busy
    share);
 5. prints the profile lines, a JSON line of kernels, one JSON line per
-   workload, the card's name and power limit, and as the last line
+   workload (MP4's beside A4, S4, U4 and PK4 of the same run), the card's
+   name and power limit, and as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check, missing launch or exception exits nonzero without the
 last line. Without a CUDA card, or without the cylon_tpu_torch package
 beside this file, it exits nonzero at once.
 """
+import hashlib
 import json
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -87,6 +106,8 @@ WORLD = 4
 BUDGET_SMALL = 4 * 1024 * 1024  # A4's multi-round run: bucket_cap 131072, K = 4
 
 N_DUP = 100_000  # rows a side of the duplicate-key fallback check
+MP4_LIMIT_S = 420  # wall-clock limit of the four MP4 processes
+REPS_MP4 = 3  # barrier-synchronised timed calls of each MP4 op
 
 # peak memory bandwidth by card (NVIDIA data sheets); SXM5 H100 otherwise
 _PEAK_BW = {"PCIe": 2.0e12, "NVL": 3.9e12, "H200": 4.8e12}
@@ -156,7 +177,247 @@ def profile(fn, top=12) -> dict:
     }
 
 
-def main() -> None:
+def make_a():
+    """Workload A's sides (seed SEED), and the generator, which workload B
+    draws on from."""
+    rng = np.random.default_rng(SEED)
+    left = {"k": rng.integers(0, N_A, N_A).astype(np.int32),
+            "v": rng.normal(size=N_A).astype(np.float32)}
+    right = {"k": rng.integers(0, N_A, N_A).astype(np.int32),
+             "w": rng.normal(size=N_A).astype(np.float32)}
+    return left, right, rng
+
+
+def make_left2():
+    """run_bench.py's second table: A's left side with seed 1."""
+    rng2 = np.random.default_rng(1)
+    return {"k": rng2.integers(0, N_A, N_A).astype(np.int32),
+            "v": rng2.normal(size=N_A).astype(np.float32)}
+
+
+def make_pk():
+    """Workload PK's sides: unique right keys, left keys drawn from them."""
+    rng_pk = np.random.default_rng(SEED)
+    r_key = rng_pk.permutation(np.arange(2 * N_A, dtype=np.int32))[:N_A]  # unique PK
+    l_key = rng_pk.choice(r_key, size=N_A, replace=True)  # FK, every row hits
+    pk_left = {"k": l_key, "v": rng_pk.normal(size=N_A).astype(np.float32)}
+    pk_right = {"k": r_key, "w": rng_pk.normal(size=N_A).astype(np.float32)}
+    return pk_left, pk_right
+
+
+def mp4_calls(ctt, ctx):
+    """Phase MP4's calls on a world-4 context, each returning its output
+    tables: A4 (join -> groupby), S4 (distributed_sort), U4 (union and
+    unique on k) and PK4 (the PK join -> groupby), on the data of those
+    workloads; every rank passes the same host data and stages its own
+    block."""
+    left, right, _rng = make_a()
+    tl, tr = ctt.Table.from_pydict(ctx, left), ctt.Table.from_pydict(ctx, right)
+    tl2 = ctt.Table.from_pydict(ctx, make_left2())
+    pk_left, pk_right = make_pk()
+    pl, pr = ctt.Table.from_pydict(ctx, pk_left), ctt.Table.from_pydict(ctx, pk_right)
+    sums = {"v": "sum", "w": "sum"}
+
+    def a4():
+        j = tl.distributed_join(tr, on="k", how="inner")
+        return {"join": j, "groupby": j.distributed_groupby("k_x", sums)}
+
+    def pk4():
+        j = pl.distributed_join(pr, on="k", how="inner", algorithm="pallas_pk")
+        return {"join": j, "groupby": j.distributed_groupby("k_x", sums)}
+
+    return {
+        "A4": a4,
+        "S4": lambda: {"sort": tl.distributed_sort("k")},
+        "U4": lambda: {"union": tl.distributed_union(tl2), "unique": tl.distributed_unique(["k"])},
+        "PK4": pk4,
+    }
+
+
+#: the kernels each MP4 call launches on every rank
+MP4_KERNELS = {
+    "A4": ("radix_lane_hist", "radix_onesweep", "expand_rows", "pack_hist", "pack_dest",
+           "compact_move"),
+    "S4": ("radix_lane_hist", "radix_onesweep", "pack_hist", "pack_dest", "compact_move"),
+    "U4": ("radix_lane_hist", "radix_onesweep", "pack_hist", "pack_dest", "compact_move"),
+    "PK4": ("radix_lane_hist", "radix_onesweep", "pk_probe", "pack_hist", "pack_dest",
+            "compact_move"),
+}
+
+
+def shard_digests(outputs, s):
+    """{table: {column: sha256 of shard s's data (and validity) bytes}},
+    and shard s's float sum columns, which the card adds in no fixed
+    order, as host arrays."""
+    digests, sums = {}, {}
+    for name, t in outputs.items():
+        digests[name] = {}
+        for c in t.column_names:
+            col = t._shards[s][c]
+            data = col.data.cpu().numpy()
+            if c.endswith("_sum") and data.dtype.kind == "f":
+                sums[f"{name}.{c}"] = data
+                continue
+            h = hashlib.sha256(data.tobytes())
+            if col.valid is not None:
+                h.update(col.valid.cpu().numpy().tobytes())
+            digests[name][c] = h.hexdigest()
+    return digests, sums
+
+
+def mp4_worker(rank: int, world: int, address: str, backend: str, out_dir: str) -> None:
+    """One MP4 rank: its shard of every MP4 call, digests, launches and
+    times into ``out_dir``."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import cylon_tpu_torch as ctt
+    from cylon_tpu_torch.ops import cuda_codec, cuda_gather, cuda_probe, cuda_radix, pk_join
+
+    torch.set_num_threads(max(1, (os.cpu_count() or WORLD) // WORLD))  # the host's cores, shared
+    device = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+    env = ctt.CylonEnv(config=ctt.GPUConfig(
+        device=device, coordinator_address=address, num_processes=world, process_id=rank,
+        backend=backend,
+    ))
+    ctx = env.context
+    counters = (cuda_radix.LAUNCHES, cuda_gather.LAUNCHES, cuda_codec.LAUNCHES, cuda_probe.LAUNCHES)
+    result = {"rank": env.rank, "device": device, "backend": backend, "ops": {}}
+    for op, call in mp4_calls(ctt, ctx).items():
+        for d in counters:
+            for k in d:
+                d[k] = 0
+        pk_join.COUNTS["fallback"] = 0
+        call()  # the first call: its launches
+        launches = {k: v for d in counters for k, v in d.items()}
+        times = []
+        for _ in range(REPS_MP4):
+            ctx.barrier()
+            t0 = time.perf_counter()
+            out = call()
+            ctx.barrier()
+            times.append(time.perf_counter() - t0)
+        digests, sums = shard_digests(out, rank)
+        for key, arr in sums.items():
+            np.save(os.path.join(out_dir, f"rank{rank}.{op}.{key}.npy"), arr)
+        result["ops"][op] = {
+            "digests": digests, "launches": launches, "fallbacks": pk_join.COUNTS["fallback"],
+            "s": float(np.median(times)), "s_all": times,
+            "shard_rows": {n: int(t.row_counts[rank]) for n, t in out.items()},
+        }
+        del out
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    ctx.barrier()
+    ctx.finalize()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_mp4(backend: str, out_dir: str) -> list:
+    """Start the four MP4 ranks; fail the run when one exits non-zero or
+    the limit passes, killing the others. Returns their results."""
+    address = f"127.0.0.1:{free_port()}"
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(WORLD):
+            log = open(os.path.join(out_dir, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mp4-worker", str(r), str(WORLD),
+                 address, backend, out_dir],
+                stdout=log, stderr=subprocess.STDOUT,
+            ), log))
+        while time.perf_counter() - t0 < MP4_LIMIT_S:
+            codes = [p.poll() for p, _log in procs]
+            if all(c == 0 for c in codes) or any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.1)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    codes = [p.returncode for p, _log in procs]
+    if codes != [0] * WORLD:
+        tails = "\n".join(f"--- rank {r}\n" + open(os.path.join(out_dir, f"rank{r}.log")).read()[-3000:]
+                          for r in range(WORLD))
+        fail(f"MP4: ranks exited {codes} after {time.perf_counter() - t0:.1f} s "
+             f"(limit {MP4_LIMIT_S} s):\n{tails}")
+    return [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(WORLD)]
+
+
+def phase_mp4(ctt, ctx4) -> dict:
+    """Workload MP4: the torch.distributed backend, four processes, held
+    shard for shard against the same calls at world 4 in this process
+    (``ctx4``), which are timed beside them (median of REPS_MP4 calls
+    after a warm-up). Returns MP4's workload line."""
+    import torch
+    from cylon_tpu_torch.ops import pk_join
+
+    torch.cuda.empty_cache()  # the ranks share card 0 with this process
+    backend = "nccl" if torch.cuda.device_count() >= WORLD else "gloo"
+    print(json.dumps({"mp4_backend": backend, "processes": WORLD,
+                      "rank_devices": [f"cuda:{r}" if backend == "nccl" else "cuda:0"
+                                       for r in range(WORLD)]}))
+    ref, single = {}, {}
+    for op, call in mp4_calls(ctt, ctx4).items():
+        pk_join.COUNTS["fallback"] = 0
+        call()
+        times = []
+        for _ in range(REPS_MP4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ref[op] = [shard_digests(out, s) for s in range(WORLD)]
+        single[op] = float(np.median(times))
+        if pk_join.COUNTS["fallback"]:
+            fail(f"MP4 reference {op}: the PK join fell back")
+        del out
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp4_") as mp4_dir:
+        t0 = time.perf_counter()
+        ranks = run_mp4(backend, mp4_dir)
+        wall_s = time.perf_counter() - t0
+        for r, res in enumerate(ranks):
+            print(json.dumps({"mp4_rank": r, "device": res["device"],
+                              "digests": {op: v["digests"] for op, v in res["ops"].items()},
+                              "launches": {op: v["launches"] for op, v in res["ops"].items()}}))
+            for op, got in res["ops"].items():
+                want_digests, want_sums = ref[op][r]
+                if got["digests"] != want_digests:
+                    fail(f"MP4 {op}: rank {r}'s digests differ from shard {r} at world 4")
+                for key, want in want_sums.items():  # workload A's tolerance
+                    arr = np.load(os.path.join(mp4_dir, f"rank{r}.{op}.{key}.npy"))
+                    if arr.shape != want.shape or not np.allclose(
+                            arr.astype(np.float64), want.astype(np.float64), rtol=1e-5, atol=1e-4):
+                        fail(f"MP4 {op}: rank {r}'s {key} differs from shard {r} at world 4")
+                for k in MP4_KERNELS[op]:
+                    if got["launches"][k] <= 0:
+                        fail(f"MP4 {op}: rank {r} launched no {k}")
+                if got["fallbacks"]:
+                    fail(f"MP4 {op}: rank {r} fell back to the sort join")
+    rank0 = ranks[0]["ops"]
+    return {
+        "workload": "MP4", "world": WORLD, "backend": backend, "processes": WORLD,
+        "rank_devices": [res["device"] for res in ranks], "wall_s": wall_s,
+        "s": {op: v["s"] for op, v in rank0.items()},
+        "s_all": {op: v["s_all"] for op, v in rank0.items()},
+        "single_process_s": single, "single_process_devices": [str(d) for d in ctx4.devices],
+        "shard_rows": {op: [res["ops"][op]["shard_rows"] for res in ranks] for op in rank0},
+        "launches_rank0": {op: v["launches"] for op, v in rank0.items()},
+    }
+
+
+def main(mp4_only: bool = False) -> None:
+    """Every phase; with ``mp4_only`` (``--mp4``) workload MP4 alone, the
+    check of the NCCL backend where there are four cards."""
     import torch
 
     if not torch.cuda.is_available():
@@ -186,6 +447,11 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
+    if mp4_only:
+        ctx4 = ctt.CylonContext.init_distributed(ctt.GPUConfig(world_size=WORLD))
+        print(json.dumps(phase_mp4(ctt, ctx4)))
+        print(smi)
+        return
 
     # record the largest input each kernel wrapper sees on the main path
     seen = {}
@@ -281,11 +547,7 @@ def main() -> None:
     # ------------------------------------------------------------------
     # workload A
     # ------------------------------------------------------------------
-    rng = np.random.default_rng(SEED)
-    left = {"k": rng.integers(0, N_A, N_A).astype(np.int32),
-            "v": rng.normal(size=N_A).astype(np.float32)}
-    right = {"k": rng.integers(0, N_A, N_A).astype(np.int32),
-             "w": rng.normal(size=N_A).astype(np.float32)}
+    left, right, rng = make_a()
     tl, tr = ctt.Table.from_pydict(ctx, left), ctt.Table.from_pydict(ctx, right)
 
     def run_a():
@@ -513,11 +775,8 @@ def main() -> None:
     # ------------------------------------------------------------------
     # workloads PK and PK4: the PK-FK join (algorithm="pallas_pk", B5)
     # ------------------------------------------------------------------
-    rng_pk = np.random.default_rng(SEED)
-    r_key = rng_pk.permutation(np.arange(2 * N_A, dtype=np.int32))[:N_A]  # unique PK
-    l_key = rng_pk.choice(r_key, size=N_A, replace=True)  # FK, every row hits
-    pk_left = {"k": l_key, "v": rng_pk.normal(size=N_A).astype(np.float32)}
-    pk_right = {"k": r_key, "w": rng_pk.normal(size=N_A).astype(np.float32)}
+    pk_left, pk_right = make_pk()
+    r_key, l_key = pk_right["k"], pk_left["k"]
     # plain float64 reference of the sums by key
     kl_pk = torch.from_numpy(l_key).to(dev).long()
     cl_pk = torch.bincount(kl_pk, minlength=2 * N_A)
@@ -640,9 +899,7 @@ def main() -> None:
     # benchmarks/run_bench.py's make_tables at A's scale (left is workload
     # A's left side, seed 0; left2 the same with seed 1)
     # ------------------------------------------------------------------
-    rng2 = np.random.default_rng(1)
-    left2 = {"k": rng2.integers(0, N_A, N_A).astype(np.int32),
-             "v": rng2.normal(size=N_A).astype(np.float32)}
+    left2 = make_left2()
     sort_kernels = list(cuda_radix.LAUNCHES)
     shuffle_kernels = sort_kernels + list(cuda_codec.LAUNCHES)
 
@@ -845,6 +1102,8 @@ def main() -> None:
     cuda_codec.pack_hist, cuda_codec.pack_dest = orig_hist, orig_dest
     cuda_codec.compact_move, _sh.plan_rounds = orig_move, orig_plan
     cuda_probe.probe = orig_probe
+
+    work_mp4 = phase_mp4(ctt, ctx4)
 
     # ------------------------------------------------------------------
     # each kernel against its plain version, at the main path's shapes
@@ -1134,7 +1393,7 @@ def main() -> None:
     print(json.dumps(work_pk))
     print(json.dumps(work_pk4))
     print(json.dumps(work_dup))
-    for w in (work_s, work_s4, work_s4k, work_u, work_u4):
+    for w in (work_s, work_s4, work_s4k, work_u, work_u4, work_mp4):
         print(json.dumps(w))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1142,4 +1401,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mp4-worker"]:
+        rank_, world_, address_, backend_, out_dir_ = sys.argv[2:7]
+        mp4_worker(int(rank_), int(world_), address_, backend_, out_dir_)
+    else:
+        main(mp4_only=sys.argv[1:] == ["--mp4"])

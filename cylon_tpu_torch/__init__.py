@@ -1,7 +1,7 @@
 """cylon_tpu_torch: the PyTorch / CUDA port of cylon_tpu.
 
 The JAX package (``cylon_tpu``) stays the reference; this package keeps its
-module structure and names and runs on one NVIDIA Hopper card (or on the
+module structure and names and runs on NVIDIA Hopper cards (or on the
 CPU when the caller asks for it). It imports neither JAX nor ``cylon_tpu``.
 
     import cylon_tpu_torch as ctt
@@ -13,7 +13,10 @@ CPU when the caller asks for it). It imports neither JAX nor ``cylon_tpu``.
 
 or, one level down, ``Table.from_pandas(ctx, df)`` with
 ``distributed_join(..., algorithm="sort" | "pallas_pk")`` and
-``distributed_groupby``.
+``distributed_groupby``. One process per shard, as under ``mpirun``:
+``GPUConfig(coordinator_address="host:port", num_processes=W,
+process_id=rank)`` (NCCL on the cards, gloo on the CPU), or
+``coordinator_address="env://"`` under ``torchrun``.
 """
 from .config import GPUConfig
 from .context import CylonContext

@@ -1,26 +1,47 @@
 """CylonContext of the PyTorch port (counterpart of cylon_tpu/context.py).
 
-One process drives ``world_size`` shards, shard ``s`` on ``devices[s]``,
-as the JAX package drives a mesh from one controller. The communicator is
-the single-process backend: its ``all_to_all`` is a transpose of chunks
-between the shards' buffers, a plain copy across devices (or within one
-card, when every shard shares it). The ``torch.distributed`` backend (one
-process per card, NCCL; gloo on the CPU) is ROADMAP.md queue A.
+A context holds ``world_size`` shards, shard ``s`` on ``devices[s]``, and a
+communicator that carries every cross-shard step. Two backends share one
+interface, and both take and return the tensors of the shards this
+process owns (``local_shards``) only:
+
+* ``LocalCommunicator``: one process owns every shard, as the JAX package
+  drives a mesh from one controller; a collective is a copy between the
+  shards' buffers.
+* ``DistCommunicator``: one process per shard under ``torch.distributed``
+  (the reference's ``mpirun -np N``): NCCL on the cards, gloo on the CPU
+  (or on a card, through the host). ``devices[s]`` is None for a shard
+  another process owns.
+
+The interface: ``all_to_all(bufs)`` (the shuffle's exchange),
+``all_reduce(tensors, op)``, ``all_gather_counts(local_counts)`` (host
+integers that decide control flow, so that every rank takes the same
+branch), ``gather_host(obj)`` (host output) and ``barrier()``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
-from .config import GPUConfig, shuffle_byte_budget
+from .config import GPUConfig, init_method, shuffle_byte_budget
 
 
 _REDUCE = {"sum": torch.sum, "min": torch.amin, "max": torch.amax}
+_DIST_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
+
+
+def _check_op(op: str) -> None:
+    if op not in _REDUCE:
+        raise ValueError(f"all_reduce op must be one of {sorted(_REDUCE)}, got {op!r}")
 
 
 class LocalCommunicator:
     """All shards in this process; collectives are copies between them."""
+
+    rank = 0
 
     def __init__(self, devices: Sequence[torch.device]):
         self.devices = list(devices)
@@ -52,20 +73,124 @@ class LocalCommunicator:
         returns the elementwise ``op`` (sum, min or max) over the shards,
         one copy on each shard's device: the JAX package's
         ``lax.psum``/``pmin``/``pmax``."""
-        if op not in _REDUCE:
-            raise ValueError(f"all_reduce op must be one of {sorted(_REDUCE)}, got {op!r}")
+        _check_op(op)
         if len(tensors) != self.world_size:
             raise ValueError(f"all_reduce needs {self.world_size} tensors, got {len(tensors)}")
         dev0 = self.devices[0]
         red = _REDUCE[op](torch.stack([t.to(dev0) for t in tensors]), dim=0)
         return [red.to(d) for d in self.devices]
 
+    def all_gather_counts(self, local_counts) -> np.ndarray:
+        """Host integers, one entry (a count or a row of counts) per shard,
+        as one int64 array ``[W]`` or ``[W, ...]``."""
+        out = np.asarray(local_counts, np.int64)
+        if out.shape[:1] != (self.world_size,):
+            raise ValueError(f"all_gather_counts needs {self.world_size} entries")
+        return out
+
+    def gather_host(self, obj: Any) -> List[Any]:
+        """Every process's ``obj``, in rank order: here only this one's."""
+        return [obj]
+
+    def barrier(self) -> None:
+        for d in dict.fromkeys(self.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def finalize(self) -> None:
+        pass
+
+
+class DistCommunicator:
+    """One shard per process over a ``torch.distributed`` process group.
+
+    ``all_to_all`` is one ``all_to_all_single`` of the equal-chunk
+    ``[W * rows, L]`` buffer; ``all_reduce`` one ``dist.all_reduce`` (bool
+    through int32: NCCL has no bool). Host integers and objects go over
+    the group itself under gloo, and over a gloo side group made once
+    under NCCL (NCCL moves device memory only)."""
+
+    def __init__(self, config: GPUConfig):
+        self.rank, self.world_size = config.process_id, config.num_processes
+        self.device, self.backend = config.device, config.backend
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        self._owns_group = not dist.is_initialized()
+        if self._owns_group:
+            dist.init_process_group(
+                self.backend, init_method=init_method(config.coordinator_address),
+                world_size=self.world_size, rank=self.rank,
+            )
+        elif (dist.get_world_size(), dist.get_rank(), dist.get_backend()) != (
+            self.world_size, self.rank, self.backend
+        ):
+            raise ValueError(
+                f"the process group of this process (world {dist.get_world_size()}, rank "
+                f"{dist.get_rank()}, {dist.get_backend()}) is not the one {config!r} names"
+            )
+        self._host_group = dist.new_group(backend="gloo") if self.backend == "nccl" else None
+
+    def _one(self, tensors: Sequence[torch.Tensor], what: str) -> torch.Tensor:
+        if len(tensors) != 1:
+            raise ValueError(f"{what}: this process owns one shard, got {len(tensors)} tensors")
+        return tensors[0]
+
+    def all_to_all(self, bufs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """This shard's ``[W * rows, ...]`` send buffer, chunk d bound for
+        shard d -> its receive buffer, chunk s from shard s."""
+        buf = self._one(bufs, "all_to_all").contiguous()
+        if buf.shape[0] % self.world_size:
+            raise ValueError(f"all_to_all: {buf.shape[0]} rows are not W = {self.world_size} chunks")
+        out = torch.empty_like(buf)
+        dist.all_to_all_single(out, buf)
+        return [out]
+
+    def all_reduce(self, tensors: Sequence[torch.Tensor], op: str = "sum") -> List[torch.Tensor]:
+        _check_op(op)
+        t = self._one(tensors, "all_reduce")
+        x = t.to(torch.int32) if t.dtype == torch.bool else t.clone()
+        x = x.contiguous()
+        dist.all_reduce(x, op=_DIST_OPS[op])
+        if t.dtype == torch.bool:
+            x = x.to(torch.int64) if op == "sum" else x.to(torch.bool)
+        return [x]
+
+    def all_gather_counts(self, local_counts) -> np.ndarray:
+        mine = torch.from_numpy(np.ascontiguousarray(np.asarray(local_counts, np.int64)))
+        if mine.shape[:1] != (1,):
+            raise ValueError("all_gather_counts: this process owns one shard")
+        parts = [torch.empty_like(mine) for _ in range(self.world_size)]
+        dist.all_gather(parts, mine, group=self._host_group)
+        return torch.cat(parts).numpy()
+
+    def gather_host(self, obj: Any) -> List[Any]:
+        out: List[Any] = [None] * self.world_size
+        dist.all_gather_object(out, obj, group=self._host_group)
+        return out
+
+    def barrier(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dist.barrier(group=self._host_group)
+
+    def finalize(self) -> None:
+        """Destroy the groups this communicator made."""
+        if self._host_group is not None:
+            dist.destroy_process_group(self._host_group)
+            self._host_group = None
+        if self._owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+            self._owns_group = False
+
 
 class CylonContext:
-    def __init__(self, devices: Sequence[torch.device]):
-        self.devices: List[torch.device] = list(devices)
-        self.comm = LocalCommunicator(self.devices)
+    def __init__(self, devices: Sequence[Optional[torch.device]], comm=None):
+        self.devices: List[Optional[torch.device]] = list(devices)
+        self.comm = LocalCommunicator(self.devices) if comm is None else comm
+        #: the shard indices this process owns
+        self.local_shards: List[int] = [s for s, d in enumerate(self.devices) if d is not None]
         self._config: Dict[str, str] = {}
+        self._finalized = False
 
     @classmethod
     def init_distributed(cls, config: GPUConfig) -> "CylonContext":
@@ -73,16 +198,48 @@ class CylonContext:
             raise ValueError(
                 f"init_distributed requires a GPUConfig, got {type(config)}"
             )
+        if config.coordinator_address is not None:
+            return cls(config.devices, DistCommunicator(config))
         return cls(config.devices)
 
     @property
     def device(self) -> torch.device:
-        """Shard 0's device."""
-        return self.devices[0]
+        """The device of the first shard this process owns."""
+        return self.devices[self.local_shards[0]]
 
     @property
     def world_size(self) -> int:
         return len(self.devices)
+
+    def get_world_size(self) -> int:
+        return self.world_size
+
+    @property
+    def rank(self) -> int:
+        """This process's rank: 0 when one process owns every shard."""
+        return self.comm.rank
+
+    def get_rank(self) -> int:
+        return self.rank
+
+    def get_neighbours(self, include_self: bool = False) -> List[int]:
+        """Reference GetNeighbours (ctx/cylon_context.cpp:87)."""
+        return [i for i in range(self.world_size) if include_self or i != self.rank]
+
+    def is_distributed(self) -> bool:
+        return self.world_size > 1
+
+    def barrier(self) -> None:
+        """Reference Barrier: waits for this process's cards, then for every
+        process."""
+        self.comm.barrier()
+
+    def finalize(self) -> None:
+        self.comm.finalize()
+        self._finalized = True
+
+    def is_finalized(self) -> bool:
+        return self._finalized
 
     # config KV (the JAX package's add_config / get_config)
     def add_config(self, key: str, value) -> None:
@@ -98,4 +255,7 @@ class CylonContext:
         return shuffle_byte_budget(self._config.get("shuffle_byte_budget"))
 
     def __repr__(self):
-        return f"CylonContext(world_size={self.world_size}, devices={self.devices})"
+        return (
+            f"CylonContext(world_size={self.world_size}, rank={self.rank}, "
+            f"devices={self.devices})"
+        )

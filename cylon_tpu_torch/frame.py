@@ -6,7 +6,9 @@ Reference analog: python/pycylon/frame.py. ``CylonEnv`` names the devices
 a computation runs on; a ``DataFrame`` wraps a :class:`Table`, and the
 ``env=`` argument of ``merge`` / ``join`` / ``groupby`` switches between
 the local ops and the distributed ones. ``CylonEnv(config=GPUConfig())`` is
-the only change against pycylon. The rest of the JAX package's DataFrame
+the only change against pycylon; with
+``GPUConfig(coordinator_address=..., num_processes=W, process_id=r)`` every
+rank runs the same program on its own shard, as under ``mpirun``. The rest of the JAX package's DataFrame
 (selection, arithmetic, sort, indexing, concat, ...) is ROADMAP.md A2.
 """
 from __future__ import annotations
@@ -23,8 +25,9 @@ from .table import Table, _not_ported
 
 
 class CylonEnv:
-    """Execution environment (reference frame.py:34-65). One process drives
-    every shard, so the rank is 0."""
+    """Execution environment (reference frame.py:34-65). The rank is the
+    context's: this process's rank under ``torch.distributed``, 0 when one
+    process drives every shard."""
 
     def __init__(self, config: Optional[GPUConfig] = None, distributed: bool = True):
         config = config or GPUConfig()
@@ -35,7 +38,7 @@ class CylonEnv:
 
     @property
     def rank(self) -> int:
-        return 0
+        return self.context.rank
 
     @property
     def world_size(self) -> int:
@@ -114,6 +117,7 @@ class DataFrame:
         return self._table.row_count
 
     def to_pandas(self):
+        """The whole frame, on every rank."""
         return self._table.to_pandas()
 
     def to_dict(self):
@@ -241,8 +245,8 @@ def _coalesce_keys(t: Table, keys: Sequence[str], suffixes, how: str) -> Table:
     at key_x's place (pandas.merge semantics): the right key where a right
     join has it, else the left key where present, else the right one."""
     sx, sy = suffixes
-    shards = []
-    for sh in t._shards:
+
+    def coalesce(sh):
         new: "OrderedDict[str, Column]" = OrderedDict()
         for n, c in sh.items():
             base = n[: -len(sx)] if sx and n.endswith(sx) else None
@@ -260,5 +264,6 @@ def _coalesce_keys(t: Table, keys: Sequence[str], suffixes, how: str) -> Table:
             if sy and n.endswith(sy) and n[: -len(sy)] in keys:
                 continue  # coalesced above
             new[n] = c
-        shards.append(new)
-    return t._with_shards(shards)
+        return new
+
+    return t._with_shards(t._map_shards(coalesce))

@@ -63,8 +63,10 @@ def range_partition_ids(
     ascending: bool = True,
 ) -> List[torch.Tensor]:
     """Sample-sort range partitioning on one key column, bit for bit the
-    JAX package's: ``keys[s]`` is shard s's (data, valid) and the result is
-    shard s's int32 partition lane.
+    JAX package's: ``keys`` holds the (data, valid) of each shard this
+    process owns (every shard under the single-process communicator, one
+    under torch.distributed), and the result those shards' int32
+    partition lanes.
 
     Global lo/hi over the live keys and a ``num_bins`` equal-width histogram
     (default 16 * P) come through ``comm.all_reduce``; bin -> partition is

@@ -2,11 +2,17 @@
 relational operators over W shards, with the chunked shuffle between them.
 
 A table is W shards of exact-length columns, shard s on the context's
-``devices[s]``: no padding rows, no shard capacities. A column's dtype,
-dictionary and whether it has a validity mask are the same in every
-shard. Rows loaded from the host split into contiguous blocks
-(``engine.shard_caps``), as in the JAX package, and every host read
-concatenates the shards in order.
+``devices[s]``: no padding rows, no shard capacities. A process holds the
+shards it owns (``ctx.local_shards``: every shard with the single-process
+communicator, one under ``torch.distributed``) and None for the others,
+and every shard's row count. A column's dtype, dictionary and whether it
+has a validity mask are the same in every shard, on every rank. Rows
+loaded from the host split into contiguous blocks (``engine.shard_caps``),
+as in the JAX package; each rank stages only its own, and every host read
+gives every rank the shards concatenated in order.
+Every host value that decides control flow (a shard's row count, the
+shuffle's send counts, the PK join's speculation) is gathered from every
+rank through the communicator first, so every rank takes the same branch.
 ``join``, ``groupby``, ``sort``, the set operations and ``unique`` are
 per-shard local ops (their per-shard logic in ``ops/``); their
 ``distributed_*`` forms shuffle first (``_shuffle_many``: a hash shuffle,
@@ -46,13 +52,41 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
 
 
+def _per_shard(ctx: CylonContext, fn) -> List[Any]:
+    """``fn(s)`` for every shard s this process owns, None for the others."""
+    out: List[Any] = [None] * ctx.world_size
+    for s in ctx.local_shards:
+        out[s] = fn(s)
+    return out
+
+
+def _all_local(ctx: CylonContext) -> bool:
+    return len(ctx.local_shards) == ctx.world_size
+
+
 class Table:
-    def __init__(self, ctx: CylonContext, shards: Sequence[Shard], counts: Sequence[int]):
+    def __init__(
+        self, ctx: CylonContext, shards: Sequence[Optional[Shard]], counts: Sequence[int]
+    ):
         if len(shards) != ctx.world_size or len(counts) != ctx.world_size:
             raise ValueError(f"a table of this context has {ctx.world_size} shards")
+        if any(shards[s] is None for s in ctx.local_shards):
+            raise ValueError("a table needs every shard this process owns")
         self.ctx = ctx
-        self._shards: List[Shard] = list(shards)
+        self._shards: List[Optional[Shard]] = list(shards)
         self._counts = np.asarray(counts, np.int64)
+
+    def _per_shard(self, fn) -> List[Any]:
+        return _per_shard(self.ctx, fn)
+
+    def _map_shards(self, fn) -> List[Optional[Shard]]:
+        return [None if sh is None else fn(sh) for sh in self._shards]
+
+    @property
+    def _ref(self) -> Shard:
+        """This process's first shard: the schema (names, types,
+        dictionaries, validity masks), the same in every shard."""
+        return self._shards[self.ctx.local_shards[0]]
 
     # ------------------------------------------------------------------
     # construction
@@ -63,27 +97,86 @@ class Table:
         ``Column.encode_host`` returns them, by this package or the JAX
         package: (physical data, valid | None, logical type, sorted
         dictionary | None) per column. Shard s takes the s-th contiguous
-        block of rows."""
+        block of rows. Under several processes every rank passes the same
+        global columns and stages only the blocks of its own shards."""
         n = len(next(iter(encoded.values()))[0]) if encoded else 0
         for phys, *_rest in encoded.values():
             if len(phys) != n:
                 raise ValueError("all columns must have equal length")
         counts, _cap = shard_caps(n, ctx.world_size)
         offs = np.concatenate([[0], np.cumsum(counts)])
-        shards = []
-        for s, device in enumerate(ctx.devices):
+
+        def block(s):
             lo, hi = int(offs[s]), int(offs[s + 1])
+            return OrderedDict(
+                (name, (phys[lo:hi], None if valid is None else valid[lo:hi], dtype, dictionary))
+                for name, (phys, valid, dtype, dictionary) in encoded.items()
+            )
+
+        return cls.from_encoded_shards(ctx, _per_shard(ctx, block), counts)
+
+    @classmethod
+    def from_encoded_shards(
+        cls,
+        ctx: CylonContext,
+        shards: Sequence[Optional[Dict[str, Encoded]]],
+        counts: Optional[Sequence[int]] = None,
+    ) -> "Table":
+        """Per-rank ingest (the JAX package's ``from_encoded_shards``):
+        ``shards[s]`` maps column name -> (physical data, valid | None,
+        logical type, sorted dictionary | None) for shard s's rows, and is
+        None for a shard another process owns; each process stages only
+        its own shards, so no rank holds the global table. ``counts`` (the
+        global rows per shard) is required when other processes own
+        shards. Dictionaries must already be unified across shards.
+
+        The physical dtype comes from the declared logical type and never
+        from local data, and a column has a validity mask on every shard
+        when any shard gives one (one gather of the flags), so every rank
+        builds the same lane plan: a rank that chose otherwise would
+        exchange buffers of another width."""
+        world = ctx.world_size
+        if len(shards) != world:
+            raise ValueError(f"need {world} shards, got {len(shards)}")
+        local = ctx.local_shards
+        if any(shards[s] is None for s in local):
+            raise ValueError("every shard this process owns needs its data")
+        if counts is None:
+            if not _all_local(ctx):
+                raise ValueError("counts (global, [world]) are required when other "
+                                 "processes own shards")
+            counts = [len(next(iter(sh.values()))[0]) if sh else 0 for sh in shards]
+        counts = np.asarray(counts, np.int64)
+        if counts.shape != (world,):
+            raise ValueError(f"counts must hold {world} row counts")
+        ref = shards[local[0]]
+        names = list(ref)
+        has_valid = ctx.comm.all_gather_counts(
+            [[shards[s][n][1] is not None for n in names] for s in local]
+        ).reshape(world, len(names)).any(axis=0)
+
+        def stage(s):
+            sh, device = shards[s], ctx.devices[s]
+            if list(sh) != names:
+                raise ValueError(f"shard {s} has columns {list(sh)}, not {names}")
             cols: Shard = OrderedDict()
-            for name, (phys, valid, dtype, dictionary) in encoded.items():
-                dt = DataType.of(dtype)
+            for i, name in enumerate(names):
+                phys, valid, dtype, _dictionary = sh[name]
+                dt = DataType.of(ref[name][2])
+                if DataType.of(dtype) != dt:
+                    raise ValueError(f"shard dtype mismatch for {name!r}: {dtype} vs {dt}")
+                if len(phys) != counts[s]:
+                    raise ValueError(f"shard {s}: {len(phys)} rows of {name!r}, counts say {counts[s]}")
                 # a private host copy: the table never aliases the caller's array
-                data = torch.from_numpy(np.array(phys[lo:hi], dtype=dt.physical_dtype)).to(device)
+                data = torch.from_numpy(np.array(phys, dtype=dt.physical_dtype)).to(device)
                 v = None
-                if valid is not None:
-                    v = torch.from_numpy(np.array(valid[lo:hi], dtype=bool)).to(device)
-                cols[name] = Column(data, dt, v, dictionary)
-            shards.append(cols)
-        return cls(ctx, shards, counts)
+                if has_valid[i]:
+                    v = (torch.ones(len(phys), dtype=torch.bool) if valid is None
+                         else torch.from_numpy(np.array(valid, dtype=bool))).to(device)
+                cols[name] = Column(data, dt, v, ref[name][3])
+            return cols
+
+        return cls(ctx, _per_shard(ctx, stage), counts)
 
     @classmethod
     def from_pydict(cls, ctx: CylonContext, data: Dict[str, Any]) -> "Table":
@@ -113,7 +206,7 @@ class Table:
 
     @property
     def column_names(self) -> List[str]:
-        return list(self._shards[0].keys())
+        return list(self._ref.keys())
 
     @property
     def row_count(self) -> int:
@@ -129,29 +222,48 @@ class Table:
 
     def column(self, name: str) -> Column:
         """The whole column; at world > 1 its shards concatenated in order on
-        shard 0's device (a copy)."""
+        this process's first device (a copy), on every rank."""
+        ref = self._ref[name]
         if self.world_size == 1:
-            return self._shards[0][name]
-        parts = [sh[name] for sh in self._shards]
+            return ref
         dev = self.ctx.device
-        data = torch.cat([c.data.to(dev) for c in parts])
-        valid = None if parts[0].valid is None else torch.cat([c.valid.to(dev) for c in parts])
-        return Column(data, parts[0].dtype, valid, parts[0].dictionary)
+        if _all_local(self.ctx):
+            parts = [sh[name] for sh in self._shards]
+            data = torch.cat([c.data.to(dev) for c in parts])
+            valid = None if ref.valid is None else torch.cat([c.valid.to(dev) for c in parts])
+        else:
+            data, valid = (None if x is None else torch.from_numpy(x).to(dev)
+                           for x in self._host_physical([name])[name])
+        return Column(data, ref.dtype, valid, ref.dictionary)
 
     def _host_physical_shard(self, name: str, shard: int):
         """One shard's rows in physical encoding: (data, valid | None)."""
+        if self._shards[shard] is None:
+            raise ValueError(f"shard {shard} is owned by another process")
         col = self._shards[shard][name]
         data = col.data.cpu().numpy()
         return data, None if col.valid is None else col.valid.cpu().numpy()
 
-    def _host_column(self, name: str):
-        parts = [self._host_physical_shard(name, s) for s in range(self.world_size)]
-        data = np.concatenate([d for d, _v in parts])
-        valid = None if parts[0][1] is None else np.concatenate([v for _d, v in parts])
-        return self._shards[0][name].decode_host(data, valid)
+    def _host_physical(self, names: Sequence[str]) -> Dict[str, Tuple[np.ndarray, Any]]:
+        """The whole columns in physical encoding, (data, valid | None), the
+        shards in order; under several processes one gather of every
+        rank's shards, so every rank gets them (the JAX package's
+        ``_fetch``)."""
+        shards = {s: {n: self._host_physical_shard(n, s) for n in names}
+                  for s in self.ctx.local_shards}
+        if not _all_local(self.ctx):
+            for part in self.ctx.comm.gather_host(shards):
+                shards.update(part)
+        out = {}
+        for n in names:
+            parts = [shards[s][n] for s in range(self.world_size)]
+            valid = None if parts[0][1] is None else np.concatenate([v for _d, v in parts])
+            out[n] = (np.concatenate([d for d, _v in parts]), valid)
+        return out
 
     def to_pydict(self) -> Dict[str, np.ndarray]:
-        return {name: self._host_column(name) for name in self.column_names}
+        host = self._host_physical(self.column_names)
+        return {name: self._ref[name].decode_host(*host[name]) for name in self.column_names}
 
     def to_pandas(self):
         import pandas as pd
@@ -164,18 +276,18 @@ class Table:
         else:
             new_names = list(mapping)
         return self._with_shards(
-            [OrderedDict(zip(new_names, sh.values())) for sh in self._shards]
+            self._map_shards(lambda sh: OrderedDict(zip(new_names, sh.values())))
         )
 
     def project(self, columns: Sequence[Union[str, int]]) -> "Table":
         names = self._resolve_cols(columns)
-        return self._with_shards([OrderedDict((n, sh[n]) for n in names) for sh in self._shards])
+        return self._with_shards(self._map_shards(lambda sh: OrderedDict((n, sh[n]) for n in names)))
 
     def drop(self, columns: Sequence[str]) -> "Table":
         gone = set(columns)
-        return self._with_shards([
-            OrderedDict((n, c) for n, c in sh.items() if n not in gone) for sh in self._shards
-        ])
+        return self._with_shards(self._map_shards(
+            lambda sh: OrderedDict((n, c) for n, c in sh.items() if n not in gone)
+        ))
 
     def add_prefix(self, prefix: str) -> "Table":
         return self.rename([prefix + n for n in self.column_names])
@@ -183,42 +295,45 @@ class Table:
     def add_suffix(self, suffix: str) -> "Table":
         return self.rename([n + suffix for n in self.column_names])
 
-    def _split_rows(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def _split_rows(self, x: torch.Tensor) -> List[Optional[torch.Tensor]]:
         """A tensor over the table's rows in order, as one slice per shard
-        on that shard's device."""
+        this process owns, on that shard's device."""
         offs = np.concatenate([[0], np.cumsum(self._counts)])
-        return [x[int(offs[s]):int(offs[s + 1])].to(d) for s, d in enumerate(self.ctx.devices)]
+        return self._per_shard(lambda s: x[int(offs[s]):int(offs[s + 1])].to(self.ctx.devices[s]))
 
-    def add_column(self, name: str, col: Union[Column, Sequence[Column]]) -> "Table":
-        """A new (or replaced) column: one :class:`Column` per shard, or one
-        Column over all rows in table order, split into the shards."""
+    def add_column(self, name: str, col: Union[Column, Sequence[Optional[Column]]]) -> "Table":
+        """A new (or replaced) column: one :class:`Column` per shard (None
+        for a shard another process owns), or one Column over all rows in
+        table order, split into the shards."""
+        local = self.ctx.local_shards
         if isinstance(col, Column):
             if col.length != self.row_count:
                 raise ValueError(f"add_column: {col.length} rows for a table of {self.row_count}")
+            data = self._split_rows(col.data)
             valid = None if col.valid is None else self._split_rows(col.valid)
-            parts = [
-                Column(d, col.dtype, None if valid is None else valid[s], col.dictionary)
-                for s, d in enumerate(self._split_rows(col.data))
-            ]
+            parts = self._per_shard(lambda s: Column(
+                data[s], col.dtype, None if valid is None else valid[s], col.dictionary
+            ))
         elif (
             isinstance(col, (list, tuple)) and len(col) == self.world_size
-            and all(isinstance(c, Column) for c in col)
+            and all(isinstance(col[s], Column) for s in local)
         ):
-            if [c.length for c in col] != self._counts.tolist():
+            if [col[s].length for s in local] != self._counts[local].tolist():
                 raise ValueError("add_column: a shard's column length differs from its rows")
             parts = list(col)
         else:
             raise TypeError(
                 "add_column expects a Column or one Column per shard; use from_pydict for host data"
             )
-        shards = []
-        for sh, c, dev in zip(self._shards, parts, self.ctx.devices):
-            out = OrderedDict(sh)
+
+        def with_col(s):
+            out, c, dev = OrderedDict(self._shards[s]), parts[s], self.ctx.devices[s]
             out[name] = Column(
                 c.data.to(dev), c.dtype, None if c.valid is None else c.valid.to(dev), c.dictionary
             )
-            shards.append(out)
-        return self._with_shards(shards)
+            return out
+
+        return self._with_shards(self._per_shard(with_col))
 
     def _global_rowid_column(self) -> List[Column]:
         """Per shard, an int32 column of each row's global index in table
@@ -231,35 +346,36 @@ class Table:
             )
         offs = np.concatenate([[0], np.cumsum(self._counts)])
         i32 = DataType(Type.INT32)
-        return [
-            Column(torch.arange(int(offs[s]), int(offs[s + 1]), dtype=torch.int32, device=d), i32)
-            for s, d in enumerate(self.ctx.devices)
-        ]
+        return self._per_shard(lambda s: Column(torch.arange(
+            int(offs[s]), int(offs[s + 1]), dtype=torch.int32, device=self.ctx.devices[s]
+        ), i32))
 
     # ------------------------------------------------------------------
     # row selection
     # ------------------------------------------------------------------
-    def _shard_masks(self, mask) -> List[torch.Tensor]:
-        """One bool row mask per shard from a one-column Table, a Column
-        over all rows, one bool tensor (or Column) per shard, or a host
-        mask over all rows. A null entry counts as False."""
+    def _shard_masks(self, mask) -> List[Optional[torch.Tensor]]:
+        """One bool row mask per shard this process owns from a one-column
+        Table, a Column over all rows, one bool tensor (or Column) per shard
+        (None for a shard another process owns), or a host mask over all
+        rows. A null entry counts as False."""
 
         def as_bool(m):
             if isinstance(m, Column):
                 return m.data.to(torch.bool) if m.valid is None else m.data.to(torch.bool) & m.valid
             return m.to(torch.bool)
 
+        local = self.ctx.local_shards
         if isinstance(mask, Table):
             if not (mask._counts == self._counts).all():
                 raise ValueError("filter: the mask table's shards differ from the table's")
-            mask = [next(iter(sh.values())) for sh in mask._shards]
-        if isinstance(mask, (list, tuple)) and mask and all(
-            isinstance(m, (torch.Tensor, Column)) for m in mask
+            mask = mask._map_shards(lambda sh: next(iter(sh.values())))
+        if isinstance(mask, (list, tuple)) and len(mask) == self.world_size and all(
+            isinstance(mask[s], (torch.Tensor, Column)) for s in local
         ):
-            if len(mask) != self.world_size or [m.shape[0] if isinstance(m, torch.Tensor)
-                                                else m.length for m in mask] != self._counts.tolist():
+            if [mask[s].shape[0] if isinstance(mask[s], torch.Tensor) else mask[s].length
+                    for s in local] != self._counts[local].tolist():
                 raise ValueError("filter: a per-shard mask must match every shard's rows")
-            return [as_bool(m).to(d) for m, d in zip(mask, self.ctx.devices)]
+            return self._per_shard(lambda s: as_bool(mask[s]).to(self.ctx.devices[s]))
         if isinstance(mask, Column):
             mask = as_bool(mask)
         elif not isinstance(mask, torch.Tensor):
@@ -278,36 +394,44 @@ class Table:
 
     def _emit(self, parts, out_names: Optional[Sequence[str]] = None) -> "Table":
         """Rows picked per shard: ``parts[s]`` is (columns, idx with -1
-        padding, count as a device scalar). Reads every count in one host
-        sync and gathers each shard's rows into the columns ``out_names``
-        (default: all) of this table."""
+        padding, count as a device scalar) for each shard this process
+        owns. Reads the counts in one host sync, gathers every rank's, and
+        gathers each shard's rows into the columns ``out_names`` (default:
+        all) of this table."""
         out_names = self.column_names if out_names is None else out_names
-        dev0 = self.ctx.device
-        counts = torch.stack([t.to(dev0) for _c, _i, t in parts]).cpu().numpy()
-        shards = [
-            self._shard_like(s, out_names, pack_gather(cols, idx[: int(n)], all_valid=True))
-            for s, ((cols, idx, _t), n) in enumerate(zip(parts, counts))
-        ]
-        return Table(self.ctx, shards, counts)
+        counts = self._gather_counts([parts[s][2] for s in self.ctx.local_shards])
+        return Table(self.ctx, self._per_shard(lambda s: self._shard_like(
+            s, out_names, pack_gather(parts[s][0], parts[s][1][: int(counts[s])], all_valid=True)
+        )), counts)
+
+    def _gather_counts(self, local: Sequence[Any]) -> np.ndarray:
+        """Every shard's row count, from this process's (host ints or
+        device scalars, read in one host sync)."""
+        if local and isinstance(local[0], torch.Tensor):
+            dev = self.ctx.device
+            local = torch.stack([t.to(dev) for t in local]).cpu().numpy()
+        return self.ctx.comm.all_gather_counts(local)
 
     def filter(self, mask) -> "Table":
         """Keep the rows where ``mask`` is True, in order (see
         :meth:`_shard_masks` for the mask's forms)."""
         masks = self._shard_masks(mask)
-        return self._emit([
-            (self._flat_cols(s), *_s.compact_mask(m, m.shape[0])) for s, m in enumerate(masks)
-        ])
+        return self._emit(self._per_shard(
+            lambda s: (self._flat_cols(s), *_s.compact_mask(masks[s], masks[s].shape[0]))
+        ))
 
     def select(self, predicate) -> "Table":
         """Keep the rows where ``predicate`` holds; it maps each shard's dict
         of column tensors to that shard's bool mask."""
-        return self.filter([
-            predicate({n: c.data for n, c in sh.items()}) for sh in self._shards
-        ])
+        return self.filter(self._map_shards(
+            lambda sh: predicate({n: c.data for n, c in sh.items()})
+        ))
 
     def take(self, indices) -> "Table":
         """Rows by global (table-order) index, negative from the end; the
-        output's rows split evenly over the shards, as a loaded table's."""
+        output's rows split evenly over the shards, as a loaded table's.
+        Under several processes the rows a shard gives to another
+        process's output shard go through one host gather."""
         idx = np.asarray(indices, np.int64).reshape(-1)
         n_total = self.row_count
         idx = np.where(idx < 0, idx + n_total, idx)
@@ -318,18 +442,42 @@ class Table:
         local = idx - offs[src]
         counts, _cap = shard_caps(len(idx), self.world_size)
         o = np.concatenate([[0], np.cumsum(counts)])
-        shards = []
-        for d, dev in enumerate(self.ctx.devices):
-            sd, ld = src[o[d]:o[d + 1]], local[o[d]:o[d + 1]]
+        dest = np.repeat(np.arange(self.world_size), counts)
+        devices = self.ctx.devices
+
+        def gather_from(s, sel):
+            return pack_gather(self._flat_cols(s), torch.from_numpy(local[sel]).to(devices[s]),
+                               all_valid=True)
+
+        shipped = {}  # (source shard, output shard) -> host (data, valid) per column
+        if not _all_local(self.ctx):
+            mine = {}
+            for s in self.ctx.local_shards:
+                for d in np.unique(dest[src == s]):
+                    if self._shards[d] is None:
+                        mine[(s, int(d))] = [
+                            (x.cpu().numpy(), None if v is None else v.cpu().numpy())
+                            for x, v in gather_from(s, (src == s) & (dest == d))
+                        ]
+            for part in self.ctx.comm.gather_host(mine):
+                shipped.update(part)
+
+        def out_shard(d):
+            dev = devices[d]
+            sd = src[o[d]:o[d + 1]]
             order = np.argsort(sd, kind="stable")
-            pieces = [
-                pack_gather(self._flat_cols(s),
-                            torch.from_numpy(ld[sd == s]).to(self.ctx.devices[s]), all_valid=True)
-                for s in np.unique(sd)
-            ]
+            pieces = []
+            for s in np.unique(sd):
+                if self._shards[s] is not None:
+                    sel = np.zeros(len(idx), bool)
+                    sel[o[d]:o[d + 1]] = sd == s
+                    pieces.append(gather_from(s, sel))
+                else:
+                    pieces.append([(torch.from_numpy(x), None if v is None else torch.from_numpy(v))
+                                   for x, v in shipped[(int(s), d)]])
             inv = torch.from_numpy(np.argsort(order, kind="stable")).to(dev)
             cols: Shard = OrderedDict()
-            for ci, (name, c) in enumerate(self._shards[0].items()):
+            for ci, (name, c) in enumerate(self._ref.items()):
                 if pieces:
                     data = torch.cat([p[ci][0].to(dev) for p in pieces])[inv]
                     valid = None if c.valid is None else torch.cat(
@@ -338,8 +486,9 @@ class Table:
                     data = c.data.new_empty(0).to(dev)
                     valid = None if c.valid is None else c.valid.new_empty(0).to(dev)
                 cols[name] = Column(data, c.dtype, valid, c.dictionary)
-            shards.append(cols)
-        return Table(self.ctx, shards, counts)
+            return cols
+
+        return Table(self.ctx, self._per_shard(out_shard), counts)
 
     def hash_partition(
         self, hash_columns: Sequence[Union[str, int]], num_partitions: int
@@ -347,8 +496,9 @@ class Table:
         """Local hash partition of every shard into ``num_partitions``
         tables by the murmur3 row hash, through :meth:`filter`."""
         khash = self._key_hash_cols(self._resolve_cols(hash_columns))
-        pids = [_p.hash_partition_ids(k, None, num_partitions) for k in khash]
-        return {p: self.filter([pid == p for pid in pids]) for p in range(num_partitions)}
+        pids = self._per_shard(lambda s: _p.hash_partition_ids(khash[s], None, num_partitions))
+        return {p: self.filter(self._per_shard(lambda s: pids[s] == p))
+                for p in range(num_partitions)}
 
     @staticmethod
     def concat(tables: Sequence["Table"], axis: int = 0) -> "Table":
@@ -392,14 +542,14 @@ class Table:
         columns replaced by the value hash of their strings (int64 holding
         the uint32, which hashes as the JAX package's uint32 lane): equal
         strings route alike whichever table encoded them."""
-        out: List[List[KeyCol]] = [[] for _ in self._shards]
+        out: List[Optional[List[KeyCol]]] = self._per_shard(lambda s: [])
         for n in key_names:
-            c0 = self._shards[0][n]
+            c0 = self._ref[n]
             hh = None
             if c0.dtype.is_dictionary:
                 hh = torch.from_numpy(hash_dictionary_host(c0.dictionary).astype(np.int64))
-            for s, sh in enumerate(self._shards):
-                c = sh[n]
+            for s in self.ctx.local_shards:
+                c = self._shards[s][n]
                 if hh is None:
                     out[s].append((c.data, c.valid))
                 elif len(hh) == 0:
@@ -419,7 +569,7 @@ class Table:
         if isinstance(spec, (str, int)):
             spec = [spec]
         names = [self.column_names[s] if isinstance(s, int) else s for s in spec]
-        missing = [n for n in names if n not in self._shards[0]]
+        missing = [n for n in names if n not in self._ref]
         if missing:
             raise KeyError(f"unknown columns {missing}")
         return names
@@ -479,28 +629,28 @@ class Table:
         howi = _j.join_type_id(how)
         left, right = _unify_dict_pair(self, other, l_names, r_names)
         out_names = _suffix_names(left.column_names, right.column_names, suffixes)
-        shards, counts = [], []
-        for s in range(self.world_size):
-            out, total = _j.spec_join(
-                left._flat_cols(s, l_names), right._flat_cols(s, r_names),
-                left._flat_cols(s), right._flat_cols(s), howi,
-            )
-            shards.append(_out_shard(out_names, left, right, s, out))
-            counts.append(total)
-        return Table(self.ctx, shards, counts)
+        parts = self._per_shard(lambda s: _j.spec_join(
+            left._flat_cols(s, l_names), right._flat_cols(s, r_names),
+            left._flat_cols(s), right._flat_cols(s), howi,
+        ))
+        counts = self._gather_counts([parts[s][1] for s in self.ctx.local_shards])
+        return Table(self.ctx, self._per_shard(
+            lambda s: _out_shard(out_names, left, right, s, parts[s][0])
+        ), counts)
 
     def _pallas_pk_join(
         self, other: "Table", l_names, r_names, how: str, suffixes: Tuple[str, str]
     ) -> "Table":
         """``algorithm='pallas_pk'``: per shard, the bucketed PK-FK probe
         (ops/pk_join.py, kernel B5), then one packed gather a side. One host
-        sync reads every shard's (total, bad); a miss on any shard reruns
-        the exact sort join on the original tables, left-order output."""
+        sync reads this process's (total, bad) per shard and one gather
+        brings every rank's: a miss on any shard reruns the exact sort join
+        on the original tables, left-order output, on every rank."""
         if how != "inner":
             raise ValueError("algorithm='pallas_pk' supports how='inner' only")
         left, right = _unify_dict_pair(self, other, l_names, r_names)
         left, right = _promote_key_pair(left, right, l_names, r_names)
-        lk0, rk0 = left._shards[0][l_names[0]], right._shards[0][r_names[0]]
+        lk0, rk0 = left._ref[l_names[0]], right._ref[r_names[0]]
         if len(l_names) != 1 or lk0.valid is not None or rk0.valid is not None:
             raise ValueError(
                 "algorithm='pallas_pk' needs a single null-free key column"
@@ -523,32 +673,30 @@ class Table:
         # its buckets). At other W the shuffle routes by h % W, no low bit is
         # constant, and the shift only picks other bits of the same hash.
         shift = (self.world_size - 1).bit_length()
-        parts = [
-            _pk.pk_inner_join(
-                left._shards[s][l_names[0]].data, right._shards[s][r_names[0]].data,
-                caps=caps, shift=shift,
-            )
-            for s in range(self.world_size)
-        ]
-        dev0 = self.ctx.device
-        stats = torch.stack(
-            [torch.stack([total, bad.to(total.dtype)]).to(dev0) for _l, _r, total, bad in parts]
-        ).cpu().numpy()  # the one host sync
+        parts = self._per_shard(lambda s: _pk.pk_inner_join(
+            left._shards[s][l_names[0]].data, right._shards[s][r_names[0]].data,
+            caps=caps, shift=shift,
+        ))
+        stats = self._gather_counts([
+            torch.stack([parts[s][2], parts[s][3].to(parts[s][2].dtype)])
+            for s in self.ctx.local_shards
+        ])  # [W, (total, bad)] on every rank
         if int(stats[:, 1].sum()) != 0:
             _pk.COUNTS["fallback"] += 1
             return self.join(
                 other, left_on=l_names, right_on=r_names, how=how, suffixes=suffixes
             )
         out_names = _suffix_names(left.column_names, right.column_names, suffixes)
-        shards, counts = [], []
-        for s, (l_idx, r_idx, _total, _bad) in enumerate(parts):
+
+        def emit(s):
+            l_idx, r_idx, _total, _bad = parts[s]
             n = int(stats[s, 0])
             out = pack_gather(left._flat_cols(s), l_idx[:n], all_valid=True) + pack_gather(
                 right._flat_cols(s), r_idx[:n], all_valid=True
             )
-            shards.append(_out_shard(out_names, left, right, s, out))
-            counts.append(n)
-        return Table(self.ctx, shards, counts)
+            return _out_shard(out_names, left, right, s, out)
+
+        return Table(self.ctx, self._per_shard(emit), stats[:, 0])
 
     def distributed_join(
         self,
@@ -601,8 +749,8 @@ class Table:
             for o in ops if isinstance(ops, (list, tuple)) else [ops]:
                 oid = _g.agg_op_id(o)
                 specs.append((col, oid, o if isinstance(o, str) else _agg_name(oid)))
-        shards, counts = [], []
-        for s, sh in enumerate(self._shards):
+        def group(s):
+            sh = self._shards[s]
             keys = self._flat_cols(s, key_names)
             ids, ng = _g.group_ids(keys)
             rep = _g.group_representatives(ids, ng)
@@ -615,9 +763,11 @@ class Table:
                 cols[f"{col}_{oname}"] = Column(
                     a, DataType.from_numpy_dtype(numpy_dtype(a.dtype)), av, None
                 )
-            shards.append(cols)
-            counts.append(ng)
-        return Table(self.ctx, shards, counts)
+            return cols, ng
+
+        parts = self._per_shard(group)
+        counts = self._gather_counts([parts[s][1] for s in self.ctx.local_shards])
+        return Table(self.ctx, self._per_shard(lambda s: parts[s][0]), counts)
 
     def distributed_groupby(
         self,
@@ -667,12 +817,15 @@ class Table:
         K1) and one packed gather a shard."""
         names = self._resolve_cols(order_by)
         asc = _resolve_asc(ascending, len(names))
-        shards = []
-        for s, n in enumerate(self._counts):
-            perm, _ = lexsort_rows_payload(self._flat_cols(s, names), int(n), ascending=asc)
+
+        def sort_shard(s):
+            perm, _ = lexsort_rows_payload(
+                self._flat_cols(s, names), int(self._counts[s]), ascending=asc
+            )
             out = pack_gather(self._flat_cols(s), perm, all_valid=True)
-            shards.append(self._shard_like(s, self.column_names, out))
-        return self._with_shards(shards)
+            return self._shard_like(s, self.column_names, out)
+
+        return self._with_shards(self._per_shard(sort_shard))
 
     def distributed_sort(
         self,
@@ -720,19 +873,19 @@ class Table:
     def _two_table_setop(self, other: "Table", op: str) -> "Table":
         a, b = self._setop_pair(other)
         if op == "union" and any(
-            ca.dtype != cb.dtype for ca, cb in zip(a._shards[0].values(), b._shards[0].values())
+            ca.dtype != cb.dtype for ca, cb in zip(a._ref.values(), b._ref.values())
         ):
             # mixed dtypes: the union takes concat's promoted column types
             return _concat_tables([a, b]).unique()
-        parts = []
-        for s in range(self.world_size):
+
+        def setop(s):
             lc, rc = a._flat_cols(s), b._flat_cols(s)
             if op == "union":
                 idx, total, cat = _s.union_emit(lc, rc)
-                parts.append((cat, idx, total))
-            else:
-                parts.append((lc, *_s.setop_emit(lc, rc, op == "intersect")))
-        return a._emit(parts)
+                return cat, idx, total
+            return (lc, *_s.setop_emit(lc, rc, op == "intersect"))
+
+        return a._emit(a._per_shard(setop))
 
     def distributed_union(self, other: "Table") -> "Table":
         return self._dist_setop(other, "union")
@@ -758,28 +911,31 @@ class Table:
         keep: str = "first",
         _order_col: Optional[str] = None,
     ) -> "Table":
-        """Per-shard dedup on ``columns`` (default: all), keeping the first
-        or last row of each key in row order. ``_order_col`` (internal)
+        """Per-shard dedup on ``columns`` (default: all), keeping the last
+        row of each key in row order for ``keep="last"`` and the first for
+        any other value, as the JAX package does. ``_order_col`` (internal)
         names a column whose values decide first/last in place of the row
         position; it is left out of the output."""
-        if keep not in ("first", "last"):
-            raise ValueError(f"keep must be 'first' or 'last', got {keep!r}")
+        keep = "last" if keep == "last" else "first"
         names = self.column_names if columns is None else self._resolve_cols(columns)
         names = [n for n in names if n != _order_col]
         out_names = [n for n in self.column_names if n != _order_col]
-        parts = []
-        for s, sh in enumerate(self._shards):
+
+        def dedup(s):
+            sh = self._shards[s]
             order_lane = None if _order_col is None else orderable_key(sh[_order_col].data)
             idx, total = _s.unique_emit(self._flat_cols(s, names), keep, order_lane)
-            parts.append((self._flat_cols(s, out_names), idx, total))
-        return self._emit(parts, out_names)
+            return self._flat_cols(s, out_names), idx, total
+
+        return self._emit(self._per_shard(dedup), out_names)
 
     def distributed_unique(
         self, columns: Optional[Sequence[Union[str, int]]] = None, keep: str = "first"
     ) -> "Table":
         """A hash shuffle on the key columns, then the local unique, with a
-        global row id carried through the shuffle so that keep='first'/
-        'last' picks by the table's order. One device: the local unique."""
+        global row id carried through the shuffle so that keep='last' (or
+        first, for any other value) picks by the table's order. One device:
+        the local unique."""
         if self.world_size == 1:
             return self.unique(columns, keep)
         names = self.column_names if columns is None else self._resolve_cols(columns)
@@ -789,11 +945,83 @@ class Table:
         t = self.add_column(rid, self._global_rowid_column())
         return t._shuffle_impl(names).unique(names, keep, _order_col=rid)
 
+    # ------------------------------------------------------------------
+    # whole-table aggregates (the JAX package's Table.sum/count/min/max/
+    # mean/minmax, the reference's compute::Sum/Count/Min/Max): a masked
+    # reduction per shard, then one all_reduce over every shard
+    # ------------------------------------------------------------------
+    def _reduce(self, column: Union[str, int], local_fn, op: str) -> Tuple[Column, torch.Tensor]:
+        """(the column's schema, ``op`` over every shard of ``local_fn(data,
+        ok)``), ``ok`` the shard's non-null rows."""
+        name = self._resolve_cols(column)[0]
+
+        def part(s):
+            c = self._shards[s][name]
+            ok = torch.ones_like(c.data, dtype=torch.bool) if c.valid is None else c.valid
+            return local_fn(c.data, ok)
+
+        parts = [part(s) for s in self.ctx.local_shards]
+        return self._ref[name], self.ctx.comm.all_reduce(parts, op)[0]
+
+    def sum(self, column: Union[str, int]):
+        """Sum of the non-null values; integers (and bool) add in int64."""
+
+        def local(d, ok):
+            if not d.dtype.is_floating_point:
+                d = d.to(torch.int64)
+            return torch.where(ok, d, torch.zeros_like(d)).sum()
+
+        return self._reduce(column, local, "sum")[1].item()
+
+    def count(self, column: Union[str, int]) -> int:
+        """Non-null values."""
+        return int(self._reduce(column, lambda d, ok: ok.sum(), "sum")[1].item())
+
+    def min(self, column: Union[str, int]):
+        """Least non-null value (a dictionary column's string); the type's
+        largest value when there is none, as in the JAX package."""
+        return self._extreme(column, "min")
+
+    def max(self, column: Union[str, int]):
+        return self._extreme(column, "max")
+
+    def _extreme(self, column, op: str):
+        def local(d, ok):
+            work, _back = _g._signed_work(d)
+            fill = _g._type_extrema(work.dtype)[0 if op == "min" else 1]
+            vals = torch.cat([torch.where(ok, work, fill), work.new_full((1,), fill)])
+            return vals.amin() if op == "min" else vals.amax()
+
+        col, out = self._reduce(column, local, op)
+        _work, back = _g._signed_work(col.data[:0])
+        return _decode_scalar(col, back(out.reshape(1))[0].item())
+
+    def mean(self, column: Union[str, int]) -> float:
+        """Mean of the non-null values in float64 (0.0 when there is none)."""
+        both = self._reduce(
+            column,
+            lambda d, ok: torch.stack([
+                torch.where(ok, d.to(torch.float64), 0.0).sum(), ok.sum().to(torch.float64)
+            ]),
+            "sum",
+        )[1]
+        return (both[0] / both[1].clamp(min=1)).item()
+
+    def minmax(self, column: Union[str, int]):
+        """(min, max) of the non-null values (reference MinMax)."""
+        return self.min(column), self.max(column)
+
     def __repr__(self):
         return (
             f"Table(rows={self.row_count}, columns={self.column_names}, "
             f"world_size={self.world_size})"
         )
+
+
+def _decode_scalar(col: Column, value):
+    if col.dtype.is_dictionary:
+        return col.dictionary[int(value)]
+    return value
 
 
 def _resolve_asc(ascending, k: int) -> Tuple[bool, ...]:
@@ -852,12 +1080,12 @@ def _unify_dict_pair(
     a: Table, b: Table, a_cols: Sequence[str], b_cols: Sequence[str]
 ) -> Tuple[Table, Table]:
     """Remap the dictionary codes of paired string key columns onto their
-    union dictionary, so codes compare across the two tables."""
-    new_a = [OrderedDict(sh) for sh in a._shards]
-    new_b = [OrderedDict(sh) for sh in b._shards]
+    union dictionary, so codes compare across the two tables. A pure
+    function of the dictionaries, which every rank holds alike."""
+    new_a, new_b = a._map_shards(OrderedDict), b._map_shards(OrderedDict)
     changed = False
     for an, bn in zip(a_cols, b_cols):
-        ca, cb = a._shards[0][an], b._shards[0][bn]
+        ca, cb = a._ref[an], b._ref[bn]
         if ca.dtype.is_dictionary != cb.dtype.is_dictionary:
             raise ValueError(f"cannot join string key {an!r} with numeric key {bn!r}")
         if not ca.dtype.is_dictionary:
@@ -868,9 +1096,9 @@ def _unify_dict_pair(
         ):
             continue
         union, map_a, map_b = unify_dictionaries(ca, cb)
-        for sh in new_a:
+        for sh in filter(None, new_a):
             sh[an] = _remap_codes(sh[an], map_a, union)
-        for sh in new_b:
+        for sh in filter(None, new_b):
             sh[bn] = _remap_codes(sh[bn], map_b, union)
         changed = True
     if not changed:
@@ -883,11 +1111,10 @@ def _promote_key_pair(
 ) -> Tuple[Table, Table]:
     """Cast paired numeric key columns to their common promoted dtype (numpy
     rules) so both sides hash and compare identically."""
-    new_a = [OrderedDict(sh) for sh in a._shards]
-    new_b = [OrderedDict(sh) for sh in b._shards]
+    new_a, new_b = a._map_shards(OrderedDict), b._map_shards(OrderedDict)
     changed = False
     for an, bn in zip(a_cols, b_cols):
-        ca, cb = a._shards[0][an], b._shards[0][bn]
+        ca, cb = a._ref[an], b._ref[bn]
         if ca.dtype.is_dictionary or cb.dtype.is_dictionary:
             continue  # mixed string/numeric pairs are rejected by _unify_dict_pair
         if ca.data.dtype == cb.data.dtype:
@@ -895,7 +1122,7 @@ def _promote_key_pair(
         common = promote_key_dtypes(ca.data.dtype, cb.data.dtype)
         dt = DataType.from_numpy_dtype(numpy_dtype(common))
         for shards, name in ((new_a, an), (new_b, bn)):
-            for sh in shards:
+            for sh in filter(None, shards):
                 c = sh[name]
                 sh[name] = Column(c.data.to(common), dt, c.valid, None)
         changed = True
@@ -918,6 +1145,9 @@ def _concat_tables(tables: Sequence[Table]) -> Table:
     a, b = _unify_dict_pair(a, b, a.column_names, b.column_names)
     shards = []
     for sa, sb in zip(a._shards, b._shards):
+        if sa is None:
+            shards.append(None)
+            continue
         cols: Shard = OrderedDict()
         for name, ca in sa.items():
             cb = sb[name]
@@ -961,33 +1191,35 @@ def _shuffle_state(spec: _ShuffleSpec) -> dict:
     position within each bucket (the scan of B2a's histogram, for B2b) and
     the bucket totals (the send counts)."""
     t = spec.table
-    world = t.world_size
+    world, local = t.world_size, t.ctx.local_shards
     if not t.column_names:
         raise ValueError("cannot shuffle a table without columns")
     counts = [int(n) for n in t._counts]
     if spec.kind == "range":
         pids = _p.range_partition_ids(
-            [t._flat_cols(s, spec.key_names[:1])[0] for s in range(world)],
+            [t._flat_cols(s, spec.key_names[:1])[0] for s in local],
             world, t.ctx.comm, spec.num_bins, spec.asc0,
         )
-        packs = [_codec.pack_hist(None, None, (), n, world, pid=pid) for n, pid in zip(counts, pids)]
+        packs = {s: _codec.pack_hist(None, None, (), counts[s], world, pid=pid)
+                 for s, pid in zip(local, pids)}
     elif spec.kind == "hash":
-        packs = [_codec.pack_hist(*_codec.key_words(k), n, world)
-                 for n, k in zip(counts, t._key_hash_cols(spec.key_names))]
+        khash = t._key_hash_cols(spec.key_names)
+        packs = {s: _codec.pack_hist(*_codec.key_words(khash[s]), counts[s], world) for s in local}
     else:
         raise ValueError(f"unknown shuffle kind {spec.kind!r}")
-    flat = [t._flat_cols(s) for s in range(world)]
-    shards = []
-    for s, (lane, hist) in enumerate(packs):
+    flat = {s: t._flat_cols(s) for s in local}
+    shards = {}
+    for s, (lane, hist) in packs.items():
         _plan, lanes = pack_cols(flat[s])
-        shards.append({
+        shards[s] = {
             "packed": torch.stack(lanes, 1),  # [n, L] row-major
             "lane": lane, "base": _codec.scan_tiles(hist),
             "cnt": hist.sum(1, dtype=torch.int32),
-        })
+        }
+    ref = flat[local[0]]  # the lane plan is the schema's, the same on every rank
     return {
-        "spec": spec, "t": t, "ctx": t.ctx, "world": world,
-        "plan": lane_plan(flat[0]), "row_bytes": _sh.exchange_row_bytes(flat[0]),
+        "spec": spec, "t": t, "ctx": t.ctx, "world": world, "local": local,
+        "plan": lane_plan(ref), "row_bytes": _sh.exchange_row_bytes(ref),
         "shards": shards,
     }
 
@@ -996,29 +1228,30 @@ def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
     """The chunked shuffle engine (every Distributed* op funnels through
     here), the JAX package's round structure with its two host syncs:
 
-    1. COUNT: kernel B2a per source shard; ONE fetch per table of its
-       [W, W] send-count matrix;
+    1. COUNT: kernel B2a per source shard; ONE fetch per table of this
+       process's rows of the [W, W] send-count matrix, gathered from every
+       rank, so that every rank plans alike;
     2. PLAN: ``plan_rounds`` turns the counts, the row bytes and the byte
        budget into ``bucket_cap`` and K rounds;
     3. K ROUNDS of PACK (kernel B2b + the header-fused lane scatter),
        COLLECTIVE (one all_to_all), COMPACT (kernel B3), with no host sync;
        each round keeps its live rows, whose count the plan already knows;
     4. ONE deferred fetch per table of every round's received counts,
-       checked against the plan (a mismatch is an internal routing bug),
+       gathered from every rank and checked against the plan on every
+       rank (a mismatch is an internal routing bug, raised everywhere),
        then each shard's rounds concatenated round-major.
     """
     states = [_shuffle_state(s) for s in specs]
     for st in states:
-        w = st["world"]
+        w, comm = st["world"], st["ctx"].comm
         dev0 = st["ctx"].device
-        st["send_counts"] = (
-            torch.stack([sh["cnt"].to(dev0) for sh in st["shards"]]).cpu().numpy().astype(np.int64)
-        )  # [src, dst]: the count phase's host sync
+        mine = torch.stack([st["shards"][s]["cnt"].to(dev0) for s in st["local"]]).cpu().numpy()
+        st["send_counts"] = comm.all_gather_counts(mine)  # [src, dst]: the count phase's host sync
         budget = int(st["spec"].byte_budget or st["ctx"].shuffle_byte_budget)
         st["bucket_cap"], st["n_rounds"] = _sh.plan_rounds(
             st["send_counts"], st["row_bytes"], w, budget
         )
-        st["rounds_out"] = [[] for _ in range(w)]
+        st["rounds_out"] = {s: [] for s in st["local"]}
         st["recv"] = []
 
     for r in range(max(st["n_rounds"] for st in states)):
@@ -1027,13 +1260,14 @@ def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
                 continue
             w, bc = st["world"], st["bucket_cap"]
             bufs = []
-            for sh in st["shards"]:
+            for s in st["local"]:
+                sh = st["shards"][s]
                 dest = _codec.pack_dest(sh["lane"], sh["base"], r, w, bc)
                 rc = _sh.round_counts(sh["cnt"], bc, r)
                 bufs.append(_sh.pack_lane_buffer(sh["packed"], dest, rc, w, bc))
             got = _sh.exchange_buffer(st["ctx"].comm, bufs)
             expect = _expected_received(st["send_counts"], bc, r)
-            for d, g in enumerate(got):
+            for d, g in zip(st["local"], got):
                 recv = _sh.header_counts(g, w)
                 moved = _codec.compact_move(g, recv, w, bc, n_header=_sh.HEADER_ROWS)
                 st["rounds_out"][d].append(moved[: int(expect[d])])
@@ -1041,28 +1275,29 @@ def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
 
     results = []
     for st in states:
-        w, bc, k = st["world"], st["bucket_cap"], st["n_rounds"]
-        got_all = torch.stack(st["recv"]).cpu().numpy().reshape(k, w, w)  # the deferred sync
-        for r in range(k):
-            got = got_all[r].sum(axis=1)
-            expect = _expected_received(st["send_counts"], bc, r)
+        w, bc, k, local = st["world"], st["bucket_cap"], st["n_rounds"], st["local"]
+        mine = torch.stack(st["recv"]).cpu().numpy().reshape(k, len(local), w)  # the deferred sync
+        got_all = st["ctx"].comm.all_gather_counts(mine.transpose(1, 0, 2))  # [dst, round, src]
+        expect_all = [_expected_received(st["send_counts"], bc, r) for r in range(k)]
+        for r, expect in enumerate(expect_all):
+            got = got_all[:, r].sum(axis=1)
             if not (got == expect).all():
                 raise RuntimeError(
                     f"shuffle round {r}: received row counts {got} != "
                     f"expected {expect}: internal routing bug"
                 )
         t = st["t"]
-        shards, counts = [], []
-        for d in range(w):
+
+        def received(d):
             parts = st["rounds_out"][d]
             moved = parts[0] if len(parts) == 1 else torch.cat(parts)
             out = _sh.compact_received_lanes(st["plan"], moved)
             cols: Shard = OrderedDict()
             for (name, c), (data, valid) in zip(t._shards[d].items(), out):
                 cols[name] = Column(data, c.dtype, valid, c.dictionary)
-            shards.append(cols)
-            counts.append(moved.shape[0])
-        results.append(Table(st["ctx"], shards, counts))
+            return cols
+
+        results.append(Table(st["ctx"], _per_shard(st["ctx"], received), sum(expect_all)))
     return results
 
 

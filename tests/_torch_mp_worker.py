@@ -1,0 +1,420 @@
+"""One rank of the port's multi-process tests, the cases every rank runs,
+and the launcher and comparisons of the tests that start the ranks.
+
+    python tests/_torch_mp_worker.py RANK WORLD INIT_URL OUT_DIR DEVICE BACKEND [CASE ...]
+
+joins a ``torch.distributed`` group through ``GPUConfig(coordinator_address=
+INIT_URL, num_processes=WORLD, process_id=RANK)``, runs the cases (default:
+all) on its one shard and pickles what each output holds on that shard to
+``OUT_DIR/rankRANK.pkl``. The same case functions run in the test process
+on ``LocalCommunicator`` (every shard in one process) and, for the cases in
+``SHARED``, on the JAX package, so the tests hold rank d's shard against
+shard d of both. This module imports only torch, numpy and cylon_tpu_torch.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import pickle
+import subprocess
+import sys
+import time
+from collections import OrderedDict
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+if os.path.dirname(HERE) not in sys.path:
+    sys.path.insert(0, os.path.dirname(HERE))
+
+import cylon_tpu_torch as ctt  # noqa: E402
+from cylon_tpu_torch.column import Column  # noqa: E402
+from cylon_tpu_torch.ops import pk_join  # noqa: E402
+from cylon_tpu_torch.parallel import shuffle as _sh  # noqa: E402
+
+SEED = 7
+AGG_COMBINE = {"v": "sum", "a": "min", "w": "max"}          # pre-combined per shard
+AGG_FULL = {"v": ["sum", "mean"], "a": ["count", "max"], "w": "sum"}  # shuffled raw
+WORDS = np.array([f"w{i:03d}" for i in range(60)], dtype=object)
+
+
+def port_encode(cols):
+    return OrderedDict((k, Column.encode_host(np.asarray(v))) for k, v in cols.items())
+
+
+@contextlib.contextmanager
+def budget(ctx, n):
+    """A per-round shuffle byte budget for the calls inside."""
+    ctx.add_config("shuffle_byte_budget", str(n))
+    try:
+        yield
+    finally:
+        ctx.add_config("shuffle_byte_budget", "")
+
+
+def _sides(rng, n_l, n_r, keyspace):
+    left = {
+        "k": rng.integers(0, keyspace, n_l).astype(np.int32),
+        "v": rng.normal(size=n_l).astype(np.float32),
+        "a": rng.integers(-50, 50, n_l).astype(np.int32),
+    }
+    right = {"k": rng.integers(0, keyspace, n_r).astype(np.int32), "w": rng.normal(size=n_r)}
+    return left, right
+
+
+# ----------------------------------------------------------------------
+# cases run by the port on both communicators and by the JAX package:
+# fn(Table, ctx, encode) -> {name: Table or scalar}
+# ----------------------------------------------------------------------
+
+def case_join_groupby(T, ctx, enc):
+    """distributed_join -> distributed_groupby at a byte budget small enough
+    for several rounds."""
+    left, right = _sides(np.random.default_rng(SEED), 700, 600, 300)
+    tl, tr = T.from_encoded(ctx, enc(left)), T.from_encoded(ctx, enc(right))
+    with budget(ctx, ctx.world_size * 32 * 16):
+        j = tl.distributed_join(tr, on="k", how="inner")
+        return {"join": j, "combine": j.distributed_groupby("k_x", AGG_COMBINE),
+                "full": j.distributed_groupby("k_x", AGG_FULL)}
+
+
+def case_skew(T, ctx, enc):
+    """A skewed key (70% of the left rows) and a right side with an empty
+    last shard; a left join."""
+    rng = np.random.default_rng(SEED + 1)
+    left, right = _sides(rng, 600, ctx.world_size - 1, 40)
+    left["k"][rng.random(600) < 0.7] = 7
+    right["k"][:] = 7
+    tl, tr = T.from_encoded(ctx, enc(left)), T.from_encoded(ctx, enc(right))
+    j = tl.distributed_join(tr, on="k", how="left")
+    return {"join": j, "full": j.distributed_groupby("k_x", AGG_FULL)}
+
+
+def case_sort(T, ctx, enc):
+    """distributed_sort on a float64 key with nulls, ascending, and on
+    (float32 key with nulls descending, int key)."""
+    rng = np.random.default_rng(SEED + 2)
+    n = 500
+    f = rng.normal(size=n)
+    f[rng.random(n) < 0.1] = np.nan  # nulls
+    g = rng.choice([-1.5, 0.0, 2.5, np.nan], n).astype(np.float32)
+    t = T.from_encoded(ctx, enc({"f": f, "g": g, "k": rng.integers(0, 9, n).astype(np.int32)}))
+    with budget(ctx, ctx.world_size * 64 * 16):
+        return {"asc": t.distributed_sort("f"),
+                "desc": t.distributed_sort(["g", "k"], [False, True])}
+
+
+def case_setops(T, ctx, enc):
+    """The distributed set operations on tables whose string columns have
+    different dictionaries, and distributed_unique keeping the last and
+    (keep=False) the first."""
+    rng = np.random.default_rng(SEED + 3)
+
+    def side(n, words):
+        return {"k": rng.integers(0, 12, n).astype(np.int32),
+                "f": rng.choice([0.5, -0.0, 0.0, 1.5], n), "s": rng.choice(words, n)}
+
+    a = T.from_encoded(ctx, enc(side(300, WORDS[:40])))
+    b = T.from_encoded(ctx, enc(side(200, WORDS[20:])))
+    return {"union": a.distributed_union(b), "subtract": a.distributed_subtract(b),
+            "intersect": a.distributed_intersect(b),
+            "unique_last": a.distributed_unique(["k"], keep="last"),
+            "unique_false": a.distributed_unique(["k", "s"], keep=False)}
+
+
+def case_aggregates(T, ctx, enc):
+    """Whole-table sum/count/min/max/mean/minmax: integers, float64 with
+    nulls, float32, and min/max of a string column."""
+    rng = np.random.default_rng(SEED + 4)
+    n = 400
+    f = rng.normal(size=n) * 1e3
+    f[rng.random(n) < 0.2] = np.nan
+    t = T.from_encoded(ctx, enc({
+        "i": rng.integers(-2**31, 2**31 - 1, n).astype(np.int32),
+        "l": rng.integers(-2**40, 2**40, n).astype(np.int64),
+        "f": f, "h": rng.normal(size=n).astype(np.float32), "s": rng.choice(WORDS, n),
+    }))
+    out = {}
+    for c in ("i", "l", "f", "h"):
+        out.update({f"{op}_{c}": getattr(t, op)(c) for op in ("sum", "count", "min", "max", "mean")})
+        out[f"minmax_{c}"] = t.minmax(c)
+    out.update({"count_s": t.count("s"), "min_s": t.min("s"), "max_s": t.max("s"),
+                "minmax_s": t.minmax("s")})
+    return out
+
+
+SHARED = OrderedDict([
+    ("join_groupby", case_join_groupby), ("skew", case_skew), ("sort", case_sort),
+    ("setops", case_setops), ("aggregates", case_aggregates),
+])
+
+
+# ----------------------------------------------------------------------
+# cases of the port alone: fn(env) -> {name: Table, host value or scalar}
+# ----------------------------------------------------------------------
+
+def case_pk(env):
+    """The PK join (kernel B5's path) -> groupby with unique right keys,
+    then a duplicate right key, which must fall back to the sort join on
+    every rank, once."""
+    ctx = env.context
+    rng = np.random.default_rng(SEED + 5)
+    r_key = rng.permutation(np.arange(2000, dtype=np.int32))[:600]
+    left = {"k": rng.choice(r_key, 800), "v": rng.normal(size=800).astype(np.float32)}
+    right = {"k": r_key, "w": rng.normal(size=600).astype(np.float32)}
+    T = ctt.Table
+    tl, tr = T.from_pydict(ctx, left), T.from_pydict(ctx, right)
+    before = pk_join.COUNTS["fallback"]
+    j = tl.distributed_join(tr, on="k", algorithm="pallas_pk")
+    g = j.distributed_groupby("k_x", {"v": "sum", "w": "sum"})
+    clean = pk_join.COUNTS["fallback"] - before
+    dup = dict(right, k=r_key.copy())
+    dup["k"][11] = dup["k"][5]
+    td = T.from_pydict(ctx, dup)
+    jd = tl.distributed_join(td, on="k", algorithm="pallas_pk")
+    fallbacks = pk_join.COUNTS["fallback"] - before - clean
+    return {"join": j, "groupby": g, "dup": jd, "dup_sort": tl.distributed_join(td, on="k"),
+            "fallbacks_clean": clean, "fallbacks_dup": fallbacks}
+
+
+def case_ingest(env):
+    """Table.from_encoded_shards: each rank encodes only its own block
+    (remote entries None, global counts); one shard gives a validity mask
+    and the others none; one shard is empty; the string dictionary is
+    unified beforehand. Then host reads, filter, take and a groupby."""
+    ctx = env.context
+    w = ctx.world_size
+    rng = np.random.default_rng(SEED + 6)
+    counts = np.array([5 + 7 * s for s in range(w)], np.int64)
+    counts[-1] = 0
+    n = int(counts.sum())
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    x = rng.normal(size=n)
+    x[:counts[0]:3] = np.nan  # nulls in shard 0 only
+    codes, _valid, str_t, dictionary = Column.encode_host(rng.choice(WORDS[:9], n))
+    k = rng.integers(0, 20, n).astype(np.int32)
+
+    def block(s):
+        lo, hi = int(offs[s]), int(offs[s + 1])
+        cols = port_encode({"k": k[lo:hi], "x": x[lo:hi]})
+        cols["s"] = (codes[lo:hi], None, str_t, dictionary)
+        return cols
+
+    shards = [block(s) if s in ctx.local_shards else None for s in range(w)]
+    t = ctt.Table.from_encoded_shards(ctx, shards, counts)
+    keep = np.arange(n) % 2 == 0
+    return {"table": t, "filter": t.filter(keep), "take": t.take([0, -1, n // 2, 3]),
+            "groupby": t.distributed_groupby("s", {"x": "sum", "k": "max"}),
+            "host": t.to_pydict(), "column_x": t.column("x").data.cpu().numpy()}
+
+
+def case_env(env):
+    ctx = env.context
+    return {"rank": env.rank, "ctx_rank": ctx.rank, "world": env.world_size,
+            "local_shards": list(ctx.local_shards), "neighbours": ctx.get_neighbours(),
+            "is_distributed": env.is_distributed}
+
+
+def case_frame(env):
+    """The flow of examples/join_groupby.py: DataFrame.merge -> groupby ->
+    to_pandas, whole on every rank."""
+    rng = np.random.default_rng(SEED + 7)
+    orders = {"cust": rng.integers(0, 60, 500), "price": rng.gamma(2.0, 50.0, 500)}
+    customers = {"cust": np.arange(60), "segment": rng.choice(["consumer", "corporate", "home"], 60)}
+    df_o = ctt.DataFrame(orders, ctx=env.context)
+    df_c = ctt.DataFrame(customers, ctx=env.context)
+    joined = df_o.merge(df_c, on="cust", env=env)
+    by_seg = joined.groupby("segment", env=env).agg({"price": "sum"})
+    return {"joined": joined.to_pandas(), "by_segment": by_seg.to_pandas()}
+
+
+PORT = OrderedDict([("pk", case_pk), ("ingest", case_ingest), ("env", case_env),
+                    ("frame", case_frame)])
+CASES = list(SHARED) + list(PORT)
+
+
+# ----------------------------------------------------------------------
+# running and recording
+# ----------------------------------------------------------------------
+
+def shard_record(t, s):
+    """What shard s of a port table holds: per column the physical data,
+    the validity mask and the decoded values."""
+    return OrderedDict(
+        (c, (*t._host_physical_shard(c, s), t._shards[s][c].decode_host(*t._host_physical_shard(c, s))))
+        for c in t.column_names
+    )
+
+
+def record(value, shards):
+    if isinstance(value, ctt.Table):
+        return {"table": True, "names": value.column_names, "counts": value.row_counts,
+                "shards": {s: shard_record(value, s) for s in shards}}
+    if hasattr(value, "to_dict") and hasattr(value, "columns"):  # a pandas frame
+        return {c: value[c].to_numpy() for c in value.columns}
+    return value
+
+
+def run_cases(env, names=CASES):
+    """{case: {output: record}} on this process's shards, with each case's
+    shuffle plans."""
+    ctx = env.context
+    out = OrderedDict()
+    orig = _sh.plan_rounds
+    for name in names:
+        plans = []
+
+        def rec(*args, **kw):
+            plans.append(orig(*args, **kw))
+            return plans[-1]
+
+        _sh.plan_rounds = rec
+        try:
+            if name in SHARED:
+                got = SHARED[name](ctt.Table, ctx, port_encode)
+            else:
+                got = PORT[name](env)
+        finally:
+            _sh.plan_rounds = orig
+        out[name] = {k: record(v, ctx.local_shards) for k, v in got.items()}
+        out[name]["__plans__"] = plans
+    return out
+
+
+# ----------------------------------------------------------------------
+# the launcher and the comparisons (used by the tests, not by the ranks)
+# ----------------------------------------------------------------------
+
+def run_ranks(tmp: Path, world: int, cases=(), device="cpu", backend="gloo", limit=120.0):
+    """Start ``world`` ranks of this script; wait until all exit 0, one
+    exits otherwise, or ``limit`` seconds pass; kill what still runs.
+    Returns (exit codes, logs, seconds)."""
+    url = "file://" + str(tmp / "rendezvous")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(HERE), OMP_NUM_THREADS="1")
+    procs, logs = [], []
+    t0 = time.monotonic()
+    try:
+        for r in range(world):
+            logs.append(open(tmp / f"rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), str(r), str(world), url, str(tmp),
+                 device, backend, *cases],
+                stdout=logs[-1], stderr=subprocess.STDOUT, env=env, cwd=os.path.dirname(HERE),
+            ))
+        while time.monotonic() - t0 < limit:
+            codes = [p.poll() for p in procs]
+            if all(c == 0 for c in codes) or any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    codes = [p.returncode for p in procs]
+    return codes, [(tmp / f"rank{r}.log").read_text() for r in range(world)], time.monotonic() - t0
+
+
+def load_ranks(tmp: Path, world: int):
+    return [pickle.loads((tmp / f"rank{r}.pkl").read_bytes()) for r in range(world)]
+
+
+def same_bits(a, b, what):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape, (what, a.dtype, b.dtype, a.shape, b.shape)
+    if a.dtype == object:
+        assert a.tolist() == b.tolist(), what
+    else:
+        assert a.tobytes() == b.tobytes(), what
+
+
+def float_close(got, want, dtype, what):
+    """float32: rtol 1e-5 and atol 1e-4; float64: rtol 1e-12."""
+    if np.dtype(dtype) == np.float32:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4, err_msg=what)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=0, err_msg=what)
+
+
+def scalars_equal(got, want, what, dtype=None):
+    """A scalar result (or a tuple of them): sums and means within
+    :func:`float_close`, everything else exact and of the same type."""
+    if isinstance(got, tuple):
+        assert isinstance(want, tuple) and len(got) == len(want), what
+        for g, w in zip(got, want):
+            scalars_equal(g, w, what, dtype)
+    elif isinstance(got, float) and what.rsplit(".", 1)[-1].split("_")[0] in ("sum", "mean"):
+        float_close(got, want, dtype or np.float64, what)
+    else:
+        assert got == want and type(got) is type(want), (what, got, want)
+
+
+AGG_DTYPES = {"i": np.int32, "l": np.int64, "f": np.float64, "h": np.float32, "s": object}
+
+
+def agg_dtype(key):
+    """The column type of a case_aggregates result (``<op>_<column>``)."""
+    return AGG_DTYPES[key.rsplit("_", 1)[1]]
+
+
+def record_equal(got, want, what, shard, sums_close=False):
+    """One output's record against another's on shard ``shard``: tables bit
+    for bit (``sums_close``: but float ``*_sum``/``*_mean`` columns within
+    :func:`float_close`), host columns bit for bit, scalars by
+    :func:`scalars_equal`."""
+    if isinstance(want, dict) and want.get("table"):
+        assert got["names"] == want["names"], what
+        np.testing.assert_array_equal(got["counts"], want["counts"], err_msg=what)
+        g, w = got["shards"][shard], want["shards"][shard]
+        for c in want["names"]:
+            assert (g[c][1] is None) == (w[c][1] is None), f"{what}.{c} mask"
+            if w[c][1] is not None:
+                same_bits(g[c][1], w[c][1], f"{what}.{c} valid")
+            if sums_close and c.endswith(("_sum", "_mean")) and w[c][0].dtype.kind == "f":
+                assert g[c][0].dtype == w[c][0].dtype, what
+                float_close(g[c][0], w[c][0], w[c][0].dtype, f"{what}.{c}")
+            else:
+                same_bits(g[c][0], w[c][0], f"{what}.{c} data")
+    elif isinstance(want, dict):  # host columns: every rank the whole table
+        assert list(got) == list(want), what
+        for c in want:
+            if sums_close and np.asarray(want[c]).dtype.kind == "f":
+                float_close(got[c], want[c], np.asarray(want[c]).dtype, f"{what}.{c}")
+            else:
+                same_bits(got[c], want[c], f"{what}.{c}")
+    elif isinstance(want, np.ndarray):
+        same_bits(got, want, what)
+    else:
+        scalars_equal(got, want, what, agg_dtype(what) if what[-2:-1] == "_" else None)
+
+
+def main(argv):
+    rank, world, url, out_dir, device, backend = argv[:6]
+    names = argv[6:] or CASES
+    torch.set_num_threads(1)
+    env = ctt.CylonEnv(config=ctt.GPUConfig(
+        device=device, coordinator_address=url, num_processes=int(world),
+        process_id=int(rank), backend=backend,
+    ))
+    if "fail" in names:  # a rank that dies before its first collective
+        if env.rank == 1:
+            raise RuntimeError("rank 1 fails on purpose")
+        names = [n for n in names if n != "fail"]
+    results = run_cases(env, names)
+    if device != "cpu":  # the kernels this rank launched on its card
+        from cylon_tpu_torch.ops import cuda_codec, cuda_gather, cuda_probe, cuda_radix
+        results["__launches__"] = {k: v for d in (cuda_radix.LAUNCHES, cuda_gather.LAUNCHES,
+                                                  cuda_codec.LAUNCHES, cuda_probe.LAUNCHES)
+                                   for k, v in d.items()}
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+    env.context.barrier()
+    env.context.finalize()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -43,8 +43,10 @@ def test_import_leaves_jax_out():
 
 
 def test_no_import_of_jax_anywhere_in_the_source():
-    """Also catches imports inside functions, which an import does not run."""
-    for path in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    """Also catches imports inside functions, which an import does not run;
+    the multi-process tests' rank script too."""
+    for path in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                           ROOT / "tests" / "_torch_mp_worker.py"]:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):

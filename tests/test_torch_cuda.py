@@ -458,3 +458,29 @@ def test_pack_hist_pid_mode_on_range_pids(dev, cap):
         lane_p, hist_p = cuda_codec.pack_hist_plain(None, None, (), n, P, pid=pid_cpu)
         torch.cuda.synchronize()
         assert torch.equal(lane.cpu(), lane_p) and torch.equal(hist.cpu(), hist_p)
+
+
+def test_two_gloo_ranks_on_one_card_match_cpu(dev, tmp_path):
+    """The torch.distributed backend on the card: two processes, each one
+    shard on cuda:0, gloo through the host, against LocalCommunicator on
+    the CPU at world 2, shard by shard (float sums and means within the
+    tolerances of tests/test_torch_multiprocess.py: the card's segment
+    sums add in no fixed order). Each rank launched its kernels."""
+    import _torch_mp_worker as W
+
+    cases = ["join_groupby", "skew", "sort", "setops", "aggregates", "pk", "ingest", "frame"]
+    codes, logs, _s = W.run_ranks(tmp_path, 2, cases, device=str(dev), backend="gloo",
+                                  limit=600)
+    assert codes == [0, 0], "\n".join(log[-3000:] for log in logs)
+    ranks = W.load_ranks(tmp_path, 2)
+    local = W.run_cases(ctt.CylonEnv(config=ctt.GPUConfig(device="cpu", world_size=2)), cases)
+    for r, res in enumerate(ranks):
+        for case in cases:
+            assert res[case]["__plans__"] == local[case]["__plans__"], case
+            for key, want in local[case].items():
+                if key != "__plans__":
+                    W.record_equal(res[case][key], want, f"{case}.{key}", r, sums_close=True)
+        launched = res["__launches__"]
+        for k in ("radix_lane_hist", "radix_onesweep", "expand_rows", "pack_hist",
+                  "pack_dest", "compact_move", "pk_probe"):
+            assert launched[k] > 0, (r, k, launched)
