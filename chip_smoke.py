@@ -49,6 +49,21 @@
      U4: their distributed forms at world_size=4: each shard's rows, as a
          multiset, the plain result's rows of that shard's murmur3
          partition;
+   then the DataFrame surface of the reference's op benchmarks
+   (python/examples/op_benchmark) on A's left side widened to 8M rows of
+   k, v (10% null by an explicit mask), w, g = k % 65536 and s (64
+   names):
+     F: filter v > 0.5, x = v * 2.0 + w, isnull, fillna(0.0), dropna,
+        isin of 1024 values, astype, sort_values(["g", "k"]),
+        drop_duplicates(["g"]) keeping the first and the last, a groupby
+        on g of v's var, std, nunique and median and s's nunique, and
+        set_index("k") with loc of 1024 labels, a loc slice and an iloc
+        slice, each timed alone and gated against numpy (in row order;
+        var and std within rtol 1e-6 of numpy's float64);
+     F4: the same frame at world_size=4, the sort, dedup and groupby
+         through env= (distributed_sort, distributed_unique, the raw-row
+         distributed_groupby), each shard against the plain result's
+         partition;
    then the torch.distributed backend, one process per shard:
      MP4: four processes of this script (``--mp4-worker``), each one rank
           of ``GPUConfig(coordinator_address=..., num_processes=4)``: gloo
@@ -71,7 +86,7 @@
    same function where there is one, beside each kernel's ptxas registers
    and spills;
 4. profiles one join + groupby of workloads A, A4_K4, PK and PK4, one
-   distributed_sort of S4 and one union of U and of U4 with
+   distributed_sort of S4, one union of U and of U4 and F's groupby with
    torch.profiler (device time by kernel and by op, and the card's busy
    share);
 5. prints the profile lines, a JSON line of kernels, one JSON line per
@@ -106,6 +121,9 @@ WORLD = 4
 BUDGET_SMALL = 4 * 1024 * 1024  # A4's multi-round run: bucket_cap 131072, K = 4
 
 N_DUP = 100_000  # rows a side of the duplicate-key fallback check
+N_ISIN = 1024  # values of F's isin and labels of its loc list
+F_GROUPS = 65536  # F's g = k % F_GROUPS
+F_NAMES = np.array([f"name{i:02d}" for i in range(64)])  # F's string column, sorted
 MP4_LIMIT_S = 420  # wall-clock limit of the four MP4 processes
 REPS_MP4 = 3  # barrier-synchronised timed calls of each MP4 op
 
@@ -203,6 +221,25 @@ def make_pk():
     pk_left = {"k": l_key, "v": rng_pk.normal(size=N_A).astype(np.float32)}
     pk_right = {"k": r_key, "w": rng_pk.normal(size=N_A).astype(np.float32)}
     return pk_left, pk_right
+
+
+def make_f():
+    """Workload F's frame: A's left side (k, v; seed SEED) widened to the op
+    benchmarks' shape: v with 10% of rows null by an explicit mask, w
+    uniform float32, g = k % 65536, s one of 64 names (dictionary codes);
+    and the values of the isin and loc calls, all from the seed."""
+    left, _right, _rng = make_a()
+    rng = np.random.default_rng(SEED + 8)
+    n = len(left["k"])
+    return {
+        "k": left["k"], "v": left["v"], "valid": rng.random(n) >= 0.1,
+        "w": rng.random(n).astype(np.float32), "g": (left["k"] % F_GROUPS).astype(np.int32),
+        "s": rng.integers(0, len(F_NAMES), n).astype(np.int32), "names": F_NAMES,
+        "isin": rng.choice(N_A, N_ISIN, replace=False).astype(np.int32),
+        "labels": rng.integers(0, N_A, N_ISIN).astype(np.int32),  # about a third missing
+        # at 8M rows: loc[1_000_000:1_000_999] and iloc[1_000_000:2_000_000]
+        "loc_range": (n // 8, n // 8 + 999), "iloc_range": (n // 8, n // 4),
+    }
 
 
 def mp4_calls(ctt, ctx):
@@ -1098,6 +1135,230 @@ def main(mp4_only: bool = False) -> None:
     print(json.dumps({"profile_u4": profile(lambda: tl4.distributed_union(tl4b))}))
     del tl4, tl4b, pl4, pl4b, tl2, cat_k, cat_v
 
+    # ------------------------------------------------------------------
+    # workloads F and F4: the DataFrame surface of the reference's op
+    # benchmarks (python/examples/op_benchmark: filter, math, null
+    # handling, isin, astype, sort, dedup, groupby, indexing) on A's left
+    # side widened, at world 1 and at world 4; each op timed alone
+    # ------------------------------------------------------------------
+    fd = make_f()
+    n_f = len(fd["k"])
+    k_f, v_f, ok_f, w_f, g_f, s_f = (fd[c] for c in ("k", "v", "valid", "w", "g", "s"))
+    T = ctt.dtypes.Type
+
+    def frame_f(context):
+        return ctt.DataFrame(ctt.Table.from_encoded(context, {
+            "k": (k_f, None, ctt.dtypes.DataType(T.INT32), None),
+            "v": (v_f, ok_f, ctt.dtypes.DataType(T.FLOAT), None),
+            "w": (w_f, None, ctt.dtypes.DataType(T.FLOAT), None),
+            "g": (g_f, None, ctt.dtypes.DataType(T.INT32), None),
+            "s": (s_f, None, ctt.dtypes.DataType(T.STRING), fd["names"]),
+        }))
+
+    def f_host(t, names=("k", "v", "w", "g", "s")):
+        """Whole columns on the host: {name: (data, valid | None)}."""
+        return t._host_physical(list(names))
+
+    def same_rows(got, idx, what, v_valid=True):
+        """Every column of a row-subset output equal to the input's rows
+        ``idx`` in order (v's mask too)."""
+        want = {"k": k_f, "v": v_f, "w": w_f, "g": g_f, "s": s_f}
+        for c, (d, valid) in got.items():
+            x = want[c][idx]
+            if d.dtype != x.dtype or len(d) != len(x) or not np.array_equal(
+                    d.view(np.uint32) if d.dtype == np.float32 else d,
+                    x.view(np.uint32) if x.dtype == np.float32 else x):
+                fail(f"{what}: column {c} differs from numpy's rows")
+        vm = got["v"][1]
+        want_ok = ok_f[idx]
+        if vm is None or not np.array_equal(vm, want_ok):
+            fail(f"{what}: v's validity differs")
+
+    def f_refs():
+        """numpy's answers for F (row indices, group stats)."""
+        refs = {"filter": np.nonzero(ok_f & (v_f > np.float32(0.5)))[0],
+                "isin": np.nonzero(np.isin(k_f, fd["isin"]))[0],
+                "dropna": np.nonzero(ok_f)[0],
+                "sort": np.lexsort((k_f, g_f)),
+                "dedup_first": first_rows(g_f), "dedup_last": last_rows(g_f)}
+        order_k = np.argsort(k_f, kind="stable")
+        sk = k_f[order_k]
+        lab = fd["labels"]
+        lo, hi = np.searchsorted(sk, lab, "left"), np.searchsorted(sk, lab, "right")
+        refs["loc_list"] = np.concatenate([order_k[a:b] for a, b in zip(lo, hi)])
+        a_, b_ = fd["loc_range"]
+        refs["loc_slice"] = np.nonzero((k_f >= a_) & (k_f <= b_))[0]
+        refs["iloc_slice"] = np.arange(*fd["iloc_range"])
+        # the groupby: var/std (float64, two passes), nunique and the median
+        # (the reference's interpolation) of v's valid values, nunique of s
+        gv, vv = g_f[ok_f], v_f[ok_f].astype(np.float64)
+        keys = np.unique(g_f)
+        cnt = np.bincount(gv, minlength=keys.max() + 1)[keys]
+        mean = np.bincount(gv, weights=vv, minlength=keys.max() + 1)[keys] / cnt
+        dev2 = (vv - mean[np.searchsorted(keys, gv)]) ** 2
+        var = np.bincount(gv, weights=dev2, minlength=keys.max() + 1)[keys] / (cnt - 1)
+        o = np.lexsort((vv, gv))
+        sg, sv = gv[o], vv[o]
+        newpair = np.ones(len(sg), bool)
+        newpair[1:] = (sg[1:] != sg[:-1]) | (sv[1:] != sv[:-1])
+        nun = np.bincount(sg[newpair], minlength=keys.max() + 1)[keys]
+        starts = np.searchsorted(sg, keys).astype(np.float64)
+        pos = starts + 0.5 * np.maximum(cnt - 1, 0).astype(np.float64)
+        lo_i, hi_i = np.floor(pos).astype(np.int64), np.ceil(pos).astype(np.int64)
+        frac = pos - np.floor(pos)
+        med = sv[lo_i] * (1 - frac) + sv[hi_i] * frac
+        pairs = np.unique(g_f.astype(np.int64) * 64 + s_f)
+        s_nun = np.bincount(pairs // 64, minlength=keys.max() + 1)[keys]
+        refs["groupby"] = {"g": keys, "v_var": var, "v_std": np.sqrt(var), "v_nunique": nun,
+                           "v_median": med, "s_nunique": s_nun}
+        return refs
+
+    refs_f = f_refs()
+    AGG_F = {"v": ["var", "std", "nunique", "median"], "s": "nunique"}
+
+    def check_groupby(out_cols, keep, what):
+        """``out_cols``: {name: host data} of groups ``keep`` (a mask over
+        numpy's sorted keys), in key order."""
+        want = refs_f["groupby"]
+        if not np.array_equal(out_cols["g"], want["g"][keep]):
+            fail(f"{what}: group keys differ")
+        for c in ("v_nunique", "v_median", "s_nunique"):
+            if not np.array_equal(out_cols[c], want[c][keep]):
+                fail(f"{what}: {c} differs from numpy")
+        for c in ("v_var", "v_std"):  # the card adds in no fixed order
+            if not np.allclose(out_cols[c], want[c][keep], rtol=1e-6, atol=0):
+                fail(f"{what}: {c} beyond rtol 1e-6 of numpy's float64")
+
+    def run_f(df, env, world):
+        """F's ops on ``df`` (world 1, or world 4 with ``env``): {op:
+        (output, measurement)}; every output gated against numpy."""
+        res = {}
+        t = df.table
+        ops = [
+            ("filter", lambda: df[df["v"] > 0.5], []),
+            ("math", lambda: _assign_x(df), []),
+            ("isnull", lambda: df.isnull(), []),
+            ("fillna", lambda: df.fillna(0.0), []),
+            ("dropna", lambda: df.dropna(), []),
+            ("isin", lambda: df[df["k"].isin(fd["isin"])], []),
+            ("astype", lambda: df.astype({"k": "int64", "g": "float64"}), []),
+            ("sort_values", lambda: df.sort_values(["g", "k"], env=env), sort_kernels),
+            ("drop_duplicates_first", lambda: df.drop_duplicates(["g"], env=env), sort_kernels),
+            ("drop_duplicates_last",
+             lambda: df.drop_duplicates(["g"], keep="last", env=env), sort_kernels),
+            ("groupby", lambda: df.groupby("g", env=env).agg(AGG_F), sort_kernels),
+            ("loc_list", lambda: idx_df.loc[list(fd["labels"])], []),
+            ("loc_slice", lambda: idx_df.loc[fd["loc_range"][0]:fd["loc_range"][1]], []),
+            ("iloc_slice", lambda: idx_df.iloc[fd["iloc_range"][0]:fd["iloc_range"][1]], []),
+        ]
+        if world > 1:
+            ops = [(o, fn, shuffle_kernels if ks else ks) for o, fn, ks in ops]
+        idx_df = df.set_index("k")
+        tag = "F" if world == 1 else "F4"
+        for op, fn, kernels in ops:
+            out, w = measure(fn, f"{tag} {op}", kernels)
+            w["ms"] = w["s"] * 1e3
+            w["input_rows_per_s"] = n_f / w["s"]
+            res[op] = (out.table if isinstance(out, ctt.DataFrame) else out, w)
+        return res
+
+    def _assign_x(df):
+        d = ctt.DataFrame(df.table)
+        d["x"] = d["v"] * 2.0 + d["w"]
+        return d
+
+    def gate_f(res, world):
+        tag = "F" if world == 1 else "F4"
+        for op in ("filter", "isin", "dropna"):
+            same_rows(f_host(res[op][0]), refs_f[op], f"{tag} {op}")
+        x = f_host(res["math"][0], ["x", "k"])["x"]
+        want_x = v_f * np.float32(2.0) + w_f
+        if x[0].dtype != np.float32 or not np.array_equal(x[1], ok_f) or not np.array_equal(
+                x[0][ok_f].view(np.uint32), want_x[ok_f].view(np.uint32)):
+            fail(f"{tag} math: x differs from numpy's v * 2 + w")
+        nul = f_host(res["isnull"][0])
+        if not np.array_equal(nul["v"][0], ~ok_f) or any(nul[c][0].any() for c in "kwgs"):
+            fail(f"{tag} isnull: differs from v's mask")
+        fil = f_host(res["fillna"][0])
+        if fil["v"][1] is not None or not np.array_equal(
+                fil["v"][0].view(np.uint32), np.where(ok_f, v_f, np.float32(0)).view(np.uint32)):
+            fail(f"{tag} fillna: v differs")
+        ast = f_host(res["astype"][0], ["k", "g"])
+        if not (np.array_equal(ast["k"][0], k_f.astype(np.int64)) and ast["k"][0].dtype == np.int64
+                and np.array_equal(ast["g"][0], g_f.astype(np.float64))):
+            fail(f"{tag} astype: k or g differs")
+        for op in ("loc_list", "loc_slice", "iloc_slice"):
+            same_rows(f_host(res[op][0]), refs_f[op], f"{tag} {op}")
+        if world == 1:
+            same_rows(f_host(res["sort_values"][0]), refs_f["sort"], "F sort_values")
+            same_rows(f_host(res["drop_duplicates_first"][0]), refs_f["dedup_first"], "F dedup first")
+            same_rows(f_host(res["drop_duplicates_last"][0]), refs_f["dedup_last"], "F dedup last")
+            gb = res["groupby"][0]
+            check_groupby({c: gb._host_physical([c])[c][0] for c in gb.column_names},
+                          np.ones(len(refs_f["groupby"]["g"]), bool), "F groupby")
+            return
+        # world 4: each shard against the plain result's partition
+        srt = res["sort_values"][0]
+        keys_f64 = g_f.astype(np.float64)  # numpy's range bins on g, float64
+        nb = 16 * WORLD
+        lo_, hi_ = keys_f64.min(), keys_f64.max()
+        bins = np.clip(((keys_f64 - lo_) / max(hi_ - lo_, 1e-300) * nb).astype(np.int32), 0, nb - 1)
+        hist = np.bincount(bins, minlength=nb)
+        per_part = max(hist.sum() / WORLD, 1.0)
+        bin_part = np.clip(((np.cumsum(hist) - hist) / per_part).astype(np.int32), 0, WORLD - 1)
+        part = bin_part[bins]
+        for d in range(WORLD):
+            mine = refs_f["sort"][part[refs_f["sort"]] == d]  # numpy's order, shard d's rows
+            got = {c: srt._host_physical_shard(c, d) for c in ("k", "v", "w", "g", "s")}
+            # ties on (g, k) may arrive in another order over several rounds:
+            # compare the rows in a canonical order, and the (g, k) order
+            gk = got["g"][0].astype(np.int64) * N_A + got["k"][0]
+            if len(gk) != len(mine) or (len(gk) and (np.diff(gk) < 0).any()):
+                fail(f"F4 sort_values: shard {d} out of (g, k) order or of the range bins")
+            canon = np.lexsort((got["v"][0].view(np.uint32), got["w"][0].view(np.uint32), gk))
+            want_c = np.lexsort((v_f[mine].view(np.uint32), w_f[mine].view(np.uint32),
+                                 g_f[mine].astype(np.int64) * N_A + k_f[mine]))
+            for c, src in (("k", k_f), ("g", g_f), ("s", s_f)):
+                if not np.array_equal(got[c][0][canon], src[mine][want_c]):
+                    fail(f"F4 sort_values: shard {d} column {c} differs")
+            if not np.array_equal(got["v"][1][canon], ok_f[mine][want_c]):
+                fail(f"F4 sort_values: shard {d} v mask differs")
+        pid_g = hash_partition_ids([(torch.from_numpy(g_f), None)], None, WORLD).numpy()
+        for op, ref in (("drop_duplicates_first", "dedup_first"), ("drop_duplicates_last",
+                                                                   "dedup_last")):
+            out = res[op][0]
+            for d in range(WORLD):
+                mine = refs_f[ref][pid_g[refs_f[ref]] == d]
+                got = {c: out._host_physical_shard(c, d) for c in ("k", "v", "w", "g", "s")}
+                o = np.argsort(got["g"][0], kind="stable")  # one row per g
+                same_rows({c: (x[o], None if m is None else m[o]) for c, (x, m) in got.items()},
+                          mine[np.argsort(g_f[mine], kind="stable")], f"F4 {op} shard {d}")
+        gb = res["groupby"][0]
+        keys = refs_f["groupby"]["g"]
+        key_pid = hash_partition_ids([(torch.from_numpy(keys), None)], None, WORLD).numpy()
+        for d in range(WORLD):
+            check_groupby({c: gb._host_physical_shard(c, d)[0] for c in gb.column_names},
+                          key_pid == d, f"F4 groupby shard {d}")
+
+    def work_line(tag, world, res):
+        return {"workload": tag, "world": world, "rows": n_f,
+                "ops": {op: {k_: w[k_] for k_ in ("ms", "input_rows_per_s", "launches",
+                                                  "shuffle_plans", "s_all")}
+                        for op, (_o, w) in res.items()}}
+
+    df_f = frame_f(ctx)
+    res_f = run_f(df_f, None, 1)
+    gate_f(res_f, 1)
+    print(json.dumps({"profile_f": profile(lambda: df_f.groupby("g").agg(AGG_F))}))
+    work_f = work_line("F", 1, res_f)
+    del res_f, df_f
+    df_f4 = frame_f(ctx4)
+    res_f4 = run_f(df_f4, env4, WORLD)
+    gate_f(res_f4, WORLD)
+    work_f4 = work_line("F4", WORLD, res_f4)
+    del res_f4, df_f4, fd, refs_f
+
+
     cuda_radix.radix_sort_lane, cuda_gather.expand_rows = orig_lane, orig_expand
     cuda_codec.pack_hist, cuda_codec.pack_dest = orig_hist, orig_dest
     cuda_codec.compact_move, _sh.plan_rounds = orig_move, orig_plan
@@ -1393,7 +1654,7 @@ def main(mp4_only: bool = False) -> None:
     print(json.dumps(work_pk))
     print(json.dumps(work_pk4))
     print(json.dumps(work_dup))
-    for w in (work_s, work_s4, work_s4k, work_u, work_u4, work_mp4):
+    for w in (work_s, work_s4, work_s4k, work_u, work_u4, work_f, work_f4, work_mp4):
         print(json.dumps(w))
     print(smi)
     print(json.dumps({"ok": True, "device": {

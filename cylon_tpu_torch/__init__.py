@@ -18,10 +18,13 @@ or, one level down, ``Table.from_pandas(ctx, df)`` with
 process_id=rank)`` (NCCL on the cards, gloo on the CPU), or
 ``coordinator_address="env://"`` under ``torchrun``.
 """
+from . import compute, indexing
 from .config import GPUConfig
 from .context import CylonContext
 from .frame import CylonEnv, DataFrame
 from .join_config import JoinConfig
+from .series import Series
 from .table import Table
 
-__all__ = ["CylonContext", "CylonEnv", "DataFrame", "GPUConfig", "JoinConfig", "Table"]
+__all__ = ["CylonContext", "CylonEnv", "DataFrame", "GPUConfig", "JoinConfig", "Series", "Table",
+           "compute", "indexing"]

@@ -113,6 +113,12 @@ class Column:
     def length(self) -> int:
         return self.data.shape[0]
 
+    def valid_mask(self) -> torch.Tensor:
+        """The validity mask, all True when the column has none."""
+        if self.valid is None:
+            return torch.ones(self.data.shape, dtype=torch.bool, device=self.data.device)
+        return self.valid
+
     def decode_host(self, data_np: np.ndarray, valid_np: Optional[np.ndarray]):
         """Physical host values -> logical numpy values (strings decoded,
         nulls as NaN/None)."""

@@ -2,8 +2,11 @@
 cylon_tpu/ops/groupby.py).
 
 Group ids come from :func:`factorize` (lexsort + run-detect, kernel K1):
-dense and in sorted key order, so the groups come out key-sorted. The
-aggregates are segment reductions into exact-length outputs.
+dense and in sorted key order, so the groups come out key-sorted; over
+input already sorted by its keys, :func:`sorted_group_ids` run-detects
+without the lexsort (the pipeline groupby). The aggregates are segment
+reductions into exact-length outputs; nunique and quantile first lexsort
+(group id, value) through K1, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -11,8 +14,9 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from . import radix as _radix
 from .factorize import factorize
-from .sort import KeyCol, wide_float, wide_int
+from .sort import KeyCol, lanes_differ, lexsort_indices, orderable_key, wide_float, wide_int
 
 SUM, COUNT, MIN, MAX, MEAN, VAR, STDDEV, NUNIQUE, QUANTILE, COUNT_DISTINCT = range(10)
 
@@ -23,8 +27,8 @@ _AGG_NAMES = {
     "count_distinct": NUNIQUE, "size": COUNT,
 }
 
-#: the aggregations this slice ports
-PORTED = frozenset({SUM, COUNT, MIN, MAX, MEAN})
+#: the aggregations the port runs (COUNT_DISTINCT is a name of NUNIQUE)
+PORTED = frozenset({SUM, COUNT, MIN, MAX, MEAN, VAR, STDDEV, NUNIQUE, QUANTILE})
 #: ops a distributed groupby may pre-combine per shard before its shuffle
 ASSOCIATIVE = frozenset({SUM, MIN, MAX})
 
@@ -38,16 +42,37 @@ def agg_op_id(name) -> int:
         except KeyError:
             raise ValueError(f"unknown aggregation {name!r}") from None
     if op not in PORTED:
-        raise NotImplementedError(
-            f"aggregation {name!r} is not ported yet (ROADMAP.md queue A: "
-            "the remaining groupby aggregations var/std/nunique/quantile)"
-        )
+        raise ValueError(f"unsupported aggregation op {name!r}")
     return op
 
 
 def group_ids(key_cols: Sequence[KeyCol]) -> Tuple[torch.Tensor, int]:
     """(ids [n] int32, number of groups)."""
     return factorize(key_cols)
+
+
+def sorted_group_ids(key_cols: Sequence[KeyCol]) -> Tuple[torch.Tensor, int]:
+    """Group ids of input ALREADY sorted by its key columns: one
+    run-detection pass, no lexsort (the JAX package's ``sorted_group_ids``,
+    the reference's PipelineGroupBy). A row starts a group where any key
+    differs from the row before; null == null, and a null differs from a
+    value. Same contract as :func:`group_ids`; the ids follow the input's
+    run order."""
+    n = key_cols[0][0].shape[0]
+    device = key_cols[0][0].device
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int32, device=device), 0
+    diff = torch.zeros(n, dtype=torch.bool, device=device)
+    for data, valid in key_cols:
+        lane = orderable_key(data)
+        d = lanes_differ(lane[1:], lane[:-1])
+        if valid is not None:
+            v, vprev = valid[1:], valid[:-1]
+            d = torch.where(v & vprev, d, v != vprev)
+        diff[1:] |= d
+    diff[0] = True
+    ids = torch.cumsum(diff.to(torch.int32), 0, dtype=torch.int32) - 1
+    return ids, int(ids[-1].item()) + 1
 
 
 def group_representatives(ids: torch.Tensor, num_groups: int) -> torch.Tensor:
@@ -89,15 +114,28 @@ def _type_extrema(dtype: torch.dtype):
     return info.max, info.min
 
 
+def _sorted_by_group(data: torch.Tensor, live_ids: torch.Tensor, num_groups: int):
+    """Stable lexsort of the rows by (group id, value), the id most
+    significant (one K1 lexsort; a float64 value lane declines to
+    ``torch.sort``, as in the JAX package): the permutation. Nulls carry
+    the discard id ``num_groups`` and sort behind every group."""
+    lanes = [orderable_key(data), live_ids.to(torch.int32)]
+    return lexsort_indices(lanes, data.shape[0], [None, _radix.bound_hint(num_groups)])
+
+
 def aggregate_column(
     op: int,
     data: torch.Tensor,
     valid: Optional[torch.Tensor],
     ids: torch.Tensor,
     num_groups: int,
+    ddof: int = 1,
+    quantile: float = 0.5,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Aggregate one value column over group ids; nulls are skipped (count
-    counts non-null). Returns (out [num_groups], valid-or-None)."""
+    counts non-null). Returns (out [num_groups], valid-or-None). The
+    arithmetic of var/std/nunique/quantile is the JAX package's, step for
+    step (cylon_tpu/ops/groupby.py:157-196)."""
     ids = ids.to(torch.int64)
     live_ids = ids if valid is None else torch.where(valid, ids, num_groups)
     ones = torch.ones_like(live_ids, dtype=wide_int())
@@ -125,4 +163,50 @@ def aggregate_column(
     if op == MEAN:
         s = _seg(data.to(wide_float()), live_ids, num_groups, "sum", 0.0)
         return s / cnt.clamp(min=1), cnt > 0
-    raise NotImplementedError(f"aggregation op {op} is not ported yet")
+    if op in (VAR, STDDEV):
+        # one pass: (sum of squares - sum * mean) / max(count - ddof, 1),
+        # clamped at 0; valid only where count > ddof
+        x = data.to(wide_float())
+        if valid is not None:
+            x = torch.where(valid, x, torch.zeros_like(x))
+        s = _seg(x, live_ids, num_groups, "sum", 0.0)
+        ss = _seg(x * x, live_ids, num_groups, "sum", 0.0)
+        mean = s / cnt.clamp(min=1)
+        # ss - s * mean as one fused multiply-add, as XLA contracts it: the
+        # variance of a one-valued group is then the product's rounding
+        # residue, not 0, in both packages
+        var = (torch.addcmul(ss, s, mean, value=-1.0) / (cnt - ddof).clamp(min=1)).clamp(min=0.0)
+        return (var.sqrt() if op == STDDEV else var), cnt > ddof
+    if op == NUNIQUE:
+        # distinct (group, value) pairs: lexsort, then count the pair
+        # starts of each group. A NaN value counts as 0.0 (a NaN and a 0.0
+        # of one group are one value), as in the JAX package: a quirk
+        # reproduced, not pandas' nunique
+        d = data
+        if d.dtype.is_floating_point:
+            d = torch.where(torch.isnan(d), torch.zeros_like(d), d)
+        order = _sorted_by_group(d, live_ids, num_groups).to(torch.int64)
+        sid, sval = live_ids.index_select(0, order), d.index_select(0, order)
+        newpair = torch.ones_like(sid, dtype=torch.bool)
+        newpair[1:] = (sid[1:] != sid[:-1]) | (sval[1:] != sval[:-1])
+        return _seg(newpair.to(wide_int()), sid, num_groups, "sum", 0), None
+    if op == QUANTILE:
+        # linear interpolation from the group's start in (group, value)
+        # order: position start + q * max(count - 1, 0)
+        n = data.shape[0]
+        order = _sorted_by_group(data, live_ids, num_groups).to(torch.int64)
+        sid = live_ids.index_select(0, order)
+        sval = data.index_select(0, order).to(wide_float())
+        groups = torch.arange(num_groups, dtype=sid.dtype, device=sid.device)
+        starts = torch.searchsorted(sid, groups)
+        pos = starts.to(wide_float()) + quantile * (cnt - 1).clamp(min=0).to(wide_float())
+        lo_i = torch.floor(pos).to(torch.int64).clamp(0, max(n - 1, 0))
+        hi_i = torch.ceil(pos).to(torch.int64).clamp(0, max(n - 1, 0))
+        frac = pos - torch.floor(pos)
+        if n == 0:
+            out = torch.zeros_like(pos)
+        else:
+            out = sval.index_select(0, lo_i) * (1 - frac) + sval.index_select(0, hi_i) * frac
+        has = cnt > 0
+        return torch.where(has, out, torch.zeros_like(out)), has
+    raise ValueError(f"unsupported aggregation op {op}")

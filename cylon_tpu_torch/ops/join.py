@@ -8,7 +8,8 @@ The algorithm is the JAX package's:
   3. the probe: ONE merged stable kv-sort of [right ids ++ left ids] (K1)
      plus run scans gives each left row its match window (lo, cnt), and
      each right row its match count for RIGHT / FULL OUTER joins;
-  4. the exact output size, read with one host sync;
+  4. the exact output size (:func:`spec_probe` ends here), read with one
+     host sync for every shard and checked before any shard emits;
   5. the emit into exact-length outputs. INNER / LEFT compact the emitting
      left rows to the front and expand them with the windowed expand
      (kernel K2); RIGHT / FULL OUTER build (left, right) index pairs with
@@ -131,8 +132,8 @@ def count_overflow_check(total: int) -> None:
     """Reject outputs the kernels' int32 row ids cannot address."""
     if total > MAX_ROWS:
         raise ValueError(
-            f"join output of {total} rows exceeds 2^31 - 1 rows; "
-            "repartition the inputs or reduce the skew"
+            f"join output of {total} rows on one shard exceeds {MAX_ROWS} rows (int32 row "
+            "ids); repartition the inputs or reduce the skew"
         )
 
 
@@ -230,24 +231,35 @@ def _emit_inner_left(
     return out_l + pack_gather(r_sorted_cols, rpos)
 
 
-def spec_join(
+def spec_probe(
     l_key_cols: Sequence[KeyCol],
     r_key_cols: Sequence[KeyCol],
-    l_cols: Sequence[KeyCol],
     r_cols: Sequence[KeyCol],
     how: int,
-) -> Tuple[List[KeyCol], int]:
-    """Probe + count + emit: (output columns = left ++ right, row count)."""
+) -> dict:
+    """Probe + count of one shard, with no host sync: the state
+    :func:`spec_emit` takes, ``"total"`` the output row count as a device
+    scalar. A caller reads every shard's count (every rank's, under
+    torch.distributed), checks them all with :func:`count_overflow_check`,
+    so that every rank raises alike, then emits."""
     l_ids, r_ids, hint = _canonical_ids(l_key_cols, r_key_cols)
     if how in (INNER, LEFT):
         # id lanes are integers, so the radix engine never declines them
         r_sorted = pack_gather(r_cols, _radix.argsort_perm(r_ids, hint), all_valid=True)
         lo, cnt, r_cnt = _merged_counts(l_ids, r_ids, hint, need_rcnt=False)
-        total = int(count_from_probe(cnt, r_cnt, how).item())  # the host sync
-        count_overflow_check(total)
-        return _emit_inner_left(lo, cnt, l_cols, r_sorted, how, total), total
+        return {"lo": lo, "cnt": cnt, "r_sorted": r_sorted,
+                "total": count_from_probe(cnt, r_cnt, how)}
     lo, cnt, r_cnt = _merged_counts(l_ids, r_ids, hint, need_rcnt=True)
-    total = int(count_from_probe(cnt, r_cnt, how).item())
-    count_overflow_check(total)
-    r_order = _radix.argsort_perm(r_ids, hint)
-    return emit_gather(lo, cnt, r_order, r_cnt, l_cols, r_cols, how, total), total
+    return {"lo": lo, "cnt": cnt, "r_cnt": r_cnt, "r_order": _radix.argsort_perm(r_ids, hint),
+            "total": count_from_probe(cnt, r_cnt, how)}
+
+
+def spec_emit(
+    probe: dict, l_cols: Sequence[KeyCol], r_cols: Sequence[KeyCol], how: int, total: int
+) -> List[KeyCol]:
+    """The output columns (left ++ right) of a :func:`spec_probe` whose
+    row count ``total`` the caller has read and checked."""
+    if how in (INNER, LEFT):
+        return _emit_inner_left(probe["lo"], probe["cnt"], l_cols, probe["r_sorted"], how, total)
+    return emit_gather(probe["lo"], probe["cnt"], probe["r_order"], probe["r_cnt"],
+                       l_cols, r_cols, how, total)

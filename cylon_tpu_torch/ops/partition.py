@@ -46,13 +46,17 @@ def _as_float(data: torch.Tensor) -> torch.Tensor:
     return data.to(torch.float64)
 
 
-def _to_int32(x: torch.Tensor) -> torch.Tensor:
-    """float64 -> int32 truncating toward zero, saturating, NaN -> 0: XLA's
-    conversion, which a plain ``.to(torch.int32)`` leaves undefined out of
-    range. Every caller clips the result into ``[0, hi)``, so saturating at
-    -1 and at the top is enough."""
-    x = torch.where(torch.isnan(x), torch.zeros_like(x), x)
-    return x.clamp(-1.0, 2147483647.0).to(torch.int32)
+def _saturating_int(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Float -> integer ``dtype`` as XLA converts: truncating toward zero,
+    saturating at the integer's range, NaN -> 0, where a plain
+    ``Tensor.to`` leaves the out-of-range values undefined."""
+    info = torch.iinfo(dtype)
+    top, bottom = float(info.max) + 1.0, float(info.min)  # powers of two, exact
+    high, low = x >= top, x < bottom
+    safe = torch.where(torch.isnan(x) | high | low, torch.zeros_like(x), x)
+    out = safe.to(dtype)
+    out = torch.where(high, torch.full_like(out, info.max), out)
+    return torch.where(low, torch.full_like(out, info.min), out)
 
 
 def range_partition_ids(
@@ -87,7 +91,7 @@ def range_partition_ids(
     bins = []
     for x, ok, lo_s, hi_s in zip(xs, oks, lo, hi):
         span = torch.clamp(hi_s - lo_s, min=1e-300)
-        b = _to_int32((x - lo_s) / span * nb).clamp(0, nb - 1)
+        b = _saturating_int((x - lo_s) / span * nb, torch.int32).clamp(0, nb - 1)
         bins.append(torch.where(ok, b, nb))  # nulls counted out of range
     hists = comm.all_reduce(
         [torch.bincount(b.to(torch.int64), minlength=nb + 1)[:nb] for b in bins], "sum"
@@ -97,7 +101,7 @@ def range_partition_ids(
         total = hist.sum()
         cum = torch.cumsum(hist, 0) - hist  # exclusive
         per_part = torch.clamp(total.to(torch.float64) / P, min=1.0)
-        bin_to_part = _to_int32(cum.to(torch.float64) / per_part).clamp(0, P - 1)
+        bin_to_part = _saturating_int(cum.to(torch.float64) / per_part, torch.int32).clamp(0, P - 1)
         pid = bin_to_part.index_select(0, b.clamp(0, nb - 1).to(torch.int64))
         if not ascending:
             pid = P - 1 - pid

@@ -20,18 +20,27 @@ or the range shuffle of ``distributed_sort``) and are the local ops when
 the world is one device, as there. Ops whose output is a subset of the
 input rows (filter, set ops, unique) read every shard's row count in one
 host sync.
+
+A table may name one of its columns its index (``set_index``; None is the
+RangeIndex, the global row number): ``loc`` looks rows up by its values,
+``iloc`` by global row number, and ``concat(axis=1)`` aligns on it. Every
+op that keeps the index column under its name keeps the index, as in the
+JAX package; a groupby output has none.
 """
 from __future__ import annotations
 
+import operator as _op
 from collections import OrderedDict
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .column import Column, unify_dictionaries
 from .context import CylonContext
-from .dtypes import DataType, Type, numpy_dtype, promote_concat_dtypes, promote_key_dtypes
+from .dtypes import (
+    DataType, Type, numpy_dtype, promote_concat_dtypes, promote_key_dtypes, torch_dtype,
+)
 from .engine import round_cap, shard_caps
 from .ops import cuda_codec as _codec
 from .ops import groupby as _g
@@ -42,6 +51,7 @@ from .ops import setops as _s
 from .ops.gather import KeyCol, lane_plan, pack_cols, pack_gather
 from .ops.hash import hash_dictionary_host
 from .ops.sort import lexsort_rows_payload, orderable_key
+from .ops.partition import _saturating_int
 from .parallel import shuffle as _sh
 
 Encoded = Tuple[np.ndarray, Optional[np.ndarray], Any, Optional[np.ndarray]]
@@ -64,9 +74,119 @@ def _all_local(ctx: CylonContext) -> bool:
     return len(ctx.local_shards) == ctx.world_size
 
 
+class Row:
+    """Read-only cursor over one table row (the JAX package's ``Row``, the
+    reference's ``cylon::Row``), handed to :meth:`Table.select_rows`'s
+    predicate. Values are decoded host values: strings are strings, nulls
+    None or NaN."""
+
+    __slots__ = ("_cols", "_i")
+
+    def __init__(self, cols: Dict[str, np.ndarray], i: int):
+        self._cols = cols
+        self._i = i
+
+    def __getitem__(self, name: str):
+        return self._cols[name][self._i]
+
+    def get(self, name: str):
+        return self._cols[name][self._i]
+
+    def keys(self):
+        return self._cols.keys()
+
+    @property
+    def row_index(self) -> int:
+        return self._i
+
+
+def _dict_insert(dic: np.ndarray, value) -> Tuple[np.ndarray, int, bool]:
+    """Insert ``value`` into a sorted dictionary, widening its string dtype
+    first (``np.insert`` into a '<U1' array would truncate a longer value).
+    Returns (dictionary, the value's code, whether it was inserted)."""
+    pos = int(np.searchsorted(dic, value))
+    if pos < len(dic) and dic[pos] == value:
+        return dic, pos, False
+    wide = np.result_type(dic.dtype, np.asarray([value]).dtype)
+    return np.insert(dic.astype(wide), pos, value), pos, True
+
+
+def _grow_dictionary(col: Column, value) -> Tuple[torch.Tensor, np.ndarray, int]:
+    """A dictionary column's codes remapped onto its dictionary with
+    ``value`` inserted: (codes, dictionary, the value's code)."""
+    dic, pos, inserted = _dict_insert(col.dictionary, value)
+    data = col.data
+    if inserted and len(col.dictionary) and col.length:
+        remap = torch.from_numpy(np.searchsorted(dic, col.dictionary).astype(np.int32))
+        data = remap.to(data.device).index_select(0, data.clamp(0, len(col.dictionary) - 1))
+    return data, dic, pos
+
+
+def _cast(data: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``data`` converted to ``dtype`` as XLA converts (the JAX package's
+    ``astype``): a float to an integer truncates toward zero, saturates at
+    the integer's range and maps NaN to 0, where ``Tensor.to`` leaves those
+    undefined."""
+    if data.dtype.is_floating_point and not dtype.is_floating_point and dtype != torch.bool:
+        return _saturating_int(data, dtype)
+    return data.to(dtype)
+
+
+def promote_encoded_shards(shards: List[Optional[Dict[str, Encoded]]]) -> None:
+    """Where per-shard encodings disagree on a column's logical type,
+    promote every shard in place to a common one (numbers -> float64; any
+    string -> string, numbers formatted), as the JAX package does."""
+    live = [s for s in shards if s is not None]
+    if not live:
+        return
+    for name in list(live[0].keys()):
+        types = {DataType.of(s[name][2]).type for s in live}
+        if len(types) == 1:
+            continue
+        for s in live:
+            data, valid, dtype, _d = s[name]
+            t = DataType.of(dtype).type
+            if Type.STRING in types:
+                if t == Type.STRING:
+                    continue
+                if t == Type.BOOL:
+                    vals = np.where(data.astype(bool), "true", "false")
+                elif t == Type.DOUBLE:
+                    vals = np.array([repr(float(x)) for x in data])
+                else:
+                    vals = np.array([str(int(x)) for x in data])
+                dic, codes = np.unique(np.asarray(vals, str), return_inverse=True)
+                s[name] = (codes.astype(np.int32), valid, DataType(Type.STRING), dic)
+            elif t != Type.DOUBLE:
+                s[name] = (data.astype(np.float64), valid, DataType(Type.DOUBLE), None)
+
+
+def unify_encoded_shards(shards: List[Optional[Dict[str, Encoded]]]) -> None:
+    """Promote disagreeing types, then remap every shard's dictionary codes
+    onto the union dictionary in place (the JAX package's function)."""
+    promote_encoded_shards(shards)
+    live = [s for s in shards if s is not None]
+    if not live:
+        return
+    for name in list(live[0].keys()):
+        if not DataType.of(live[0][name][2]).is_dictionary:
+            continue
+        union = live[0][name][3]
+        for s in live[1:]:
+            union = np.union1d(union, s[name][3])
+        for s in live:
+            data, valid, dtype, d = s[name]
+            remap = np.searchsorted(union, d).astype(np.int32)
+            s[name] = (remap[data] if len(d) else data, valid, dtype, union)
+
+
 class Table:
     def __init__(
-        self, ctx: CylonContext, shards: Sequence[Optional[Shard]], counts: Sequence[int]
+        self,
+        ctx: CylonContext,
+        shards: Sequence[Optional[Shard]],
+        counts: Sequence[int],
+        index_name: Optional[str] = None,
     ):
         if len(shards) != ctx.world_size or len(counts) != ctx.world_size:
             raise ValueError(f"a table of this context has {ctx.world_size} shards")
@@ -75,6 +195,9 @@ class Table:
         self.ctx = ctx
         self._shards: List[Optional[Shard]] = list(shards)
         self._counts = np.asarray(counts, np.int64)
+        # the index column's name; None is the RangeIndex (global row number)
+        self.index_name = index_name if index_name in self._ref else None
+        self._built_index = None  # (kind, index name) -> the index build_index made
 
     def _per_shard(self, fn) -> List[Any]:
         return _per_shard(self.ctx, fn)
@@ -194,8 +317,12 @@ class Table:
     def from_pandas(cls, ctx: CylonContext, df) -> "Table":
         return cls.from_pydict(ctx, {str(c): df[c].to_numpy() for c in df.columns})
 
-    def _with_shards(self, shards: Sequence[Shard]) -> "Table":
-        return Table(self.ctx, shards, self._counts)
+    def _with_shards(self, shards: Sequence[Shard], counts=None) -> "Table":
+        """This table's context and index over other shards (its row counts
+        unless ``counts`` is given): the index survives while its column
+        does."""
+        return Table(self.ctx, shards, self._counts if counts is None else counts,
+                     index_name=self.index_name)
 
     # ------------------------------------------------------------------
     # properties and host conversion
@@ -290,10 +417,15 @@ class Table:
         ))
 
     def add_prefix(self, prefix: str) -> "Table":
-        return self.rename([prefix + n for n in self.column_names])
+        """Prefix every column name; a set index follows its column."""
+        out = self.rename([prefix + n for n in self.column_names])
+        out.index_name = None if self.index_name is None else prefix + self.index_name
+        return out
 
     def add_suffix(self, suffix: str) -> "Table":
-        return self.rename([n + suffix for n in self.column_names])
+        out = self.rename([n + suffix for n in self.column_names])
+        out.index_name = None if self.index_name is None else self.index_name + suffix
+        return out
 
     def _split_rows(self, x: torch.Tensor) -> List[Optional[torch.Tensor]]:
         """A tensor over the table's rows in order, as one slice per shard
@@ -400,7 +532,7 @@ class Table:
         all) of this table."""
         out_names = self.column_names if out_names is None else out_names
         counts = self._gather_counts([parts[s][2] for s in self.ctx.local_shards])
-        return Table(self.ctx, self._per_shard(lambda s: self._shard_like(
+        return self._with_shards(self._per_shard(lambda s: self._shard_like(
             s, out_names, pack_gather(parts[s][0], parts[s][1][: int(counts[s])], all_valid=True)
         )), counts)
 
@@ -488,7 +620,7 @@ class Table:
                 cols[name] = Column(data, c.dtype, valid, c.dictionary)
             return cols
 
-        return Table(self.ctx, self._per_shard(out_shard), counts)
+        return self._with_shards(self._per_shard(out_shard), counts)
 
     def hash_partition(
         self, hash_columns: Sequence[Union[str, int]], num_partitions: int
@@ -501,20 +633,74 @@ class Table:
                 for p in range(num_partitions)}
 
     @staticmethod
-    def concat(tables: Sequence["Table"], axis: int = 0) -> "Table":
-        """Row-stack same-schema tables shard by shard (axis=0; the
-        reference's Merge). axis=1 aligns tables on their index and is not
-        ported."""
+    def concat(
+        tables: Sequence["Table"],
+        axis: int = 0,
+        join: str = "inner",
+        algorithm: str = "sort",
+        distributed: bool = False,
+    ) -> "Table":
+        """axis=0: row-stack same-schema tables shard by shard (the
+        reference's Merge). axis=1: join each table onto the result so far
+        on their index columns (``join``: inner, left, right, outer), or on
+        the global row number where a table has the RangeIndex; an outer or
+        right join coalesces the index. ``distributed`` joins through
+        :meth:`distributed_join` (a shuffle) at world > 1, else shard by
+        shard. The inputs are never changed."""
         tables = list(tables)
         if not tables:
             raise ValueError("need at least one table")
         if any(not isinstance(t, Table) for t in tables):
             raise ValueError("concat expects Tables")
-        if axis == 1:
-            raise _not_ported("concat(axis=1)", "A2, index alignment (set_index/loc)")
-        if axis != 0:
+        if axis == 0:
+            return _concat_tables(tables)
+        if axis != 1:
             raise ValueError(f"invalid axis {axis}, must be 0 or 1")
-        return _concat_tables(tables)
+        tmp_key, tmp_rkey = "__concat_index__", "__concat_rkey__"
+        for t in tables:
+            if tmp_key in t.column_names or tmp_rkey in t.column_names:
+                raise ValueError(f"column names {tmp_key}/{tmp_rkey} are reserved by concat")
+
+        def keyed(t: "Table") -> Tuple["Table", str, bool]:
+            if t.index_name is not None:
+                return t, t.index_name, False
+            return t.add_column(tmp_key, t._global_rowid_column()), tmp_key, True
+
+        res, res_key, res_tmp = keyed(tables[0])
+        for i, other in enumerate(tables[1:], start=1):
+            o, o_key, _ = keyed(other)
+            # the right key rides under a reserved name, so the drop below
+            # never takes a user column
+            o = o.rename({o_key: tmp_rkey})
+            join_fn = res.distributed_join if distributed and res.world_size > 1 else res.join
+            # a suffix per table: three tables sharing a name must not
+            # collide on the second join
+            res = join_fn(
+                o, how=join, left_on=[res_key], right_on=[tmp_rkey],
+                suffixes=("", "_y" if i == 1 else f"_y{i}"),
+                algorithm=algorithm if algorithm in ("sort", "hash") else "sort",
+            )
+            if join in ("right", "outer", "fullouter", "full_outer"):
+                # right-only rows hold their index value in the right key
+                prefer_r = join == "right"
+
+                def coalesce(sh):
+                    lcol, rcol = sh[res_key], sh[tmp_rkey]
+                    a, b = (rcol, lcol) if prefer_r else (lcol, rcol)
+                    dt = promote_concat_dtypes(a.data.dtype, b.data.dtype)
+                    data = torch.where(a.valid_mask(), a.data.to(dt), b.data.to(dt))
+                    valid = None if a.valid is None or b.valid is None else a.valid | b.valid
+                    out_t = lcol.dtype if lcol.dtype.is_dictionary else DataType.from_numpy_dtype(
+                        numpy_dtype(dt))
+                    out = OrderedDict(sh)
+                    out[res_key] = Column(data, out_t, valid, lcol.dictionary)
+                    return out
+
+                res = res._with_shards(res._map_shards(coalesce))
+            res = res.drop([tmp_rkey])
+        if res_tmp:
+            return res.drop([res_key]) if res_key in res.column_names else res
+        return res.set_index(res_key) if res_key in res.column_names else res
 
     @staticmethod
     def merge(tables: Sequence["Table"]) -> "Table":
@@ -629,14 +815,16 @@ class Table:
         howi = _j.join_type_id(how)
         left, right = _unify_dict_pair(self, other, l_names, r_names)
         out_names = _suffix_names(left.column_names, right.column_names, suffixes)
-        parts = self._per_shard(lambda s: _j.spec_join(
-            left._flat_cols(s, l_names), right._flat_cols(s, r_names),
-            left._flat_cols(s), right._flat_cols(s), howi,
+        probes = self._per_shard(lambda s: _j.spec_probe(
+            left._flat_cols(s, l_names), right._flat_cols(s, r_names), right._flat_cols(s), howi,
         ))
-        counts = self._gather_counts([parts[s][1] for s in self.ctx.local_shards])
-        return Table(self.ctx, self._per_shard(
-            lambda s: _out_shard(out_names, left, right, s, parts[s][0])
-        ), counts)
+        counts = self._gather_counts([probes[s]["total"] for s in self.ctx.local_shards])
+        # every rank checks every shard's count, so all raise alike
+        _j.count_overflow_check(int(counts.max()))
+        return self._with_shards(self._per_shard(lambda s: _out_shard(
+            out_names, left, right, s,
+            _j.spec_emit(probes[s], left._flat_cols(s), right._flat_cols(s), howi, int(counts[s])),
+        )), counts)
 
     def _pallas_pk_join(
         self, other: "Table", l_names, r_names, how: str, suffixes: Tuple[str, str]
@@ -696,7 +884,7 @@ class Table:
             )
             return _out_shard(out_names, left, right, s, out)
 
-        return Table(self.ctx, self._per_shard(emit), stats[:, 0])
+        return self._with_shards(self._per_shard(emit), stats[:, 0])
 
     def distributed_join(
         self,
@@ -738,11 +926,18 @@ class Table:
         self,
         by: Union[str, int, Sequence[Union[str, int]]],
         agg: Dict[str, Union[str, int, Sequence[Union[str, int]]]],
+        ddof: int = 1,
+        quantile: float = 0.5,
+        _sorted: bool = False,
     ) -> "Table":
         """Per-shard groupby-aggregate: the key columns in sorted key order,
         then one column ``<col>_<op>`` per (column, op), op in
-        sum/count/min/max/mean."""
+        sum/count/min/max/mean/var/std/nunique/quantile/median (``ddof``
+        for var and std, ``quantile`` for quantile and median).
+        ``_sorted`` (internal, :meth:`pipeline_groupby`): the rows are
+        already sorted by the keys, so the groups are their runs."""
         key_names = self._resolve_cols(by)
+        ids_fn = _g.sorted_group_ids if _sorted else _g.group_ids
         specs: List[Tuple[str, int, str]] = []
         for col, ops in agg.items():
             self._resolve_cols(col)
@@ -752,14 +947,15 @@ class Table:
         def group(s):
             sh = self._shards[s]
             keys = self._flat_cols(s, key_names)
-            ids, ng = _g.group_ids(keys)
+            ids, ng = ids_fn(keys)
             rep = _g.group_representatives(ids, ng)
             key_out = pack_gather(keys, rep, all_valid=True)
             cols: Shard = OrderedDict()
             for n, (d, v) in zip(key_names, key_out):
                 cols[n] = Column(d, sh[n].dtype, v, sh[n].dictionary)
             for col, oid, oname in specs:
-                a, av = _g.aggregate_column(oid, sh[col].data, sh[col].valid, ids, ng)
+                a, av = _g.aggregate_column(oid, sh[col].data, sh[col].valid, ids, ng,
+                                            ddof=ddof, quantile=quantile)
                 cols[f"{col}_{oname}"] = Column(
                     a, DataType.from_numpy_dtype(numpy_dtype(a.dtype)), av, None
                 )
@@ -777,7 +973,9 @@ class Table:
     ) -> "Table":
         """Distributed groupby: a local pre-combine when every op is
         associative (sum/min/max), a hash shuffle on the keys, the final
-        local groupby. One device: the local groupby."""
+        local groupby. Any other op (count, mean, var, std, nunique,
+        quantile) cannot pre-combine: the raw rows are shuffled. One
+        device: the local groupby."""
         if self.world_size == 1:
             return self.groupby(by, agg, **kw)
         key_names = self._resolve_cols(by)
@@ -803,6 +1001,33 @@ class Table:
                 shuffled = pre.rename(ren)._shuffle_impl(key_names)
                 return shuffled.groupby(by, newagg, **kw)
         return t._shuffle_impl(key_names).groupby(by, agg, **kw)
+
+    def pipeline_groupby(
+        self,
+        by: Union[str, int, Sequence[Union[str, int]]],
+        agg: Dict[str, Union[str, int, Sequence[Union[str, int]]]],
+        **kw,
+    ) -> "Table":
+        """Groupby over input ALREADY sorted by the key columns (the
+        reference's PipelineGroupBy): one run-detection pass replaces the
+        factorize lexsort. The caller is responsible for the sortedness, as
+        in the reference."""
+        return self.groupby(by, agg, _sorted=True, **kw)
+
+    def distributed_pipeline_groupby(
+        self,
+        by: Union[str, int, Sequence[Union[str, int]]],
+        agg: Dict[str, Union[str, int, Sequence[Union[str, int]]]],
+        **kw,
+    ) -> "Table":
+        """The range shuffle on the keys (global key order across shards),
+        the local sort, then :meth:`pipeline_groupby`. One device: the sort
+        and the pipeline groupby."""
+        key_names = self._resolve_cols(by)
+        t = self
+        if self.world_size > 1:
+            t = _shuffle_many([_ShuffleSpec(self, tuple(key_names), kind="range")])[0]
+        return t.sort(key_names).pipeline_groupby(by, agg, **kw)
 
     # ------------------------------------------------------------------
     # sort
@@ -1011,6 +1236,498 @@ class Table:
         """(min, max) of the non-null values (reference MinMax)."""
         return self.min(column), self.max(column)
 
+    # ------------------------------------------------------------------
+    # the pandas-flavoured surface (the JAX package's table.py: null
+    # handling, isin, astype, where/mask, operators, row UDFs, indexing)
+    # ------------------------------------------------------------------
+    @property
+    def column_count(self) -> int:
+        return len(self._ref)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.row_count, self.column_count)
+
+    @property
+    def context(self) -> CylonContext:
+        return self.ctx
+
+    def dtype_of(self, name: str) -> DataType:
+        return self._ref[self._resolve_cols(name)[0]].dtype
+
+    @classmethod
+    def from_numpy(cls, ctx: CylonContext, names: Sequence[str], arrays) -> "Table":
+        return cls.from_pydict(ctx, dict(zip(names, arrays)))
+
+    @classmethod
+    def from_list(cls, ctx: CylonContext, names: Sequence[str], data_list: Sequence) -> "Table":
+        """One list per column (pycylon ``Table.from_list``); values infer
+        their encoding as in :meth:`from_pydict`."""
+        return cls.from_pydict(ctx, {
+            n: np.asarray(col, dtype=object) if any(isinstance(v, str) for v in col)
+            else np.asarray(col)
+            for n, col in zip(names, data_list)
+        })
+
+    def to_numpy(self, order: str = "F") -> np.ndarray:
+        """The columns stacked as a 2-D host array; object columns (strings,
+        nullable ints and bools) go through float64. ``order`` is accepted
+        and unused, as in the JAX package."""
+        cols = [np.asarray(v, dtype=np.float64 if v.dtype == object else None)
+                for v in self.to_pydict().values()]
+        return np.stack(cols, axis=1) if cols else np.empty((0, 0))
+
+    def to_string(self, row_limit: int = 10) -> str:
+        """A head/tail render past ``row_limit`` rows (pandas' renderer)."""
+        df = self.to_pandas()
+        if self.row_count <= row_limit:
+            return df.to_string()
+        return df.to_string(max_rows=max(2 * (row_limit // 2), 2)) + "\n"
+
+    def show(self, row1: int = -1, row2: int = -1, col1: int = -1, col2: int = -1) -> None:
+        """Print the table, or its [row1:row2, col1:col2] window."""
+        df = self.to_pandas()
+        if (row1, row2, col1, col2) != (-1, -1, -1, -1):
+            r2 = len(df) if row2 == -1 else row2
+            c2 = df.shape[1] if col2 == -1 else col2
+            df = df.iloc[max(row1, 0):r2, max(col1, 0):c2]
+        print(df.to_string())
+
+    def _map_columns(self, fn) -> "Table":
+        """Every column of every shard through ``fn(column) -> Column``."""
+        return self._with_shards(self._map_shards(
+            lambda sh: OrderedDict((n, fn(c)) for n, c in sh.items())
+        ))
+
+    def isnull(self) -> "Table":
+        """A bool table, True where a value is null (a column without a
+        validity mask has none)."""
+        bool_t = DataType(Type.BOOL)
+        return self._map_columns(lambda c: Column(~c.valid_mask(), bool_t))
+
+    def notnull(self) -> "Table":
+        bool_t = DataType(Type.BOOL)
+        return self._map_columns(lambda c: Column(c.valid_mask().clone(), bool_t))
+
+    def isna(self) -> "Table":
+        return self.isnull()
+
+    def notna(self) -> "Table":
+        return self.notnull()
+
+    def fillna(self, value) -> "Table":
+        """Nulls replaced by ``value`` in every column that has a validity
+        mask (the mask goes). A dictionary column takes ``value`` into its
+        sorted dictionary and remaps its codes."""
+
+        def fill(c: Column) -> Column:
+            if c.valid is None:
+                return c
+            if c.dtype.is_dictionary:
+                data, dic, pos = _grow_dictionary(c, value)
+                return Column(torch.where(c.valid, data, torch.full_like(data, pos)), c.dtype, None, dic)
+            fill_v = torch.tensor(value, dtype=c.data.dtype, device=c.data.device)
+            return Column(torch.where(c.valid, c.data, fill_v), c.dtype, None, None)
+
+        # the dictionary grows alike on every shard: it is the schema's
+        return self._map_columns(fill)
+
+    def dropna(self, axis: int = 0, how: str = "any", inplace: bool = False) -> "Table":
+        """The reference's Table.dropna, whose axis is pandas' flipped:
+        ``axis=0`` drops the COLUMNS holding a null, ``axis=1`` the ROWS
+        (:func:`compute.drop_na` takes pandas' axis)."""
+        from . import compute as _c
+
+        if axis not in (0, 1):
+            raise ValueError("axis must be 0 or 1")
+        out = _c.drop_na(self, how=how, axis=1 - axis)
+        if inplace:
+            self._shards, self._counts = out._shards, out._counts
+            self.index_name = out.index_name
+            self._built_index = None
+            return self
+        return out
+
+    def isin(self, values, skip_null: bool = True) -> "Table":
+        """:func:`compute.is_in`: a bool table, True where a value is in
+        ``values``."""
+        from . import compute as _c
+
+        return _c.is_in(self, values, skip_null=skip_null)
+
+    def _host_column_like(self, phys: np.ndarray, valid, dtype: DataType, dictionary) -> List[Optional[Column]]:
+        """A host column over all rows in table order, split into this
+        table's shards (None for a shard another process owns)."""
+        data = self._split_rows(torch.from_numpy(np.ascontiguousarray(phys)))
+        v = None if valid is None else self._split_rows(torch.from_numpy(np.asarray(valid, bool)))
+        return self._per_shard(lambda s: Column(data[s], dtype, None if v is None else v[s], dictionary))
+
+    def astype(self, dtype_map: Union[Any, Dict[str, Any]]) -> "Table":
+        """Column types converted, strings both ways: string -> number parses
+        the dictionary on the host and looks the codes up; number -> string
+        builds a dictionary of the values' text on the host (every rank alike
+        under torch.distributed). Float -> integer converts as XLA does
+        (truncating, saturating, NaN -> 0)."""
+        if not isinstance(dtype_map, dict):
+            dtype_map = {n: dtype_map for n in self.column_names}
+        t = self
+        for n, dt in dtype_map.items():
+            c = self._ref[n]
+            want_str = dt in (str, "str", "string", "object") or (
+                isinstance(dt, np.dtype) and dt.kind in ("U", "S", "O")
+            )
+            if c.dtype.is_dictionary:
+                if want_str:
+                    continue
+                nd = np.dtype(dt)
+                parsed = torch.from_numpy(np.ascontiguousarray(c.dictionary.astype(nd)))
+                out_t = DataType.from_numpy_dtype(nd)
+
+                def parse(col, parsed=parsed, out_t=out_t):
+                    look = parsed.to(col.data.device)
+                    data = (look.index_select(0, col.data.clamp(0, len(parsed) - 1))
+                            if len(parsed) else look.new_zeros(col.length))
+                    return Column(data, out_t, col.valid, None)
+
+                cols = t._map_shards(lambda sh: sh[n])
+                t = t.add_column(n, [None if x is None else parse(x) for x in cols])
+            elif want_str:
+                data_np, valid_np = t._host_physical([n])[n]
+                enc, valid2, dtype2, dic = Column.encode_host(
+                    np.array([str(v) for v in data_np], object))
+                if valid_np is not None:
+                    valid2 = valid_np if valid2 is None else (valid2 & valid_np)
+                t = t.add_column(n, t._host_column_like(enc, valid2, dtype2, dic))
+            else:
+                nd = np.dtype(dt)
+                td, out_t = torch_dtype(nd), DataType.from_numpy_dtype(nd)
+                cols = t._map_shards(lambda sh: sh[n])
+                t = t.add_column(n, [None if x is None else Column(_cast(x.data, td), out_t, x.valid)
+                                     for x in cols])
+        return t
+
+    def where(self, cond, other=None) -> "Table":
+        """Keep each value where ``cond`` is True (a null ``cond`` counts as
+        False), else ``other``, or null when ``other`` is None. A dictionary
+        column takes ``other`` into its dictionary."""
+        masks = self._shard_masks(cond)
+
+        def shard(s):
+            keep, out = masks[s], OrderedDict()
+            for n, c in self._shards[s].items():
+                if other is None:
+                    out[n] = Column(c.data, c.dtype, keep if c.valid is None else keep & c.valid,
+                                    c.dictionary)
+                    continue
+                v = None if c.valid is None else torch.where(keep, c.valid, True)
+                if c.dtype.is_dictionary:
+                    data, dic, pos = _grow_dictionary(c, other)
+                    out[n] = Column(torch.where(keep, data, torch.full_like(data, pos)), c.dtype, v, dic)
+                else:
+                    fill_v = torch.tensor(other, dtype=c.data.dtype, device=c.data.device)
+                    out[n] = Column(torch.where(keep, c.data, fill_v), c.dtype, v, None)
+            return out
+
+        return self._with_shards(self._per_shard(shard))
+
+    def mask(self, cond, other=None) -> "Table":
+        """Replace where ``cond`` is True: :meth:`where` of its negation (a
+        null ``cond`` keeps the value)."""
+        masks = self._shard_masks(cond)
+        return self.where(self._per_shard(lambda s: ~masks[s]), other)
+
+    def applymap(self, fn) -> "Table":
+        """A Python function over every value, on the host: each shard's
+        decoded values go through ``fn`` and are encoded again (types
+        re-inferred, dictionaries unified over the shards), so the rows stay
+        on their shards and the index survives."""
+        host = self._host_physical(self.column_names)
+        offs = np.concatenate([[0], np.cumsum(self._counts)])
+        enc: List[Optional[Dict[str, Encoded]]] = []
+        for s in range(self.world_size):
+            lo, hi = int(offs[s]), int(offs[s + 1])
+            enc.append(OrderedDict(
+                (n, Column.encode_host(np.asarray([fn(x) for x in self._ref[n].decode_host(
+                    d[lo:hi], None if v is None else v[lo:hi])], dtype=object)))
+                for n, (d, v) in host.items()
+            ))
+        unify_encoded_shards(enc)
+        out = Table.from_encoded_shards(
+            self.ctx, [e if s in self.ctx.local_shards else None for s, e in enumerate(enc)],
+            self._counts)
+        out.index_name = self.index_name if self.index_name in out._ref else None
+        return out
+
+    def select_rows(self, predicate) -> "Table":
+        """Keep the rows for which ``predicate(Row)`` holds: a Python row
+        function run on the host over the decoded values (the reference's
+        Select); prefer the vectorized :meth:`select`."""
+        host = self.to_pydict()
+        n = self.row_count
+        return self.filter(np.fromiter((bool(predicate(Row(host, i))) for i in range(n)),
+                                       bool, count=n))
+
+    def iterrows(self) -> Iterator[Tuple[Any, "OrderedDict[str, Any]"]]:
+        """(index value, row as an OrderedDict) per row, on the host."""
+        host = self.to_pydict()
+        names = self.column_names
+        idx = host[self.index_name] if self.index_name is not None else np.arange(self.row_count)
+        for i in range(self.row_count):
+            yield idx[i], OrderedDict((n, host[n][i]) for n in names)
+
+    def equals(self, other: "Table", ordered: bool = True) -> bool:
+        """Content equality. ``ordered``: row for row on the devices when the
+        shards hold the same row counts (a null equals a null whatever its
+        payload, NaN equals NaN), else through pandas on the host (its
+        float tolerance, as in the JAX package). Unordered: the tables as
+        multisets of rows, each a groupby-count over all columns, compared
+        by a subtract both ways."""
+        if self.column_names != other.column_names or self.row_count != other.row_count:
+            return False
+        if ordered:
+            if (self._counts == other._counts).all():
+                return self._device_equal(other)
+            import pandas.testing as pdt
+
+            try:
+                pdt.assert_frame_equal(self.to_pandas(), other.to_pandas(), check_dtype=False)
+                return True
+            except AssertionError:
+                return False
+        a, b = self._row_multiset(), other._row_multiset()
+        if a.row_count != b.row_count:
+            return False
+        return (a.distributed_subtract(b).row_count == 0
+                and b.distributed_subtract(a).row_count == 0)
+
+    def _device_equal(self, other: "Table") -> bool:
+        for n in self.column_names:
+            if self._ref[n].dtype.is_dictionary != other._ref[n].dtype.is_dictionary:
+                return False
+        a, b = _unify_dict_pair(self, other, self.column_names, other.column_names)
+
+        def shard_ok(s):
+            ok = torch.ones((), dtype=torch.bool, device=self.ctx.devices[s])
+            for n in a.column_names:
+                ca, cb = a._shards[s][n], b._shards[s][n]
+                va, vb = ca.valid_mask(), cb.valid_mask().to(ca.data.device)
+                db = cb.data.to(ca.data.device)
+                same = ca.data == db
+                if ca.data.is_floating_point() and db.is_floating_point():
+                    same = same | (torch.isnan(ca.data) & torch.isnan(db))
+                ok = ok & ((va == vb) & (same | ~va)).all()
+            return ok.to(torch.int64)
+
+        return bool(self._gather_counts([shard_ok(s) for s in self.ctx.local_shards]).all())
+
+    def _row_multiset(self) -> "Table":
+        """(distinct row, multiplicity): a groupby-count over every column."""
+        w = "__row_weight__"
+        ones = self._per_shard(lambda s: Column(
+            torch.ones(int(self._counts[s]), dtype=torch.int32, device=self.ctx.devices[s]),
+            DataType(Type.INT32)))
+        return self.add_column(w, ones).distributed_groupby(self.column_names, {w: "count"})
+
+    # pycylon's item access and operators; a comparison returns a bool table
+    def __getitem__(self, key):
+        """A column name or a list of them -> a projection; a slice -> the
+        rows by position; a bool mask -> :meth:`filter`."""
+        if isinstance(key, str):
+            return self.project([key])
+        if isinstance(key, (list, tuple)) and key and all(isinstance(k, str) for k in key):
+            return self.project(list(key))
+        if isinstance(key, slice):
+            return self.take(np.arange(*key.indices(self.row_count)))
+        return self.filter(key)
+
+    def __setitem__(self, key, value) -> None:
+        """``t['c'] = values | scalar | Column`` adds or replaces a column;
+        ``t[mask] = scalar`` sets the masked rows' values (:meth:`mask`)."""
+        self._built_index = None
+        if isinstance(key, str):
+            if isinstance(value, Column) or (
+                isinstance(value, (list, tuple)) and any(isinstance(v, Column) for v in value)
+            ):
+                new = self.add_column(key, value)
+            else:
+                if np.isscalar(value):
+                    value = np.full(self.row_count, value)
+                phys, valid, dtype, dic = Column.encode_host(np.asarray(value))
+                new = self.add_column(key, self._host_column_like(phys, valid, dtype, dic))
+        else:
+            new = self.mask(key, value)
+        self._shards = new._shards
+
+    def __bool__(self) -> bool:
+        raise ValueError(
+            "The truth value of a Table is ambiguous; use Table.equals() or row_count"
+        )
+
+    def __hash__(self):  # __eq__ returns a table; hashing stays by identity
+        return id(self)
+
+    def _cmp(self, other, op):
+        from . import compute as _c
+
+        return _c.table_compare_op(self, other, op)
+
+    def __eq__(self, other):  # noqa: A003 (pycylon's elementwise equality)
+        return self._cmp(other, _op.eq)
+
+    def __ne__(self, other):
+        return self._cmp(other, _op.ne)
+
+    def __lt__(self, other):
+        return self._cmp(other, _op.lt)
+
+    def __le__(self, other):
+        return self._cmp(other, _op.le)
+
+    def __gt__(self, other):
+        return self._cmp(other, _op.gt)
+
+    def __ge__(self, other):
+        return self._cmp(other, _op.ge)
+
+    def _math(self, op, other):
+        from . import compute as _c
+
+        return _c.math_op(self, op, other)
+
+    def __add__(self, other):
+        return self._math("add", other)
+
+    def __radd__(self, other):
+        return self._math("add", other)
+
+    def __sub__(self, other):
+        return self._math("sub", other)
+
+    def __mul__(self, other):
+        return self._math("mul", other)
+
+    def __rmul__(self, other):
+        return self._math("mul", other)
+
+    def __truediv__(self, other):
+        from . import compute as _c
+
+        return _c.division_op(self, "/", other)
+
+    def __floordiv__(self, other):
+        from . import compute as _c
+
+        return _c.division_op(self, "floordiv", other)
+
+    def __neg__(self):
+        from . import compute as _c
+
+        return _c.neg(self)
+
+    def __invert__(self):
+        from . import compute as _c
+
+        return _c.invert(self)
+
+    def __and__(self, other):
+        return self._math(_op.and_, other)
+
+    def __or__(self, other):
+        return self._math(_op.or_, other)
+
+    # ------------------------------------------------------------------
+    # indexing (set_index / loc / iloc; the JAX package's indexing/)
+    # ------------------------------------------------------------------
+    def set_index(self, column: Union[str, int], drop: bool = False) -> "Table":
+        """Name a column the index. ``drop=True`` is refused: the index is a
+        column of the table."""
+        if drop:
+            raise ValueError("drop=True unsupported: the index is a live column")
+        t = self._with_shards(self._shards)
+        t.index_name = self._resolve_cols(column)[0]
+        return t
+
+    def reset_index(self) -> "Table":
+        t = self._with_shards(self._shards)
+        t.index_name = None
+        return t
+
+    @property
+    def index(self):
+        from .indexing import ColumnIndex, RangeIndex
+
+        if self.index_name is None:
+            return RangeIndex(self.row_count)
+        return ColumnIndex(self.index_name)
+
+    def get_index(self):
+        return self.index
+
+    def build_index(self, kind: str = "hash"):
+        """Build once, and keep, the sorted view of the index column that
+        later ``loc`` list lookups probe on its device: 'hash' skips a
+        missing label, 'linear' raises KeyError for it, as the reference's
+        LinearIndex."""
+        from .indexing import HashIndex, LinearIndex
+
+        if self._built_index is not None and self._built_index[0] == (kind, self.index_name):
+            return self._built_index[1]
+        if kind == "hash":
+            idx = HashIndex(self)
+        elif kind == "linear":
+            idx = LinearIndex(self)
+        else:
+            raise ValueError(f"unknown index kind {kind!r}")
+        self._built_index = ((kind, self.index_name), idx)
+        return idx
+
+    @property
+    def loc(self):
+        from .indexing import LocIndexer
+
+        return LocIndexer(self)
+
+    @property
+    def iloc(self):
+        from .indexing import ILocIndexer
+
+        return ILocIndexer(self)
+
+    # ------------------------------------------------------------------
+    # not ported: each raises naming its ROADMAP item
+    # ------------------------------------------------------------------
+    def lazy(self):
+        raise _not_ported("Table.lazy (the query planner)", "A4")
+
+    @property
+    def ordering(self):
+        raise _not_ported("ordering descriptors", "A4")
+
+    def with_ordering(self, ordering):
+        raise _not_ported("ordering descriptors", "A4")
+
+    def _join_sum_pushdown(self, *args, **kwargs):
+        raise _not_ported("the join -> sum pushdown", "A4")
+
+    def column_stats(self):
+        raise _not_ported("column range stats", "A6")
+
+    def ensure_stats(self, *args, **kwargs):
+        raise _not_ported("column range stats", "A6")
+
+    def task_partition(self, *args, **kwargs):
+        raise _not_ported("the task shuffle", "A7")
+
+    def to_arrow(self, shard: Optional[int] = None):
+        raise _not_ported("Arrow export", "A8")
+
+    @classmethod
+    def from_arrow(cls, ctx: CylonContext, atable):
+        raise _not_ported("Arrow import", "A8")
+
+    def to_csv(self, path, csv_write_options=None) -> None:
+        raise _not_ported("CSV output", "A8")
+
     def __repr__(self):
         return (
             f"Table(rows={self.row_count}, columns={self.column_names}, "
@@ -1064,7 +1781,8 @@ def _suffix_names(lnames, rnames, suffixes):
 def _agg_name(oid: int) -> str:
     return {
         _g.SUM: "sum", _g.COUNT: "count", _g.MIN: "min", _g.MAX: "max",
-        _g.MEAN: "mean",
+        _g.MEAN: "mean", _g.VAR: "var", _g.STDDEV: "std", _g.NUNIQUE: "nunique",
+        _g.QUANTILE: "quantile",
     }[oid]
 
 
@@ -1163,7 +1881,7 @@ def _concat_tables(tables: Sequence[Table]) -> Table:
                 torch.cat([ca.data.to(common), cb.data.to(common)]), dt, valid, ca.dictionary
             )
         shards.append(cols)
-    return Table(a.ctx, shards, a._counts + b._counts)
+    return a._with_shards(shards, a._counts + b._counts)
 
 
 # ----------------------------------------------------------------------
@@ -1297,7 +2015,7 @@ def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
                 cols[name] = Column(data, c.dtype, valid, c.dictionary)
             return cols
 
-        results.append(Table(st["ctx"], _per_shard(st["ctx"], received), sum(expect_all)))
+        results.append(t._with_shards(_per_shard(st["ctx"], received), sum(expect_all)))
     return results
 
 

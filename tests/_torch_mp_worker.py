@@ -230,8 +230,58 @@ def case_frame(env):
     return {"joined": joined.to_pandas(), "by_segment": by_seg.to_pandas()}
 
 
+def case_surface(env):
+    """The DataFrame and Table surface's steps that gather from every rank:
+    the raw-row distributed_groupby of var/std/nunique/median, the
+    pipeline groupby, dropna of columns (null counts), astype to strings
+    and applymap (host round trips), loc by a list of labels and iloc by
+    positions (global), concat(axis=1) through distributed_join, equals
+    unordered, compute.nunique."""
+    rng = np.random.default_rng(SEED + 9)
+    n = 300
+    v = rng.normal(size=n)
+    v[rng.random(n) < 0.2] = np.nan
+    s = rng.choice(WORDS[:8], n).astype(object)
+    s[rng.random(n) < 0.1] = None
+    t = ctt.Table.from_encoded(env.context, port_encode({
+        "k": rng.integers(0, 25, n).astype(np.int32), "v": v, "s": s,
+        "f": rng.normal(size=n).astype(np.float32)}))
+    ti = t.set_index("k")
+    other = t.project(["k", "f"]).add_suffix("_b").set_index("k_b")
+    return {
+        "groupby": t.distributed_groupby("k", {"v": ["var", "std", "nunique", "median"],
+                                               "s": "nunique"}),
+        "pipeline": t.distributed_pipeline_groupby("k", {"f": ["sum", "median"]}),
+        "fillna_s": t.project(["s"]).fillna("zz"), "fillna_v": t.project(["v"]).fillna(0.5),
+        "dropna_cols": t.dropna(axis=0),
+        "dropna_rows": t.dropna(axis=1), "astype_str": t.astype({"k": str}),
+        "isin": t.isin([3, 4.0, "w001"]), "where": t.where(t.project(["f"]) > 0, 0),
+        "applymap": t.project(["k", "s"]).applymap(lambda x: x),
+        "select_rows": t.select_rows(lambda r: r["k"] % 3 == 0),
+        "loc_list": ti.loc[[3, 99, 7, 3]], "loc_slice": ti.loc[5:9],
+        "iloc_list": t.iloc[[7, 2, 250]], "iloc_slice": t.iloc[40:260],
+        "concat1": ctt.Table.concat([ti, other], axis=1, join="outer", distributed=True),
+        "equals": t.equals(t, ordered=False), "nunique": ctt.compute.nunique(t.project(["s"])),
+    }
+
+
+def case_overflow(env):
+    """A join whose output passes ``ops.join.MAX_ROWS`` rows on shard 0
+    alone: a hot key that hashes to shard 0 on both sides, a few rows of a
+    key that hashes to shard 1. Run with the limit lowered (``main``), it
+    must raise on every rank."""
+    from cylon_tpu_torch.ops.partition import hash_partition_ids
+
+    cand = torch.arange(64, dtype=torch.int32)
+    pid = hash_partition_ids([(cand, None)], None, env.world_size)
+    hot, cold = int(cand[pid == 0][0]), int(cand[pid == 1][0])
+    keys = np.array([hot] * 60 + [cold] * 3, np.int32)
+    t = ctt.Table.from_encoded(env.context, port_encode({"k": keys, "v": np.arange(63.0)}))
+    return {"join": t.distributed_join(t, on="k")}
+
+
 PORT = OrderedDict([("pk", case_pk), ("ingest", case_ingest), ("env", case_env),
-                    ("frame", case_frame)])
+                    ("frame", case_frame), ("surface", case_surface)])
 CASES = list(SHARED) + list(PORT)
 
 
@@ -287,10 +337,11 @@ def run_cases(env, names=CASES):
 # the launcher and the comparisons (used by the tests, not by the ranks)
 # ----------------------------------------------------------------------
 
-def run_ranks(tmp: Path, world: int, cases=(), device="cpu", backend="gloo", limit=120.0):
+def run_ranks(tmp: Path, world: int, cases=(), device="cpu", backend="gloo", limit=120.0,
+              wait_all=False):
     """Start ``world`` ranks of this script; wait until all exit 0, one
-    exits otherwise, or ``limit`` seconds pass; kill what still runs.
-    Returns (exit codes, logs, seconds)."""
+    exits otherwise (``wait_all``: until all exit), or ``limit`` seconds
+    pass; kill what still runs. Returns (exit codes, logs, seconds)."""
     url = "file://" + str(tmp / "rendezvous")
     env = dict(os.environ, PYTHONPATH=os.path.dirname(HERE), OMP_NUM_THREADS="1")
     procs, logs = [], []
@@ -305,7 +356,8 @@ def run_ranks(tmp: Path, world: int, cases=(), device="cpu", backend="gloo", lim
             ))
         while time.monotonic() - t0 < limit:
             codes = [p.poll() for p in procs]
-            if all(c == 0 for c in codes) or any(c not in (None, 0) for c in codes):
+            if all(c is not None for c in codes) or (
+                    not wait_all and any(c not in (None, 0) for c in codes)):
                 break
             time.sleep(0.05)
     finally:
@@ -404,6 +456,12 @@ def main(argv):
         if env.rank == 1:
             raise RuntimeError("rank 1 fails on purpose")
         names = [n for n in names if n != "fail"]
+    if names == ["overflow"]:  # a test-only limit, in this process alone
+        from cylon_tpu_torch.ops import join as _join
+
+        _join.MAX_ROWS = 1000
+        case_overflow(env)
+        return
     results = run_cases(env, names)
     if device != "cpu":  # the kernels this rank launched on its card
         from cylon_tpu_torch.ops import cuda_codec, cuda_gather, cuda_probe, cuda_radix

@@ -77,11 +77,11 @@ def _tables():
     "call",
     [
         lambda t: t.distributed_join(t, on="k", mode="fused"),
-        lambda t: t.groupby("k", {"v": "std"}),
+        lambda t: t.lazy(),
         lambda t: t.join(t, on="k", emit_order="key"),
-        lambda t: t.groupby("k", {"v": "var"}),
-        lambda t: t.groupby("k", {"v": "nunique"}),
-        lambda t: ctt.Table.concat([t, t], axis=1),
+        lambda t: t.to_arrow(),
+        lambda t: t.to_csv("out.csv"),
+        lambda t: t.task_partition(["k"], 2),
     ],
 )
 def test_unported_arguments_raise(call):

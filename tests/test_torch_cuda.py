@@ -484,3 +484,35 @@ def test_two_gloo_ranks_on_one_card_match_cpu(dev, tmp_path):
         for k in ("radix_lane_hist", "radix_onesweep", "expand_rows", "pack_hist",
                   "pack_dest", "compact_move", "pk_probe"):
             assert launched[k] > 0, (r, k, launched)
+
+
+@pytest.mark.parametrize("kind", ["hash", "linear"])
+def test_loc_list_probes_the_index_on_the_card(dev, kind):
+    """``loc`` with a list of labels, with and without ``build_index``,
+    probes the index column's sorted view on the card (its K1 argsort
+    launched there) and gives the CPU's rows: request order, repeats,
+    nulls never matched, a missing label skipped or, for 'linear', a
+    KeyError."""
+    rng = np.random.default_rng(8)
+    n = 70_001
+    k = rng.integers(0, 20_000, n).astype(np.int64)
+    cols = {"k": k, "x": rng.normal(size=n)}
+    labels = [int(k[5]), int(k[9]), 20_001, int(k[5])] if kind == "hash" else \
+        [int(k[5]), int(k[9]), int(k[5])]
+    outs = []
+    for device in (dev, "cpu"):
+        ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=device, world_size=2))
+        t = ctt.Table.from_pydict(ctx, cols).set_index("k")
+        before = cuda_radix.LAUNCHES["radix_onesweep"]
+        eager = t.loc[labels]
+        idx = t.build_index(kind)
+        built = t.loc[labels]
+        if device is dev:
+            assert idx._sorted.is_cuda and idx._positions.is_cuda
+            assert cuda_radix.LAUNCHES["radix_onesweep"] > before
+            if kind == "linear":
+                with pytest.raises(KeyError):
+                    t.loc[[20_001]]
+        outs += [_shard_dump(eager), _shard_dump(built)]
+    for a in outs[1:]:
+        _dumps_equal(outs[0], a)

@@ -9,7 +9,8 @@ empty shard, ``distributed_sort`` on float keys with nulls, the set
 operations and ``distributed_unique``, the PK join with a duplicate right
 key that falls back on every rank, per-rank ingest
 (``Table.from_encoded_shards``), the whole-table aggregates, the context's
-rank and the DataFrame flow. The test process runs the same case functions
+rank, the DataFrame flow and the DataFrame and Table surface's steps that
+gather from every rank (``case_surface``). The test process runs the same case functions
 on ``LocalCommunicator`` at the same world (every shard in one process),
 and the shared ones on the JAX package's 4-device CPU mesh at W = 4 (the
 configuration of tests/test_torch_shuffle_slice.py), and holds rank d's
@@ -154,6 +155,18 @@ def test_a_failing_rank_fails_the_run_without_a_hang(tmp_path):
     codes, logs, seconds = W.run_ranks(tmp_path, 2, cases=["fail", "join_groupby"], limit=60)
     assert codes[1] == 1 and "rank 1 fails on purpose" in logs[1], logs[1][-2000:]
     assert codes[0] != 0 and seconds < 60, (codes, seconds)
+
+
+def test_a_join_that_overflows_on_one_rank_raises_on_every_rank(tmp_path):
+    """The join's output passes the (lowered) row limit on shard 0 only;
+    every rank reads every shard's count first, so both raise the same
+    ValueError and exit, well inside the limit, instead of rank 1 waiting
+    in its next collective."""
+    codes, logs, seconds = W.run_ranks(tmp_path, 2, cases=["overflow"], limit=60, wait_all=True)
+    for r in range(2):
+        assert codes[r] == 1, (r, codes, logs[r][-2000:])
+        assert "join output of 3600 rows on one shard exceeds 1000 rows" in logs[r], logs[r][-2000:]
+    assert seconds < 60, seconds
 
 
 # ----------------------------------------------------------------------
