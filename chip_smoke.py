@@ -16,7 +16,8 @@
      B: 1,000,000 orders (int64 cust in [0, 50k), float64 price) joined to
         50,000 customers (int64 cust, string segment), the flow of
         examples/join_groupby.py: CylonEnv, DataFrame.merge(on="cust"),
-        groupby("segment").agg({"price": "sum"});
+        groupby("segment").agg({"price": "sum"}), the median of 3 calls
+        after a warm-up;
    checked against plain references (torch for A, numpy for B); then the
    same two at world_size=4 through the chunked hash shuffle (four shards
    round-robin over the visible cards, all on cuda:0 with one card):
@@ -49,6 +50,12 @@
      U4: their distributed forms at world_size=4: each shard's rows, as a
          multiset, the plain result's rows of that shard's murmur3
          partition;
+     O: the order-descriptor fast paths over sorted input: sort (elided,
+        and on a sorted prefix), unique, the key-only set ops, groupby and
+        a join whose right side is sorted, at world 1 over left, left2 and
+        A's right side sorted by k, and distributed_sort of S4's output;
+        each op the median of 3 calls beside the same call under
+        ordering.disabled(), whose rows it must equal in order;
    then the DataFrame surface of the reference's op benchmarks
    (python/examples/op_benchmark) on A's left side widened to 8M rows of
    k, v (10% null by an explicit mask), w, g = k % 65536 and s (64
@@ -64,6 +71,23 @@
          through env= (distributed_sort, distributed_unique, the raw-row
          distributed_groupby), each shard against the plain result's
          partition;
+   then the lazy query planner (ROADMAP A4) on A's tables, the right
+   side's key renamed rk, at world 1 (L) and at world_size=4 at the
+   default 32 MiB budget (L4), each query the median of 3 calls after a
+   warm-up, gated against the plain reference A's eager join -> groupby is
+   held to (group keys exactly, sums and means within A's tolerance), its
+   rules and order fast paths required to fire and its warm collects to
+   hit the plan cache:
+     q3_lazy: left.lazy().join(right.lazy(), left_on="k", right_on="rk")
+              .groupby("k", {"v": "sum"}).collect(), the fused join-sum
+              (benchmarks/run_bench.py's q3_lazy);
+     plan_filter: the same with .filter(col("w") > 0.0) after the join
+              (benchmarks/plan_bench.py's query), pushed below it;
+     q3_ordered: distributed_join(on="k", emit_order="key") ->
+              distributed_groupby("k_x", {"v": "sum"}) (run_bench.py's
+              q3_ordered), the groupby run-detecting;
+     q3_ordered_lazy: the lazy q3 with {"v": ["sum", "mean"]}, where
+              order_reuse turns the join into the key-order emit;
    then the torch.distributed backend, one process per shard:
      MP4: four processes of this script (``--mp4-worker``), each one rank
           of ``GPUConfig(coordinator_address=..., num_processes=4)``: gloo
@@ -71,8 +95,9 @@
           there are four cards. Each makes A4's, S4's, U4's and PK4's
           data from the same seeds, stages only its own block, and runs
           distributed_join -> distributed_groupby, distributed_sort("k"),
-          distributed_union and distributed_unique(["k"]), and the
-          pallas_pk join -> groupby; it reports a sha256 of each output
+          distributed_union and distributed_unique(["k"]), the pallas_pk
+          join -> groupby, and L4's lazy q3 (every rank optimizes the same
+          plan); it reports a sha256 of each output
           column of its shard, its kernel launches and the median of 3
           barrier-synchronised calls on rank 0's clock. Rank d's digests
           must equal those of shard d of the same calls at world_size=4
@@ -86,7 +111,8 @@
    same function where there is one, beside each kernel's ptxas registers
    and spills;
 4. profiles one join + groupby of workloads A, A4_K4, PK and PK4, one
-   distributed_sort of S4, one union of U and of U4 and F's groupby with
+   distributed_sort of S4, one union of U and of U4, F's groupby and L's
+   q3_lazy with
    torch.profiler (device time by kernel and by op, and the card's busy
    share);
 5. prints the profile lines, a JSON line of kernels, one JSON line per
@@ -117,6 +143,8 @@ SPIN_CYCLES = 100_000_000  # about 60 ms of card time ahead of each timed run
 REPS_E2E = 5   # timed runs of workload A (the first one is counted)
 REPS_E2E_4 = 3  # timed runs of workload A4 per budget
 REPS_OPS = 3   # timed runs of each sort and set operation (S, S4, U, U4)
+REPS_B = 3     # timed runs of workload B (the first one is counted), after a warm-up
+REPS_L = 3     # timed runs of each lazy-planner query (L, L4), after a warm-up
 WORLD = 4
 BUDGET_SMALL = 4 * 1024 * 1024  # A4's multi-round run: bucket_cap 131072, K = 4
 
@@ -254,6 +282,7 @@ def mp4_calls(ctt, ctx):
     pk_left, pk_right = make_pk()
     pl, pr = ctt.Table.from_pydict(ctx, pk_left), ctt.Table.from_pydict(ctx, pk_right)
     sums = {"v": "sum", "w": "sum"}
+    q3 = tl.lazy().join(tr.rename({"k": "rk"}).lazy(), left_on="k", right_on="rk")
 
     def a4():
         j = tl.distributed_join(tr, on="k", how="inner")
@@ -268,6 +297,8 @@ def mp4_calls(ctt, ctx):
         "S4": lambda: {"sort": tl.distributed_sort("k")},
         "U4": lambda: {"union": tl.distributed_union(tl2), "unique": tl.distributed_unique(["k"])},
         "PK4": pk4,
+        # workload L4's lazy q3: every rank optimizes the same plan
+        "L4": lambda: {"q3_lazy": q3.groupby("k", {"v": "sum"}).collect()},
     }
 
 
@@ -279,6 +310,7 @@ MP4_KERNELS = {
     "U4": ("radix_lane_hist", "radix_onesweep", "pack_hist", "pack_dest", "compact_move"),
     "PK4": ("radix_lane_hist", "radix_onesweep", "pk_probe", "pack_hist", "pack_dest",
             "compact_move"),
+    "L4": ("radix_lane_hist", "radix_onesweep", "pack_hist", "pack_dest", "compact_move"),
 }
 
 
@@ -687,9 +719,16 @@ def main(mp4_only: bool = False) -> None:
     reset_counts()
     t0 = time.perf_counter()
     jb, gb_host = run_b()
-    b_s = time.perf_counter() - t0
+    b_times = [time.perf_counter() - t0]
     launches_b = counts()
     require_launches(launches_b, "workload B", local_kernels)
+    declined_b = _radix.COUNTS["declined"]
+    for _ in range(REPS_B - 1):
+        t0 = time.perf_counter()
+        _jb, _gb = run_b()
+        b_times.append(time.perf_counter() - t0)
+        del _jb, _gb
+    b_s = float(np.median(b_times))
     # plain reference: every order meets its one customer (cust is a key)
     seg_names, seg_code = np.unique(customers["segment"], return_inverse=True)
     want = np.bincount(seg_code[orders["cust"]], weights=orders["price"],
@@ -700,8 +739,9 @@ def main(mp4_only: bool = False) -> None:
     if not np.allclose(np.asarray(gb_host["price_sum"], np.float64), want, rtol=1e-9, atol=0):
         fail("workload B: price sums differ from the reference")
     work_b = {"workload": "B", "orders": N_ORDERS, "customers": N_CUST,
-              "end_to_end_s": b_s, "launches": launches_b,
-              "radix_declined": _radix.COUNTS["declined"]}
+              "end_to_end_s": b_s, "end_to_end_s_all": b_times,
+              "spread_s": max(b_times) - min(b_times), "launches": launches_b,
+              "radix_declined": declined_b}
     captured_b = dict(seen)
     del jb
 
@@ -777,7 +817,116 @@ def main(mp4_only: bool = False) -> None:
     captured_a4 = on_card(seen)
     print(json.dumps({"profile_a4_k4": profile(run_a4)}))
     ctx4.add_config("shuffle_byte_budget", "")
-    del tl4, tr4
+
+    # ------------------------------------------------------------------
+    # workloads L and L4: the lazy planner on A's tables (the right key
+    # renamed rk), at world 1 and at world 4 (32 MiB budget)
+    # ------------------------------------------------------------------
+    from cylon_tpu_torch.utils import tracing as _tr
+
+    kr_pos = kr[wr > 0.0]  # plan_filter keeps the joined rows with w > 0
+    cr_pos = torch.bincount(kr_pos, minlength=N_A)
+    keys_pos = torch.nonzero((cl > 0) & (cr_pos > 0)).squeeze(1)
+    del kr_pos
+    # the plain reference A's eager join -> groupby is held to, per query:
+    # (group keys, {column: float64 reference})
+    l_refs = {
+        "q3_lazy": (keys, {"v_sum": sv[keys] * cr[keys]}),
+        "plan_filter": (keys_pos, {"v_sum": sv[keys_pos] * cr_pos[keys_pos]}),
+        "q3_ordered": (keys, {"v_sum": sv[keys] * cr[keys]}),
+        "q3_ordered_lazy": (keys, {"v_sum": sv[keys] * cr[keys], "v_mean": sv[keys] / cl[keys]}),
+    }
+    # plan_filter reads every column of A's tables (w in the filter), so it
+    # prunes none; q3_lazy drops w, the two-aggregate q3 w too
+    fused = ["plan.rule.fused_join_groupby"]
+    key_order = ["ordering.join_key_order_emit", "ordering.groupby_run_detect"]
+    l_expect = {
+        "q3_lazy": fused + ["plan.rule.projection_pushdown"],
+        "plan_filter": fused + ["plan.rule.filter_pushdown"],
+        "q3_ordered": key_order,
+        "q3_ordered_lazy": key_order + ["plan.rule.order_reuse", "plan.rule.projection_pushdown"],
+    }
+
+    def lazy_queries(tl_, tr_):
+        """run_bench.py's q3_lazy and q3_ordered, plan_bench.py's query,
+        and the lazy two-aggregate q3: name -> (call, group key column)."""
+        q = tl_.lazy().join(tr_.rename({"k": "rk"}).lazy(), left_on="k", right_on="rk")
+
+        def ordered():
+            jo = tl_.distributed_join(tr_, on="k", how="inner", emit_order="key")
+            return jo.distributed_groupby("k_x", {"v": "sum"})
+
+        return {
+            "q3_lazy": (lambda: q.groupby("k", {"v": "sum"}).collect(), "k"),
+            "plan_filter": (lambda: q.filter(ctt.col("w") > 0.0).groupby("k", {"v": "sum"}).collect(), "k"),
+            "q3_ordered": (ordered, "k_x"),
+            "q3_ordered_lazy": (lambda: q.groupby("k", {"v": ["sum", "mean"]}).collect(), "k"),
+        }
+
+    def check_l(out, key_col, name, what):
+        """Group keys exactly, sums and means within A's tolerance, as sets
+        (a world-4 shard holds its hash partition's groups in key order);
+        each shard in ascending key order."""
+        ref_keys, ref_cols = l_refs[name]
+        for s_ in range(out.world_size):
+            ks = out._shards[s_][key_col].data
+            if ks.numel() > 1 and not bool((ks[1:] > ks[:-1]).all()):
+                fail(f"{what} {name}: shard {s_} groups not in key order")
+        gk = out.column(key_col).data.long()
+        order = torch.argsort(gk)
+        if out.row_count != ref_keys.numel() or not torch.equal(gk[order], ref_keys):
+            fail(f"{what} {name}: group keys differ from the reference")
+        for col, ref in ref_cols.items():
+            err = (out.column(col).data.double()[order] - ref).abs()
+            if not bool((err <= 1e-4 + 1e-5 * ref.abs()).all()):
+                fail(f"{what} {name}: {col} max abs err {float(err.max())}")
+
+    def measure_l(what, tl_, tr_, kernels):
+        world = tl_.world_size
+        res = {}
+        for name, (call, key_col) in lazy_queries(tl_, tr_).items():
+            call()  # warm-up: compiles the plan (a plan-cache miss)
+            _tr.reset_trace()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            times = [time.perf_counter() - t0]
+            launches, plan = counts(), list(plans)
+            require_launches(launches, f"{what} {name}", kernels)
+            for _ in range(REPS_L - 1):
+                t0 = time.perf_counter()
+                _o = call()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                del _o
+            fired = {k: v["count"] for k, v in _tr.report("plan.rule.").items()}
+            fired.update({k: v["count"] for k, v in _tr.report("ordering.").items()})
+            lazy = name != "q3_ordered"  # the eager q3_ordered has no plan
+            expect = l_expect[name] + (["plan.rule.shuffle_elimination"] if lazy and world > 1 else [])
+            for c_ in expect:
+                if not fired.get(c_):
+                    fail(f"{what} {name}: {c_} did not fire ({fired})")
+            hits = _tr.get_count("plan.cache.hit")
+            if lazy and (hits != REPS_L or _tr.get_count("plan.cache.miss")):
+                fail(f"{what} {name}: {hits} plan-cache hits of {REPS_L} warm collects")
+            check_l(out, key_col, name, what)
+            ms = float(np.median(times)) * 1e3
+            res[name] = {"ms": ms, "ms_all": [t * 1e3 for t in times],
+                         "spread_ms": (max(times) - min(times)) * 1e3,
+                         "input_rows_per_s": 2 * N_A / (ms / 1e3), "groups": out.row_count,
+                         "launches": launches, "counters": fired, "plan_cache_hits": hits,
+                         "shuffle_plans": plan}
+            del out
+        return {"workload": what, "world": world, "rows_per_side": N_A,
+                "budget_bytes": tl_.ctx.shuffle_byte_budget, "queries": res}
+
+    k1_kernels = list(cuda_radix.LAUNCHES)
+    work_l = measure_l("L", tl, tr, k1_kernels)
+    q3_l = lazy_queries(tl, tr)["q3_lazy"][0]
+    print(json.dumps({"profile_l": profile(q3_l)}))
+    work_l4 = measure_l("L4", tl4, tr4, k1_kernels + list(cuda_codec.LAUNCHES))
+    del tl4, tr4, q3_l, cr_pos, keys_pos
 
     # ------------------------------------------------------------------
     # workload B4: B at world 4 (the groupby shuffles on a string key)
@@ -1133,7 +1282,73 @@ def main(mp4_only: bool = False) -> None:
         work_u4["ops"][op + sfx] = w
         del out, want, pid, want_keys
     print(json.dumps({"profile_u4": profile(lambda: tl4.distributed_union(tl4b))}))
-    del tl4, tl4b, pl4, pl4b, tl2, cat_k, cat_v
+    del tl4b, pl4, pl4b, cat_k, cat_v
+
+    # O: the order-descriptor fast paths over sorted input (U's tables and
+    # A's right side sorted by k, S4's output at world 4), each op timed
+    # beside the same call under ordering.disabled(), the sort-based path
+    # it bypasses; both must give the same rows in the same order
+    from cylon_tpu_torch import ordering as _ordering
+
+    def plain_path(call):
+        def run():
+            with _ordering.disabled():
+                return call()
+        return run
+
+    def same_table(a, b, what, sums=()):
+        """Shard by shard, row for row; the float ``sums`` (the card adds
+        them in no fixed order) within A's tolerance."""
+        if a.column_names != b.column_names or a.row_counts.tolist() != b.row_counts.tolist():
+            fail(f"{what}: {a.column_names} {a.row_counts.tolist()} != "
+                 f"{b.column_names} {b.row_counts.tolist()}")
+        for sa, sb in zip(a._shards, b._shards):
+            for c in a.column_names:
+                ca, cb = sa[c], sb[c]
+                if c in sums:
+                    err = (ca.data.double() - cb.data.double()).abs()
+                    if not bool((err <= 1e-4 + 1e-5 * cb.data.double().abs()).all()):
+                        fail(f"{what}: {c} max abs err {float(err.max())}")
+                elif not torch.equal(ca.data, cb.data) or (ca.valid is None) != (cb.valid is None) or (
+                        ca.valid is not None and not torch.equal(ca.valid, cb.valid)):
+                    fail(f"{what}: column {c} differs from the path it bypasses")
+
+    sl, sl2 = tl.sort("k"), tl2.sort("k")
+    psl, psl2 = sl.project(["k"]), sl2.project(["k"])
+    tr_sorted = tr.sort("k")
+    s4_sorted = tl4.distributed_sort("k")
+    o_calls = [
+        ("sort", "sort_elided", lambda: sl.sort("k")),
+        ("sort_kv", "sort_suffix", lambda: sl.sort(["k", "v"])),
+        ("unique_k", "unique_run_detect", lambda: sl.unique(["k"])),
+        ("unique_last_k", "unique_run_detect", lambda: sl.unique(["k"], keep="last")),
+        ("union_k", "setop_sorted_probe", lambda: psl.union(psl2)),
+        ("subtract_k", "setop_sorted_probe", lambda: psl.subtract(psl2)),
+        ("intersect_k", "setop_sorted_probe", lambda: psl.intersect(psl2)),
+        ("groupby_sum", "groupby_run_detect", lambda: sl.groupby("k", {"v": "sum"})),
+        ("join_presorted", "join_presorted_probe", lambda: tl.join(tr_sorted, on="k")),
+        ("dist_sort_4", "dist_sort_elided", lambda: s4_sorted.distributed_sort("k")),
+    ]
+    work_o = {"workload": "O", "rows_per_side": N_A, "ops": {}}
+    for op, counter, call in o_calls:
+        _tr.reset_trace()
+        fast, w_fast = measure(call, f"O {op}", [])
+        if not _tr.get_count("ordering." + counter):
+            fail(f"O {op}: ordering.{counter} did not fire")
+        _tr.reset_trace()
+        plain, w_plain = measure(plain_path(call), f"O {op} (ordering disabled)", [])
+        if _tr.report("ordering."):
+            fail(f"O {op}: an ordering fast path fired under ordering.disabled()")
+        same_table(fast, plain, f"O {op}", sums=("v_sum",) if op == "groupby_sum" else ())
+        work_o["ops"][op] = {
+            "fast_path": "ordering." + counter, "world": fast.world_size, "rows": fast.row_count,
+            "ms": w_fast["s"] * 1e3, "ms_all": [t * 1e3 for t in w_fast["s_all"]],
+            "launches": w_fast["launches"],
+            "disabled_ms": w_plain["s"] * 1e3, "disabled_ms_all": [t * 1e3 for t in w_plain["s_all"]],
+            "disabled_launches": w_plain["launches"],
+        }
+        del fast, plain
+    del sl, sl2, psl, psl2, tr_sorted, s4_sorted, tl4, tl2
 
     # ------------------------------------------------------------------
     # workloads F and F4: the DataFrame surface of the reference's op
@@ -1640,6 +1855,10 @@ def main(mp4_only: bool = False) -> None:
                  "shuffle_compact_move": ("shuffle_codec", "compact_kernel"),
                  "pk_probe": ("pk_probe", "probe_kernel")}
     for k in kernels:
+        # launches of this slice's main path: each L / L4 query's first timed call
+        ck = k["name"].replace("shuffle_", "")  # its launch counter's key
+        k["launches_l"] = {q: v["launches"][ck] for q, v in work_l["queries"].items()}
+        k["launches_l4"] = {q: v["launches"][ck] for q, v in work_l4["queries"].items()}
         src, fn = kernel_fn[k["name"]]
         k["ptxas"] = {m: u for m, u in usage[src].items() if fn in m}
         if not k["ptxas"]:
@@ -1654,7 +1873,8 @@ def main(mp4_only: bool = False) -> None:
     print(json.dumps(work_pk))
     print(json.dumps(work_pk4))
     print(json.dumps(work_dup))
-    for w in (work_s, work_s4, work_s4k, work_u, work_u4, work_f, work_f4, work_mp4):
+    for w in (work_s, work_s4, work_s4k, work_u, work_u4, work_o, work_f, work_f4, work_l, work_l4,
+              work_mp4):
         print(json.dumps(w))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -16,15 +16,18 @@ or, one level down, ``Table.from_pandas(ctx, df)`` with
 ``distributed_groupby``. One process per shard, as under ``mpirun``:
 ``GPUConfig(coordinator_address="host:port", num_processes=W,
 process_id=rank)`` (NCCL on the cards, gloo on the CPU), or
-``coordinator_address="env://"`` under ``torchrun``.
+``coordinator_address="env://"`` under ``torchrun``. Lazy plans:
+``t.lazy().join(u.lazy(), on="k").filter(col("v") > 0).groupby("k",
+{"v": "sum"})`` with ``.explain()`` and ``.collect()``.
 """
 from . import compute, indexing
 from .config import GPUConfig
 from .context import CylonContext
 from .frame import CylonEnv, DataFrame
 from .join_config import JoinConfig
+from .plan import LazyFrame, col, lit
 from .series import Series
 from .table import Table
 
-__all__ = ["CylonContext", "CylonEnv", "DataFrame", "GPUConfig", "JoinConfig", "Series", "Table",
-           "compute", "indexing"]
+__all__ = ["CylonContext", "CylonEnv", "DataFrame", "GPUConfig", "JoinConfig", "LazyFrame",
+           "Series", "Table", "col", "compute", "indexing", "lit"]

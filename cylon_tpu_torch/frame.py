@@ -9,10 +9,10 @@ distributed ones. ``CylonEnv(config=GPUConfig())`` is the only change
 against pycylon; with ``GPUConfig(coordinator_address=...,
 num_processes=W, process_id=r)`` every rank runs the same program on its
 own shard, as under ``mpirun``. Selection, the operators, null handling,
-``set_index`` / ``loc`` / ``iloc`` and ``concat`` are the JAX package's.
-Left out, each raising NotImplementedError naming its ROADMAP item:
-``lazy`` and ``collect_async`` (A4 and A9), ``mode="fused"`` (A6),
-``to_arrow`` and ``to_csv`` (A8).
+``set_index`` / ``loc`` / ``iloc``, ``concat`` and ``lazy`` are the JAX
+package's. Left out, each raising NotImplementedError naming its ROADMAP
+item: ``collect_async`` (A9), ``mode="fused"`` (A6), ``to_arrow`` and
+``to_csv`` (A8).
 """
 from __future__ import annotations
 
@@ -72,7 +72,7 @@ def _local_ctx() -> CylonContext:
 
 def _check_mode(mode: str) -> None:
     if mode == "fused":
-        raise _not_ported("mode='fused'", "queue A6, the fused shuffle->join program")
+        raise _not_ported("mode='fused'", "A6, the fused shuffle->join program")
     if mode != "eager":
         raise ValueError(f"unknown join mode {mode!r}")
 
@@ -146,7 +146,9 @@ class DataFrame:
 
     # -- not ported --------------------------------------------------------
     def lazy(self):
-        raise _not_ported("DataFrame.lazy (the query planner)", "A4")
+        """A lazy query plan over this frame's table (``plan/lazy.py``):
+        ``df.lazy().filter(...).join(...).groupby(...).collect()``."""
+        return self._table.lazy()
 
     def collect_async(self, block: bool = True):
         raise _not_ported("DataFrame.collect_async (the serving scheduler)", "A9")

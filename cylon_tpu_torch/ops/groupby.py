@@ -16,7 +16,7 @@ import torch
 
 from . import radix as _radix
 from .factorize import factorize
-from .sort import KeyCol, lanes_differ, lexsort_indices, orderable_key, wide_float, wide_int
+from .sort import KeyCol, lexsort_indices, orderable_key, rows_differ, wide_float, wide_int
 
 SUM, COUNT, MIN, MAX, MEAN, VAR, STDDEV, NUNIQUE, QUANTILE, COUNT_DISTINCT = range(10)
 
@@ -62,15 +62,7 @@ def sorted_group_ids(key_cols: Sequence[KeyCol]) -> Tuple[torch.Tensor, int]:
     device = key_cols[0][0].device
     if n == 0:
         return torch.zeros(0, dtype=torch.int32, device=device), 0
-    diff = torch.zeros(n, dtype=torch.bool, device=device)
-    for data, valid in key_cols:
-        lane = orderable_key(data)
-        d = lanes_differ(lane[1:], lane[:-1])
-        if valid is not None:
-            v, vprev = valid[1:], valid[:-1]
-            d = torch.where(v & vprev, d, v != vprev)
-        diff[1:] |= d
-    diff[0] = True
+    diff = rows_differ(key_cols)
     ids = torch.cumsum(diff.to(torch.int32), 0, dtype=torch.int32) - 1
     return ids, int(ids[-1].item()) + 1
 

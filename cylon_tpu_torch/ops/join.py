@@ -18,6 +18,14 @@ The algorithm is the JAX package's:
 Tables carry no padding, so the JAX package's speculative single-dispatch
 join and its exact two-phase join are one path here: probe, read the
 total, allocate, emit.
+
+Two order-aware forms (ROADMAP.md A4): a right side whose ordering
+descriptor proves it key-sorted skips step 2 (``r_presorted``), and the
+key-order emit (the JAX package's ``_key_order_emit``: :func:`spec_probe`
+with ``emit_key_order``, then :func:`spec_emit`) emits INNER / LEFT rows
+grouped by key straight out of the merged sort. :func:`join_sum_by_key_pushdown` fuses
+an inner join with a sum of a left column by the join key into that one
+merged sort.
 """
 from __future__ import annotations
 
@@ -231,26 +239,86 @@ def _emit_inner_left(
     return out_l + pack_gather(r_sorted_cols, rpos)
 
 
+def _key_order_probe(l_ids, r_ids, hint, how: int) -> dict:
+    """The key-order emit's probe (the first half of the JAX package's
+    ``_key_order_emit``): ONE merged kv-sort of [right ids ++ left ids]
+    (K1) and run scans. At a left position p the run's rights
+    all precede p, so the rights in the run up to p are its match count
+    and the run start's right prefix sum its window base. ``"total"`` is
+    the output row count as a device scalar."""
+    nl, nr = l_ids.shape[0], r_ids.shape[0]
+    device = l_ids.device
+    keys = torch.cat([r_ids, l_ids])  # rights FIRST (tie order matters)
+    pay = torch.arange(nr + nl, dtype=torch.int32, device=device)
+    skey, spay = _radix.kv_sort(keys, pay, hint)
+    is_l = spay >= nr
+    rl = (~is_l).to(torch.int64)
+    r_excl = torch.cumsum(rl, 0) - rl
+    new_run = torch.ones(nr + nl, dtype=torch.bool, device=device)
+    new_run[1:] = skey[1:] != skey[:-1]
+    lo_run = run_start_broadcast(new_run, r_excl)
+    cnt = torch.where(is_l, run_count_upto(new_run, ~is_l), 0)
+    cnt_adj = torch.where(is_l & (cnt == 0), 1, cnt) if how == LEFT else cnt
+    ends = torch.cumsum(cnt_adj, 0)
+    total = ends[-1] if nl + nr else torch.zeros((), dtype=torch.int64, device=device)
+    return {"ends": ends, "base": lo_run - (ends - cnt_adj), "cnt": cnt,
+            "orig": spay - nr, "total": total}
+
+
+def _key_order_gather(
+    state: dict, l_cols: Sequence[KeyCol], r_sorted_cols: Sequence[KeyCol], total: int
+) -> List[KeyCol]:
+    """The key-order emit's output (left ++ right columns) of ``total``
+    rows, GROUPED BY KEY: within a key, left rows in row order, each with
+    its matches in the right's key-sorted order; a LEFT join's unmatched
+    rows at their key's place. The repeat runs over sorted space, and each
+    output row's (window base, match count, original left row) comes back
+    in ONE narrow [total, 3] gather."""
+    li = _repeat_ss(state["ends"], total).to(torch.int64)  # sorted-space position
+    book = gather_rows(torch.stack([state["base"], state["cnt"], state["orig"].to(torch.int64)], 1), li)
+    out_pos = torch.arange(total, dtype=torch.int64, device=li.device)
+    out_l = pack_gather(l_cols, book[:, 2], all_valid=True)
+    rpos = torch.where(book[:, 1] > 0, book[:, 0] + out_pos, -1)
+    return out_l + pack_gather(r_sorted_cols, rpos)
+
+
 def spec_probe(
     l_key_cols: Sequence[KeyCol],
     r_key_cols: Sequence[KeyCol],
     r_cols: Sequence[KeyCol],
     how: int,
+    r_presorted: bool = False,
+    emit_key_order: bool = False,
 ) -> dict:
     """Probe + count of one shard, with no host sync: the state
     :func:`spec_emit` takes, ``"total"`` the output row count as a device
     scalar. A caller reads every shard's count (every rank's, under
     torch.distributed), checks them all with :func:`count_overflow_check`,
-    so that every rank raises alike, then emits."""
+    so that every rank raises alike, then emits.
+
+    ``r_presorted``: the right rows are already in key order (the caller's
+    ordering descriptor proves it), so the right sort is the identity and
+    is skipped. ``emit_key_order`` (INNER / LEFT): the key-order emit."""
     l_ids, r_ids, hint = _canonical_ids(l_key_cols, r_key_cols)
+    nr = r_ids.shape[0]
     if how in (INNER, LEFT):
-        # id lanes are integers, so the radix engine never declines them
-        r_sorted = pack_gather(r_cols, _radix.argsort_perm(r_ids, hint), all_valid=True)
+        if r_presorted:
+            r_sorted = list(r_cols)
+        else:
+            # id lanes are integers, so the radix engine never declines them
+            r_sorted = pack_gather(r_cols, _radix.argsort_perm(r_ids, hint), all_valid=True)
+        if emit_key_order:
+            state = _key_order_probe(l_ids, r_ids, hint, how)
+            return {"key_order": state, "r_sorted": r_sorted, "total": state["total"]}
         lo, cnt, r_cnt = _merged_counts(l_ids, r_ids, hint, need_rcnt=False)
         return {"lo": lo, "cnt": cnt, "r_sorted": r_sorted,
                 "total": count_from_probe(cnt, r_cnt, how)}
     lo, cnt, r_cnt = _merged_counts(l_ids, r_ids, hint, need_rcnt=True)
-    return {"lo": lo, "cnt": cnt, "r_cnt": r_cnt, "r_order": _radix.argsort_perm(r_ids, hint),
+    if r_presorted:
+        r_order = torch.arange(nr, dtype=torch.int32, device=r_ids.device)
+    else:
+        r_order = _radix.argsort_perm(r_ids, hint)
+    return {"lo": lo, "cnt": cnt, "r_cnt": r_cnt, "r_order": r_order,
             "total": count_from_probe(cnt, r_cnt, how)}
 
 
@@ -259,7 +327,102 @@ def spec_emit(
 ) -> List[KeyCol]:
     """The output columns (left ++ right) of a :func:`spec_probe` whose
     row count ``total`` the caller has read and checked."""
+    if "key_order" in probe:
+        return _key_order_gather(probe["key_order"], l_cols, probe["r_sorted"], total)
     if how in (INNER, LEFT):
         return _emit_inner_left(probe["lo"], probe["cnt"], l_cols, probe["r_sorted"], how, total)
     return emit_gather(probe["lo"], probe["cnt"], probe["r_order"], probe["r_cnt"],
                        l_cols, r_cols, how, total)
+
+
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> the int32 two's-complement wrap of its value (int64)."""
+    return ((x + 2**31) % 2**32) - 2**31
+
+
+def join_sum_by_key_pushdown(
+    l_key_cols: Sequence[KeyCol],
+    r_key_cols: Sequence[KeyCol],
+    l_val: KeyCol,
+):
+    """INNER join + groupby-SUM(a left column) BY the join key, fused into
+    the probe's merged sort (the JAX package's function with
+    ``return_reps``): no join emit, no groupby sort.
+
+    In one key run of the merged sort every left row pairs with every
+    right row, so the group's sum over the join result is ``count(rights)
+    * sum(left values)``, and its join-row count ``c_l * c_r``. ONE K1
+    argsort of [right ids ++ left ids]; the value rides by one gather of
+    that order; run counts; one segment sum of the values into group slots
+    (a group is a run with rows of both sides, numbered in key order). The
+    rest is read at each group's start, where the run counts hold the
+    run's totals and the run's rights precede its lefts.
+
+    Returns (sums, ng, n_join, reps, vcnt) as device tensors over
+    min(n_l, n_r) group slots, an exact bound (a group needs a row on each
+    side), of which the first ``ng`` are live: the sums in the value's
+    float type, the join-row count ``n_join`` (saturating at 2^31 - 1
+    where its int32 count wraps, as the JAX package computes it), the
+    first left row of each group and its count of valid left values (an
+    all-null group sums to null). Null values add 0."""
+    nl = l_key_cols[0][0].shape[0]
+    nr = r_key_cols[0][0].shape[0]
+    n = nl + nr
+    device = l_key_cols[0][0].device
+    cap = min(nl, nr)
+    l_ids, r_ids, hint = _canonical_ids(l_key_cols, r_key_cols)
+    vd, vv = l_val
+    acc = vd if vd.dtype.is_floating_point else vd.to(torch.float32)
+    vsafe = acc if vv is None else torch.where(vv, acc, torch.zeros_like(acc))
+
+    keys = torch.cat([r_ids, l_ids])  # rights FIRST (matches the probe)
+    skey, spay = _radix.sort_lane(keys, hint)  # id lanes are integers: K1
+    spay = spay.to(torch.int64)
+    if skey is None:
+        skey = keys.index_select(0, spay)
+    sval = torch.cat([vsafe.new_zeros(nr), vsafe]).index_select(0, spay)
+    is_l = spay >= nr
+    new_run = torch.ones(n, dtype=torch.bool, device=device)
+    new_run[1:] = skey[1:] != skey[:-1]
+
+    # run-start totals decide which runs are groups (rows of both sides)
+    c_r = run_count_from(new_run, ~is_l)
+    c_l = run_count_from(new_run, is_l)
+    group_start = new_run & (c_l > 0) & (c_r > 0)
+    in_l = run_start_broadcast(new_run, group_start) & is_l
+    gid = torch.cumsum(group_start.to(torch.int64), 0) - 1  # constant per run
+    ng = group_start.sum()
+    # gid never decreases over sorted space: a row of a run that is no group
+    # adds zero to the group before it (the JAX package's "sorted" segment
+    # sums), never to one shared discard slot, whose atomics would serialize
+    # on the card; rows ahead of the first group add zero to slot 0
+    tgt = gid.clamp(min=0)
+
+    def seg_add(x):
+        return torch.zeros(cap + 1, dtype=x.dtype, device=device).index_add_(0, tgt, x)[:cap]
+
+    sums = seg_add(torch.where(in_l, sval, torch.zeros_like(sval)))
+    # each group's start position: starts to their slots, every other row
+    # to a distinct slot past them (no two writes meet)
+    pos = torch.arange(n, dtype=torch.int64, device=device)
+    gpos = torch.empty(cap + n, dtype=torch.int64, device=device).scatter_(
+        0, torch.where(group_start, gid, cap + pos), pos)[:cap]
+    live = pos[:cap] < ng
+    gpos = torch.where(live, gpos, 0)
+    cntr = torch.where(live, c_r.index_select(0, gpos), 0)
+    cntl = torch.where(live, c_l.index_select(0, gpos), 0)
+    s = sums * cntr.to(sums.dtype)
+
+    nj = _wrap_i32((cntl * cntr).sum())
+    nj_f = (cntl.to(torch.float32) * cntr.to(torch.float32)).sum()
+    wrapped = (nj < 0) | (nj_f > 2.0**31)
+    n_join = torch.where(wrapped, torch.full_like(nj, 2**31 - 1), nj).to(torch.int32)
+    # the group's first left row follows its rights in sorted space
+    reps = torch.where(live, spay.index_select(0, gpos + cntr) - nr, nl)
+    if vv is None:
+        vcnt = cntl.to(torch.int32)
+    else:
+        lrow = (spay - nr).clamp(0, max(nl - 1, 0))
+        vok = in_l & vv.index_select(0, lrow) if nl else in_l
+        vcnt = seg_add(vok.to(torch.int32))
+    return s, ng, n_join, reps, vcnt

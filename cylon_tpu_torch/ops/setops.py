@@ -12,8 +12,10 @@ package sorts by a sentinel key. Each emit returns (idx [n] int64 with -1
 padding, count as a device scalar), so a caller reads every shard's count
 in one host sync.
 
-The JAX package's sorted-input fast paths need ordering descriptors
-(ROADMAP.md A4) and give the same output; they are not ported.
+Over input already sorted by its keys (an ordering descriptor proves it,
+``Table.unique`` / ``Table.union`` and the rest decide), the ``*_sorted``
+emits run-detect, and probe the other side with a binary search, in place
+of the shared sort: the same rows in the same order.
 """
 from __future__ import annotations
 
@@ -24,9 +26,13 @@ import torch
 from ..dtypes import promote_key_dtypes
 from .sort import (
     KeyCol,
+    _sortable,
     canonical_row_lanes,
     lane_runs_differ,
+    lanes_differ,
     lexsort_indices,
+    orderable_key,
+    rows_differ,
     run_count_from,
     sorted_runs,
 )
@@ -139,3 +145,62 @@ def setop_emit(l_cols: Sequence[KeyCol], r_cols: Sequence[KeyCol], want_in_r: bo
     r_in_run = run_count_from(new_run, ~is_l)
     hit = r_in_run > 0 if want_in_r else r_in_run == 0
     return _emit_by_pay(new_run & is_l & hit, spay)
+
+
+# ---------------------------------------------------------------------------
+# sorted-input fast paths (the JAX package's *_emit_sorted): the caller
+# proves the order through the table's ordering descriptor
+# ---------------------------------------------------------------------------
+def unique_emit_sorted(key_cols: Sequence[KeyCol], keep: str = "first"):
+    """:func:`unique_emit` over rows already canonically ordered by the
+    key columns: run starts (keep "first") or run ends ("last") in row
+    order, with no sort."""
+    n = key_cols[0][0].shape[0]
+    diff = rows_differ(key_cols)
+    if keep == "last" and n:
+        diff = torch.cat([diff[1:], diff.new_ones(1)])
+    return compact_mask(diff, n)
+
+
+def _promoted_lanes(ld: torch.Tensor, rd: torch.Tensor):
+    """Orderable lanes of a mask-free column pair in one dtype, as
+    tensors whose signed order is the lanes' order (for searchsorted)."""
+    if ld.dtype != rd.dtype:
+        common = promote_key_dtypes(ld.dtype, rd.dtype)
+        ld, rd = ld.to(common), rd.to(common)
+    return _sortable(orderable_key(ld)), _sortable(orderable_key(rd))
+
+
+def _member_sorted(lane_q: torch.Tensor, lane_s: torch.Tensor) -> torch.Tensor:
+    """Whether each query value is in the SORTED ``lane_s``."""
+    if lane_s.shape[0] == 0:
+        return torch.zeros_like(lane_q, dtype=torch.bool)
+    pos = torch.searchsorted(lane_s, lane_q)
+    hit = lane_s.index_select(0, pos.clamp(max=lane_s.shape[0] - 1))
+    return (pos < lane_s.shape[0]) & ~lanes_differ(hit, lane_q)
+
+
+def _first_occurrence(lane: torch.Tensor) -> torch.Tensor:
+    first = torch.ones_like(lane, dtype=torch.bool)
+    first[1:] = lanes_differ(lane[1:], lane[:-1])
+    return first
+
+
+def setop_emit_sorted(l_cols: Sequence[KeyCol], r_cols: Sequence[KeyCol], want_in_r: bool):
+    """:func:`setop_emit` for one mask-free column, both sides sorted
+    ascending: the left's run starts, kept where a binary search finds
+    (intersect) or misses (subtract) them in the right."""
+    llane, rlane = _promoted_lanes(l_cols[0][0], r_cols[0][0])
+    found = _member_sorted(llane, rlane)
+    hit = found if want_in_r else ~found
+    return compact_mask(_first_occurrence(llane) & hit, llane.shape[0])
+
+
+def union_emit_sorted(l_cols: Sequence[KeyCol], r_cols: Sequence[KeyCol]):
+    """:func:`union_emit` for one mask-free column, both sides sorted
+    ascending: every left run start, and the right run starts the left
+    lacks: first occurrences in [left ++ right]."""
+    llane, rlane = _promoted_lanes(l_cols[0][0], r_cols[0][0])
+    keep = torch.cat([_first_occurrence(llane), _first_occurrence(rlane) & ~_member_sorted(rlane, llane)])
+    idx, total = compact_mask(keep, keep.shape[0])
+    return idx, total, concat_two_tables(l_cols, r_cols)

@@ -204,15 +204,44 @@ def sentinel_compact(order: torch.Tensor, payloads: Sequence[torch.Tensor]) -> l
     return [torch.empty_like(p).scatter_(0, dest, p) for p in payloads]
 
 
+def rows_differ(key_cols: Sequence[KeyCol]) -> torch.Tensor:
+    """Row-differs-from-predecessor over key columns in row order (row 0
+    True): a key's orderable lane differs, or one of the two rows is null
+    and the other not (null == null)."""
+    n = key_cols[0][0].shape[0]
+    device = key_cols[0][0].device
+    diff = torch.zeros(n, dtype=torch.bool, device=device)
+    for data, valid in key_cols:
+        lane = orderable_key(data)
+        d = lanes_differ(lane[1:], lane[:-1])
+        if valid is not None:
+            v, vprev = valid[1:], valid[:-1]
+            d = torch.where(v & vprev, d, v != vprev)
+        diff[1:] |= d
+    if n:
+        diff[0] = True
+    return diff
+
+
+def prefix_run_lane(key_cols: Sequence[KeyCol]) -> torch.Tensor:
+    """Run ids (int32, from 0) of rows ALREADY sorted by mask-free key
+    columns: one lane that orders the rows as those keys do (the JAX
+    package's ``prefix_run_lane``)."""
+    return torch.cumsum(rows_differ(key_cols).to(torch.int32), 0, dtype=torch.int32) - 1
+
+
 def lexsort_rows_payload(
     key_cols: Sequence[KeyCol],
     n: int,
     payloads: Sequence[torch.Tensor] = (),
     ascending: Optional[Sequence[bool]] = None,
     nulls_last: bool = True,
+    prefix_lane: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, list]:
     """Stable argsort of rows by several key columns, nulls per column
-    first or last; returns (order [n] int32, payloads gathered by it)."""
+    first or last; returns (order [n] int32, payloads gathered by it).
+    ``prefix_lane`` (a :func:`prefix_run_lane`) is the most significant
+    key, ahead of ``key_cols``."""
     if ascending is None:
         ascending = [True] * len(key_cols)
     lanes, hints = [], []  # least-significant first
@@ -222,6 +251,9 @@ def lexsort_rows_payload(
         if valid is not None:
             lanes.append(row_class(valid, n, data.device, nulls_last))
             hints.append(_radix.bias_hint(1, 2))  # {-1, 0, 1}
+    if prefix_lane is not None:
+        lanes.append(prefix_lane)
+        hints.append(_radix.bound_hint(n))
     device = key_cols[0][0].device if key_cols else torch.device("cpu")
     if not lanes:
         perm = torch.arange(n, dtype=torch.int32, device=device)

@@ -1,0 +1,198 @@
+"""Lowering: optimized plan -> calls into the eager Table ops (counterpart of
+cylon_tpu/plan/lower.py).
+
+``build_executor`` compiles a plan into a closure ``fn(tables) -> Table``
+(``tables`` = the Scan inputs in ordinal order). The closure is what the
+plan cache (``engine.plan_executable``) stores: collecting a plan of the
+same shape again skips optimize and lower.
+
+Join-family nodes own their input Shuffles: a join unifies the key
+dictionaries and promotes the key dtypes BEFORE hashing (as
+``Table.distributed_join`` does), so a planner Shuffle under a Join is
+peeled off the child and replayed inside the join recipe, both sides in one
+shuffle call.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Sequence
+
+import numpy as np
+
+from .expr import filter_mask
+from .nodes import (
+    Filter,
+    FusedJoinGroupBySum,
+    GroupBy,
+    Join,
+    Limit,
+    Node,
+    Project,
+    Scan,
+    Shuffle,
+    Sort,
+    Union,
+)
+
+
+def scan_tables(root: Node) -> list:
+    """Assign Scan ordinals in DFS order (a shared scan keeps one ordinal)
+    and return their bound tables in that order. Called before
+    fingerprinting."""
+    tables: list = []
+    seen: Dict[int, int] = {}
+
+    def walk(n: Node) -> None:
+        if isinstance(n, Scan):
+            if id(n) not in seen:
+                seen[id(n)] = len(tables)
+                tables.append(n.table)
+            n.ordinal = seen[id(n)]
+            return
+        for c in n.children:
+            walk(c)
+
+    walk(root)
+    return tables
+
+
+def detach_scans(root: Node) -> Node:
+    """Copy the plan with table-less Scan stubs (frozen ordinals, schema and
+    order descriptor). The plan cache stores executors built over the
+    detached plan: live Scans belong to the user's LazyFrame, and their
+    tables would otherwise stay alive as long as the context."""
+    memo: Dict[int, Node] = {}
+
+    def walk(n: Node) -> Node:
+        got = memo.get(id(n))
+        if got is not None:
+            return got
+        if isinstance(n, Scan):
+            stub = Scan.__new__(Scan)
+            stub.table = None
+            stub.ordinal = n.ordinal
+            stub.schema = n.schema
+            stub.table_ordering = n.ordering()  # frozen compile-time claim
+            out: Node = stub
+        elif n.children:
+            out = n.with_children([walk(c) for c in n.children])
+        else:
+            out = n
+        memo[id(n)] = out
+        return out
+
+    return walk(root)
+
+
+def _peel_shuffle(child: Node, keys: Sequence[str]):
+    """(grandchild, needs_shuffle) for a join-family input: a planner hash
+    Shuffle on exactly the side's keys is replayed inside the join recipe
+    (after the dictionary unification and key promotion)."""
+    if isinstance(child, Shuffle) and child.kind == "hash" and set(child.keys) == set(keys):
+        return child.children[0], True
+    return child, False
+
+
+def _prepare_join_inputs(lt, rt, l_keys, r_keys, l_shuf: bool, r_shuf: bool):
+    """The join-input invariant in ONE place (Join and the fused node):
+    unify dictionaries and promote key dtypes BEFORE hashing, then replay
+    the peeled planner Shuffles; when both sides move, one engine call
+    shuffles the pair (``table._shuffle_pair``), as the eager join does."""
+    from ..table import _promote_key_pair, _shuffle_pair, _unify_dict_pair
+
+    lt, rt = _unify_dict_pair(lt, rt, l_keys, r_keys)
+    lt, rt = _promote_key_pair(lt, rt, l_keys, r_keys)
+    if lt.world_size > 1:
+        if l_shuf and r_shuf:
+            lt, rt = _shuffle_pair(lt, l_keys, rt, r_keys)
+        elif l_shuf:
+            lt = lt._shuffle_impl(l_keys)
+        elif r_shuf:
+            rt = rt._shuffle_impl(r_keys)
+    return lt, rt
+
+
+def build_executor(root: Node) -> Callable[[List], "object"]:
+    """Compile the plan into ``fn(tables) -> Table``. A node shared by two
+    parents runs once."""
+
+    def run(tables: List):
+        memo: Dict[int, object] = {}
+
+        def ex(node: Node):
+            got = memo.get(id(node))
+            if got is not None:
+                return got
+            out = _lower_one(node, ex, tables)
+            memo[id(node)] = out
+            return out
+
+        return ex(root)
+
+    return run
+
+
+def _lower_one(node: Node, ex, tables):
+    from ..table import _shuffle_many, _ShuffleSpec
+
+    if isinstance(node, Scan):
+        return tables[node.ordinal]
+    if isinstance(node, Project):
+        return ex(node.children[0]).project(list(node.cols))
+    if isinstance(node, Filter):
+        t = ex(node.children[0])
+        return t.filter(t._per_shard(lambda s: filter_mask(node.expr, t._shards[s])))
+    if isinstance(node, Sort):
+        return ex(node.children[0]).sort(list(node.by), list(node.ascending))
+    if isinstance(node, Shuffle):
+        t = ex(node.children[0])
+        if t.world_size == 1:
+            return t
+        if node.kind == "hash":
+            return t._shuffle_impl(list(node.keys))
+        return _shuffle_many([_ShuffleSpec(t, (node.keys[0],), kind="range", asc0=node.asc0)])[0]
+    if isinstance(node, GroupBy):
+        t = ex(node.children[0])
+        spec: Dict[str, list] = {}
+        for c, op in node.aggs:
+            spec.setdefault(c, []).append(op)
+        res = t.groupby(list(node.keys), spec)
+        # several ops of one column group in dict order; restore plan order
+        if res.column_names != node.names:
+            res = res.project(node.names)
+        return res
+    if isinstance(node, Join):
+        lchild, l_shuf = _peel_shuffle(node.children[0], node.l_on)
+        rchild, r_shuf = _peel_shuffle(node.children[1], node.r_on)
+        lt, rt = ex(lchild), ex(rchild)
+        # rename both sides to the build-time output names first, so that
+        # pruning can never change the suffixing (nodes.Join docstring)
+        lt = lt.rename({n: node.l_rename[n] for n in lt.column_names})
+        rt = rt.rename({n: node.r_rename[n] for n in rt.column_names})
+        l_keys, r_keys = list(node.l_key_out), list(node.r_key_out)
+        lt, rt = _prepare_join_inputs(lt, rt, l_keys, r_keys, l_shuf, r_shuf)
+        return lt.join(
+            rt, left_on=l_keys, right_on=r_keys, how=node.how, suffixes=node.suffixes,
+            # order_reuse: the key-order emit, whose descriptor lets the
+            # groupby above run-detect
+            emit_order="key" if node.emit_key_order else "left",
+        )
+    if isinstance(node, FusedJoinGroupBySum):
+        lchild, l_shuf = _peel_shuffle(node.children[0], node.l_on)
+        rchild, r_shuf = _peel_shuffle(node.children[1], node.r_on)
+        l_on, r_on = list(node.l_on), list(node.r_on)
+        lt, rt = _prepare_join_inputs(ex(lchild), ex(rchild), l_on, r_on, l_shuf, r_shuf)
+        # the kernel emits the keys in join-pair order; name them so that
+        # projecting to node.names restores the groupby key order
+        pair_names = [None] * len(l_on)
+        for name, ki in zip(node.out_keys, node.key_order):
+            pair_names[ki] = name
+        res = lt._join_sum_pushdown(rt, l_on, r_on, node.val_col, pair_names, node.out_val)
+        if res.column_names != node.names:
+            res = res.project(node.names)
+        return res
+    if isinstance(node, Union):
+        return ex(node.children[0]).union(ex(node.children[1]))
+    if isinstance(node, Limit):
+        t = ex(node.children[0])
+        return t.take(np.arange(min(node.n, t.row_count), dtype=np.int64))
+    raise TypeError(f"no lowering for plan node {type(node).__name__}")

@@ -1,0 +1,386 @@
+"""The rule-based plan rewriter (counterpart of cylon_tpu/plan/rules.py).
+
+``optimize(root, world_size)`` runs six passes and returns the rewritten
+plan plus the ordered list of rule firings (surfaced by ``.explain()`` and
+counted into the tracing registry by ``collect()``):
+
+1. ``filter_pushdown`` — move Filters below Projects/Sorts/Unions, below
+   the covering side of a Join, and below a GroupBy when the predicate
+   only reads group keys (the later physicalize pass then inserts shuffles
+   ABOVE the pushed filters, so filters also shrink every exchange);
+2. physicalize — insert the Shuffle nodes distribution requires (hash
+   shuffles under joins/groupbys/unions, a range shuffle under a global
+   sort); mesh of 1 inserts nothing;
+3. ``shuffle_elimination`` — drop a Shuffle whose input is already placed
+   right: a groupby only needs its keys CO-LOCATED (a subset placement
+   suffices), while a join/union input must be placed by EXACTLY the same
+   ordered key tuple the other side will hash (plus dtype-identical key
+   pairs) — a subset placement co-locates rows but routes them to
+   different shards than the fresh hash of the full tuple;
+4. ``fused_join_groupby`` — collapse GroupBy(sum)-over-inner-Join on the
+   join key into :class:`~cylon_tpu_torch.plan.nodes.FusedJoinGroupBySum`
+   (lowers to ``ops.join.join_sum_by_key_pushdown``);
+5. ``order_reuse`` — propagate order properties (``Node.ordering()``, the
+   sortedness analog of partitioning): drop a Sort whose input already has
+   the exact requested order identity-exactly, and rewrite a
+   GroupBy-over-Join on the join keys (the q3 shape the fused rule does
+   not take — non-sum/non-f32 aggregates, multi-agg, left joins) so the
+   join emits GROUPED-KEY order (``Join(emit_key_order=True)`` lowers to
+   ``emit_order='key'``, same kernel cost) and the groupby's factorize
+   lexsort elides into a run-detect;
+6. ``projection_pushdown`` — prune unused columns down to the scans (and
+   below the shuffles, where narrower rows mean fewer exchanged lanes).
+
+The JAX package runs a ``semi_filter`` annotation between 5 and 6; it needs
+the semi-join sketch (ROADMAP.md A6), so the port's plans are the JAX
+package's under ``CYLON_TPU_NO_SEMI_FILTER=1``. Every rule reads only the
+plan and host-side table properties (schemas, order descriptors), never a
+device value, so every rank of a distributed context optimizes alike.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence, Set, Tuple
+
+import numpy as np
+
+from .nodes import (
+    Filter,
+    FusedJoinGroupBySum,
+    GroupBy,
+    Join,
+    Limit,
+    Node,
+    Project,
+    Scan,
+    Shuffle,
+    Sort,
+    Union,
+    _covers,
+    _placed_by,
+)
+
+FILTER_PUSHDOWN = "filter_pushdown"
+SHUFFLE_ELIM = "shuffle_elimination"
+FUSED_JOIN_GROUPBY = "fused_join_groupby"
+ORDER_REUSE = "order_reuse"
+PROJECTION_PUSHDOWN = "projection_pushdown"
+
+
+def optimize(root: Node, world_size: int) -> Tuple[Node, List[str]]:
+    fired: List[str] = []
+    root = _push_filters(root, fired)
+    if world_size > 1:
+        root = _physicalize(root)
+    root = _eliminate_shuffles(root, fired)
+    root = _fuse_join_groupby(root, fired)
+    root = _reuse_order(root, fired)
+    root = _prune_columns(root, fired)
+    return root, fired
+
+
+# ----------------------------------------------------------------------
+# 1. filter pushdown
+# ----------------------------------------------------------------------
+def _push_filters(node: Node, fired: List[str]) -> Node:
+    node = node.with_children([_push_filters(c, fired) for c in node.children])
+    if not isinstance(node, Filter):
+        return node
+    child = node.children[0]
+    expr = node.expr
+    cols = expr.columns()
+    if isinstance(child, (Project, Sort)):
+        # row filters commute with column subsets and per-shard sorts
+        # (Project never renames, so the expr passes unchanged). No Shuffle
+        # case: this pass runs BEFORE physicalize, so shuffles don't exist
+        # yet — filters end up below them because physicalize inserts each
+        # shuffle directly under its consumer, above the pushed filter.
+        fired.append(FILTER_PUSHDOWN)
+        inner = _push_filters(Filter(child.children[0], expr), fired)
+        return child.with_children([inner])
+    if isinstance(child, Union):
+        # distinct(l ∪ r) filtered == distinct(filter(l) ∪ filter(r))
+        fired.append(FILTER_PUSHDOWN)
+        kids = [_push_filters(Filter(c, expr), fired) for c in child.children]
+        return child.with_children(kids)
+    if isinstance(child, GroupBy) and cols <= set(child.keys):
+        # a predicate over group keys holds uniformly within each group
+        fired.append(FILTER_PUSHDOWN)
+        inner = _push_filters(Filter(child.children[0], expr), fired)
+        return child.with_children([inner])
+    if isinstance(child, Join):
+        l_out = set(child.l_rename.values())
+        r_out = set(child.r_rename.values())
+        inv_l = {v: k for k, v in child.l_rename.items()}
+        inv_r = {v: k for k, v in child.r_rename.items()}
+        # pushing below a side is only sound when that side's rows survive
+        # the join unconditionally filtered (not resurrected as outer nulls)
+        if cols <= l_out and child.how in ("inner", "left"):
+            fired.append(FILTER_PUSHDOWN)
+            left = _push_filters(
+                Filter(child.children[0], expr.rename(inv_l)), fired
+            )
+            return child.with_children([left, child.children[1]])
+        if cols <= r_out and child.how in ("inner", "right"):
+            fired.append(FILTER_PUSHDOWN)
+            right = _push_filters(
+                Filter(child.children[1], expr.rename(inv_r)), fired
+            )
+            return child.with_children([child.children[0], right])
+    return node
+
+
+# ----------------------------------------------------------------------
+# 2. physicalize: insert the shuffles distribution requires
+# ----------------------------------------------------------------------
+def _physicalize(node: Node) -> Node:
+    kids = [_physicalize(c) for c in node.children]
+    if isinstance(node, Join):
+        kids = [
+            Shuffle(kids[0], node.l_on, "hash"),
+            Shuffle(kids[1], node.r_on, "hash"),
+        ]
+    elif isinstance(node, GroupBy):
+        kids = [Shuffle(kids[0], node.keys, "hash")]
+    elif isinstance(node, Union):
+        kids = [Shuffle(k, k.names, "hash") for k in kids]
+    elif isinstance(node, Sort):
+        # sample-sort recipe: range-partition on the primary key, then the
+        # local sort makes the global order (Table.distributed_sort)
+        kids = [Shuffle(kids[0], (node.by[0],), "range", node.ascending[0])]
+    return node.with_children(kids) if node.children else node
+
+
+# ----------------------------------------------------------------------
+# 3. redundant-shuffle elimination
+# ----------------------------------------------------------------------
+def _dtypes_match(a: Node, a_cols: Sequence[str], b: Node, b_cols: Sequence[str]) -> bool:
+    """Both sides of a two-table op will hash each key pair over the same
+    physical dtype (no runtime promotion), so an existing partitioning on
+    one side stays aligned with a fresh shuffle on the other."""
+    try:
+        return all(
+            a.dtype_of(x) == b.dtype_of(y) for x, y in zip(a_cols, b_cols)
+        )
+    except KeyError:
+        return False
+
+
+def _elide(child: Node, fired: List[str], exact: bool) -> Node:
+    """Drop ``child`` if it is a hash Shuffle whose input is already placed
+    correctly. ``exact`` demands the SAME ordered placement tuple (two-table
+    consumers: both sides must agree on the placement function); single-table
+    consumers only need co-location, so a subset placement suffices."""
+    if not (isinstance(child, Shuffle) and child.kind == "hash"):
+        return child
+    part = child.children[0].partitioning()
+    ok = (
+        _placed_by(part, child.keys) if exact
+        else _covers(part, set(child.keys))
+    )
+    if ok:
+        fired.append(SHUFFLE_ELIM)
+        return child.children[0]
+    return child
+
+
+def _eliminate_shuffles(node: Node, fired: List[str]) -> Node:
+    kids = [_eliminate_shuffles(c, fired) for c in node.children]
+    node = node.with_children(kids) if node.children else node
+    if isinstance(node, (GroupBy,)):
+        return node.with_children([_elide(node.children[0], fired, False)])
+    if isinstance(node, Join):
+        left, right = node.children
+        if _dtypes_match(left, node.l_on, right, node.r_on):
+            return node.with_children(
+                [_elide(left, fired, True), _elide(right, fired, True)]
+            )
+        return node
+    if isinstance(node, Union):
+        left, right = node.children
+        if _dtypes_match(left, left.names, right, right.names):
+            return node.with_children(
+                [_elide(left, fired, True), _elide(right, fired, True)]
+            )
+        return node
+    return node
+
+
+# ----------------------------------------------------------------------
+# 4. fused join -> groupby-SUM pushdown
+# ----------------------------------------------------------------------
+def _fuse_join_groupby(node: Node, fired: List[str]) -> Node:
+    kids = [_fuse_join_groupby(c, fired) for c in node.children]
+    node = node.with_children(kids) if node.children else node
+    if not isinstance(node, GroupBy):
+        return node
+    join = node.children[0]
+    if not isinstance(join, Join) or join.how != "inner":
+        return node
+    if len(node.aggs) != 1 or node.aggs[0][1] != "sum":
+        return node
+    val_out, _ = node.aggs[0]
+    inv_l = {v: k for k, v in join.l_rename.items()}
+    if val_out not in inv_l:
+        return node  # the kernel sums a LEFT column (c_r * sum(v_l))
+    val_src = inv_l[val_out]
+    if val_src in join.l_on:
+        return node  # summing the key itself: keep the generic path
+    dt = np.dtype(join.children[0].dtype_of(val_src)[1])
+    if dt.kind != "f" or dt.itemsize > 4:
+        # the pushdown accumulates in the value dtype; ints need the wide
+        # accumulator of the generic groupby, and float64 stays on the
+        # generic path as in the JAX package (same plans in both)
+        return node
+    # group keys must be exactly the join keys, each pair once (either
+    # side's name: inner-join key values agree rowwise)
+    l_pos = {n: i for i, n in enumerate(join.l_key_out)}
+    r_pos = {n: i for i, n in enumerate(join.r_key_out)}
+    key_order = []
+    for k in node.keys:
+        if k in l_pos:
+            key_order.append(l_pos[k])
+        elif k in r_pos:
+            key_order.append(r_pos[k])
+        else:
+            return node
+    if sorted(key_order) != list(range(len(join.l_on))):
+        return node
+    fired.append(FUSED_JOIN_GROUPBY)
+    val_dtype = join.children[0].dtype_of(val_src)
+    return FusedJoinGroupBySum(
+        join.children[0], join.children[1], join.l_on, join.r_on, val_src,
+        node.keys, key_order, f"{val_out}_sum", val_dtype,
+    )
+
+
+# ----------------------------------------------------------------------
+# 5. order-property propagation / reuse
+# ----------------------------------------------------------------------
+def _reuse_order(node: Node, fired: List[str]) -> Node:
+    """Consume ``Node.ordering()`` claims (runs AFTER shuffle elimination
+    and the fused pushdown, so a planner Shuffle still standing between a
+    producer and consumer correctly blocks reuse — shuffles claim no
+    order)."""
+    kids = [_reuse_order(c, fired) for c in node.children]
+    node = node.with_children(kids) if node.children else node
+    if isinstance(node, Sort):
+        from ..ordering import matches_sort_spec
+
+        child = node.children[0]
+        o = child.ordering()
+        if matches_sort_spec(o, node.by, node.ascending) == len(node.by):
+            # identity-exact: the input IS the sort's output
+            fired.append(ORDER_REUSE)
+            return child
+        if (
+            isinstance(child, Shuffle) and child.kind == "range"
+            and child.keys == (node.by[0],)
+            and child.asc0 == node.ascending[0]
+        ):
+            # the physicalized sample-sort pair: when the shuffle's input
+            # already holds the requested order at GLOBAL scope, both the
+            # range re-partition and the local sort are redundant (the
+            # eager distributed_sort no-op, lifted into the plan)
+            o2 = child.children[0].ordering()
+            if (
+                o2 is not None and o2.scope == "global"
+                and matches_sort_spec(o2, node.by, node.ascending)
+                == len(node.by)
+            ):
+                fired.append(ORDER_REUSE)
+                return child.children[0]
+        return node
+    if isinstance(node, GroupBy) and not node.sorted_input:
+        from ..ordering import enabled
+
+        join = node.children[0]
+        if (
+            enabled()  # the escape hatch gates this rewrite too
+            and isinstance(join, Join)
+            and join.how in ("inner", "left")
+            and not join.emit_key_order
+            and 0 < len(node.keys) <= len(join.l_on)
+            and tuple(node.keys) == join.l_key_out[: len(node.keys)]
+        ):
+            # grouping by (a prefix of) the join's left-side key outputs:
+            # flip the join to the key-order emit (same kernel cost — only
+            # the probe's compaction key changes) and annotate the groupby;
+            # the eager gate run-detects off the emitted descriptor
+            fired.append(ORDER_REUSE)
+            j2 = Join(
+                join.children[0], join.children[1], join.l_on, join.r_on,
+                join.how, join.suffixes,
+                _renames=(join.l_rename, join.r_rename),
+                emit_key_order=True,
+            )
+            return GroupBy(j2, node.keys, node.aggs, sorted_input=True)
+    return node
+
+
+# ----------------------------------------------------------------------
+# 6. projection pushdown (column pruning)
+# ----------------------------------------------------------------------
+def _narrowed(node: Node, req: Set[str], fired: List[str]) -> Node:
+    """Recursively prune, then guarantee the output schema is exactly the
+    requested columns (node-schema order)."""
+    out = _prune(node, req, fired)
+    keep = [n for n in out.names if n in req]
+    if keep != out.names:
+        fired.append(PROJECTION_PUSHDOWN)
+        out = Project(out, keep)
+    return out
+
+
+def _prune(node: Node, req: Set[str], fired: List[str]) -> Node:
+    """Prune columns not needed upstream. The result's schema may still be
+    wider than ``req`` (a GroupBy always emits keys + aggregates); the root
+    caller re-narrows where exactness matters."""
+    if isinstance(node, Scan):
+        keep = [n for n in node.names if n in req]
+        if keep != node.names:
+            fired.append(PROJECTION_PUSHDOWN)
+            return Project(node, keep)
+        return node
+    if isinstance(node, Project):
+        keep = [c for c in node.cols if c in req]
+        child = _prune(node.children[0], set(keep), fired)
+        if keep != list(node.cols):
+            fired.append(PROJECTION_PUSHDOWN)
+        if child.names == keep:
+            return child
+        return Project(child, keep)
+    if isinstance(node, Filter):
+        child = _prune(node.children[0], req | node.expr.columns(), fired)
+        return node.with_children([child])
+    if isinstance(node, (Shuffle,)):
+        child = _prune(node.children[0], req | set(node.keys), fired)
+        return node.with_children([child])
+    if isinstance(node, Sort):
+        child = _prune(node.children[0], req | set(node.by), fired)
+        return node.with_children([child])
+    if isinstance(node, Limit):
+        child = _prune(node.children[0], req, fired)
+        return node.with_children([child])
+    if isinstance(node, GroupBy):
+        need = set(node.keys) | {c for c, _ in node.aggs}
+        child = _prune(node.children[0], need, fired)
+        return node.with_children([child])
+    if isinstance(node, Join):
+        l_req = {s for s, o in node.l_rename.items() if o in req} | set(node.l_on)
+        r_req = {s for s, o in node.r_rename.items() if o in req} | set(node.r_on)
+        left = _prune(node.children[0], l_req, fired)
+        right = _prune(node.children[1], r_req, fired)
+        return node.with_children([left, right])
+    if isinstance(node, FusedJoinGroupBySum):
+        left = _prune(node.children[0], set(node.l_on) | {node.val_col}, fired)
+        right = _prune(node.children[1], set(node.r_on), fired)
+        return node.with_children([left, right])
+    if isinstance(node, Union):
+        # distinct-union semantics depend on EVERY column: no pruning below
+        return node
+    return node.with_children([_prune(c, req, fired) for c in node.children]) \
+        if node.children else node
+
+
+def _prune_columns(root: Node, fired: List[str]) -> Node:
+    return _narrowed(root, set(root.names), fired)

@@ -21,6 +21,14 @@ the world is one device, as there. Ops whose output is a subset of the
 input rows (filter, set ops, unique) read every shard's row count in one
 host sync.
 
+A table may carry an order descriptor (:mod:`cylon_tpu_torch.ordering`):
+``sort``, ``distributed_sort``, ``groupby``, the key-order join and the
+fused join-sum set one; row subsets and renames carry it; anything that
+reroutes or rewrites rows (a shuffle, an in-place change) drops it. ``sort``,
+``groupby``, ``unique``, the set ops and ``join`` read it to skip sorts, as
+the JAX package's do, and count each fast path (``ordering.*`` in
+``utils/tracing``). ``lazy()`` starts a query plan (``plan/``).
+
 A table may name one of its columns its index (``set_index``; None is the
 RangeIndex, the global row number): ``loc`` looks rows up by its values,
 ``iloc`` by global row number, and ``concat(axis=1)`` aligns on it. Every
@@ -36,6 +44,7 @@ from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
+from . import ordering as _ord
 from .column import Column, unify_dictionaries
 from .context import CylonContext
 from .dtypes import (
@@ -50,9 +59,11 @@ from .ops import pk_join as _pk
 from .ops import setops as _s
 from .ops.gather import KeyCol, lane_plan, pack_cols, pack_gather
 from .ops.hash import hash_dictionary_host
-from .ops.sort import lexsort_rows_payload, orderable_key
+from .ops.sort import lexsort_rows_payload, orderable_key, prefix_run_lane
 from .ops.partition import _saturating_int
+from .ordering import Ordering
 from .parallel import shuffle as _sh
+from .utils.tracing import bump
 
 Encoded = Tuple[np.ndarray, Optional[np.ndarray], Any, Optional[np.ndarray]]
 Shard = "OrderedDict[str, Column]"
@@ -198,6 +209,8 @@ class Table:
         # the index column's name; None is the RangeIndex (global row number)
         self.index_name = index_name if index_name in self._ref else None
         self._built_index = None  # (kind, index name) -> the index build_index made
+        # the order descriptor: None unless an op attaches one (ordering.py)
+        self._ordering: Optional[Ordering] = None
 
     def _per_shard(self, fn) -> List[Any]:
         return _per_shard(self.ctx, fn)
@@ -332,6 +345,24 @@ class Table:
         return self.ctx.world_size
 
     @property
+    def ordering(self) -> Optional[Ordering]:
+        """The table's order descriptor or None (:mod:`cylon_tpu_torch.ordering`)."""
+        return self._ordering
+
+    def with_ordering(self, ordering: Optional[Ordering]) -> "Table":
+        """A handle over the same shards declaring ``ordering``, checked
+        against the schema; the caller vouches for the order."""
+        t = self._with_shards(self._shards)
+        t._ordering = _ord.validate(ordering, self.column_names)
+        return t
+
+    def _attach_ordering(self, ordering: Optional[Ordering]) -> "Table":
+        """Set ``ordering`` if its keys are still columns, else leave none."""
+        if ordering is not None and all(k in self._ref for k in ordering.keys):
+            self._ordering = ordering
+        return self
+
+    @property
     def column_names(self) -> List[str]:
         return list(self._ref.keys())
 
@@ -402,19 +433,25 @@ class Table:
             new_names = [mapping.get(n, n) for n in self.column_names]
         else:
             new_names = list(mapping)
-        return self._with_shards(
+        out = self._with_shards(
             self._map_shards(lambda sh: OrderedDict(zip(new_names, sh.values())))
+        )
+        return out._attach_ordering(
+            _ord.rename(self._ordering, dict(zip(self.column_names, new_names)))
         )
 
     def project(self, columns: Sequence[Union[str, int]]) -> "Table":
         names = self._resolve_cols(columns)
-        return self._with_shards(self._map_shards(lambda sh: OrderedDict((n, sh[n]) for n in names)))
+        out = self._with_shards(self._map_shards(lambda sh: OrderedDict((n, sh[n]) for n in names)))
+        # rows untouched: the order survives on the longest key prefix kept
+        return out._attach_ordering(_ord.truncate_to(self._ordering, names))
 
     def drop(self, columns: Sequence[str]) -> "Table":
         gone = set(columns)
-        return self._with_shards(self._map_shards(
+        out = self._with_shards(self._map_shards(
             lambda sh: OrderedDict((n, c) for n, c in sh.items() if n not in gone)
         ))
+        return out._attach_ordering(_ord.truncate_to(self._ordering, out.column_names))
 
     def add_prefix(self, prefix: str) -> "Table":
         """Prefix every column name; a set index follows its column."""
@@ -550,7 +587,7 @@ class Table:
         masks = self._shard_masks(mask)
         return self._emit(self._per_shard(
             lambda s: (self._flat_cols(s), *_s.compact_mask(masks[s], masks[s].shape[0]))
-        ))
+        ))._attach_ordering(self._ordering)  # a row subset in order
 
     def select(self, predicate) -> "Table":
         """Keep the rows where ``predicate`` holds; it maps each shard's dict
@@ -789,6 +826,14 @@ class Table:
         left-row order (pandas merge order), left columns then right
         columns, suffixes on name collisions.
 
+        ``emit_order='key'`` (INNER / LEFT, not with 'pallas_pk') emits the
+        rows grouped by the join key straight out of the probe's merged
+        sort and stamps that order on the output, so a groupby or sort on
+        the key that follows skips its sort. The left-order emit keeps the
+        left input's order descriptor. A right table whose descriptor
+        proves it sorted by the join key skips the right sort
+        (``ordering.join_presorted_probe``).
+
         ``algorithm``: 'sort' and 'hash' both run the sort join;
         'pallas_pk' runs the bucketed PK-FK probe (kernel B5) for an inner
         join on one null-free integer key of <= 32 bits, speculating that
@@ -810,21 +855,49 @@ class Table:
         if other.ctx.devices != self.ctx.devices:
             raise ValueError("join of tables on different devices")
         l_names, r_names = self._resolve_join_keys(other, on, left_on, right_on)
+        if emit_order == "key" and how not in ("inner", "left"):
+            raise ValueError(
+                "emit_order='key' needs how='inner'/'left' (the unmatched-"
+                "right append of right/outer joins has no key-ordered emit)"
+            )
         if algorithm == "pallas_pk":
             return self._pallas_pk_join(other, l_names, r_names, how, suffixes)
         howi = _j.join_type_id(how)
+        # read before the dictionary remap, which keeps code order
+        r_presorted = _ord.covers_prefix(
+            other._ordering, r_names,
+            need_canonical=not all(other._ref[n].valid is None for n in r_names),
+        )
+        emit_key = emit_order == "key"
         left, right = _unify_dict_pair(self, other, l_names, r_names)
         out_names = _suffix_names(left.column_names, right.column_names, suffixes)
+        l_rename = dict(zip(left.column_names, out_names[: len(left.column_names)]))
+        if emit_key:
+            ordering = Ordering(
+                keys=tuple(l_rename[n] for n in l_names), ascending=(True,) * len(l_names),
+                nulls_last=True, scope="shard", canonical=True,
+                lexsort_exact=all(left._ref[n].valid is None for n in l_names),
+            )
+        elif howi in (_j.INNER, _j.LEFT):
+            # rows repeat in left order: the left descriptor survives
+            ordering = _ord.rename(self._ordering, l_rename)
+        else:
+            ordering = None
+        if r_presorted:
+            bump("ordering.join_presorted_probe")
         probes = self._per_shard(lambda s: _j.spec_probe(
             left._flat_cols(s, l_names), right._flat_cols(s, r_names), right._flat_cols(s), howi,
+            r_presorted=r_presorted, emit_key_order=emit_key,
         ))
         counts = self._gather_counts([probes[s]["total"] for s in self.ctx.local_shards])
         # every rank checks every shard's count, so all raise alike
         _j.count_overflow_check(int(counts.max()))
+        if emit_key:
+            bump("ordering.join_key_order_emit")
         return self._with_shards(self._per_shard(lambda s: _out_shard(
             out_names, left, right, s,
             _j.spec_emit(probes[s], left._flat_cols(s), right._flat_cols(s), howi, int(counts[s])),
-        )), counts)
+        )), counts)._attach_ordering(ordering)
 
     def _pallas_pk_join(
         self, other: "Table", l_names, r_names, how: str, suffixes: Tuple[str, str]
@@ -898,7 +971,7 @@ class Table:
         """The flagship op: hash-shuffle both tables on the join keys, then
         the local join per shard. One device: the local join."""
         if mode == "fused":
-            raise _not_ported("mode='fused'", "queue A, the fused shuffle->join program")
+            raise _not_ported("mode='fused'", "A6, the fused shuffle->join program")
         if mode != "eager":
             raise ValueError(f"unknown join mode {mode!r}")
         if on is not None:
@@ -935,8 +1008,17 @@ class Table:
         sum/count/min/max/mean/var/std/nunique/quantile/median (``ddof``
         for var and std, ``quantile`` for quantile and median).
         ``_sorted`` (internal, :meth:`pipeline_groupby`): the rows are
-        already sorted by the keys, so the groups are their runs."""
+        already sorted by the keys, so the groups are their runs. Where the
+        order descriptor proves the rows canonically ordered by the keys,
+        the groups are their runs too (``ordering.groupby_run_detect``).
+        The groups come out in canonical key order, which the output's
+        descriptor says (not after a caller-vouched ``_sorted``)."""
         key_names = self._resolve_cols(by)
+        provably_sorted = _ord.covers_prefix(self._ordering, key_names)
+        if not _sorted and provably_sorted:
+            _sorted = True
+            bump("ordering.groupby_run_detect")
+        out_canonical = (not _sorted) or provably_sorted
         ids_fn = _g.sorted_group_ids if _sorted else _g.group_ids
         specs: List[Tuple[str, int, str]] = []
         for col, ops in agg.items():
@@ -963,7 +1045,14 @@ class Table:
 
         parts = self._per_shard(group)
         counts = self._gather_counts([parts[s][1] for s in self.ctx.local_shards])
-        return Table(self.ctx, self._per_shard(lambda s: parts[s][0]), counts)
+        res = Table(self.ctx, self._per_shard(lambda s: parts[s][0]), counts)
+        if out_canonical:
+            res._attach_ordering(Ordering(
+                keys=tuple(key_names), ascending=(True,) * len(key_names), nulls_last=True,
+                scope="shard", canonical=True,
+                lexsort_exact=all(self._ref[n].valid is None for n in key_names),
+            ))
+        return res
 
     def distributed_groupby(
         self,
@@ -1039,18 +1128,41 @@ class Table:
     ) -> "Table":
         """Per-shard stable sort by several keys, each ascending or not,
         nulls last (NaN last too, in either direction): one lexsort (kernel
-        K1) and one packed gather a shard."""
+        K1) and one packed gather a shard.
+
+        Where the order descriptor already gives the whole spec exactly,
+        the sort is a new handle over the same shards
+        (``ordering.sort_elided``); where it gives a mask-free key prefix,
+        the prefix becomes one run-id lane and only the rest is sorted
+        (``ordering.sort_suffix``): the same rows in the same order."""
         names = self._resolve_cols(order_by)
         asc = _resolve_asc(ascending, len(names))
+        m = _ord.matches_sort_spec(self._ordering, names, asc)
+        if m == len(names):
+            bump("ordering.sort_elided")
+            # a fresh handle: an in-place change of the result must not
+            # reach this table
+            return self._with_shards(self._shards)._attach_ordering(self._ordering)
+        # run ids agree with the lexsort only over mask-free prefix keys
+        if not (0 < m < len(names) and all(self._ref[n].valid is None for n in names[:m])):
+            m = 0
 
         def sort_shard(s):
+            prefix = prefix_run_lane(self._flat_cols(s, names[:m])) if m else None
             perm, _ = lexsort_rows_payload(
-                self._flat_cols(s, names), int(self._counts[s]), ascending=asc
+                self._flat_cols(s, names[m:]), int(self._counts[s]), ascending=asc[m:],
+                prefix_lane=prefix,
             )
             out = pack_gather(self._flat_cols(s), perm, all_valid=True)
             return self._shard_like(s, self.column_names, out)
 
-        return self._with_shards(self._per_shard(sort_shard))
+        if m:
+            bump("ordering.sort_suffix")
+        mask_free = all(self._ref[n].valid is None for n in names)
+        return self._with_shards(self._per_shard(sort_shard))._attach_ordering(Ordering(
+            keys=tuple(names), ascending=asc, nulls_last=True, scope="shard",
+            canonical=mask_free and all(asc), lexsort_exact=True,
+        ))
 
     def distributed_sort(
         self,
@@ -1065,12 +1177,78 @@ class Table:
         and unused, as in the JAX package. One device: the local sort."""
         names = self._resolve_cols(order_by)
         asc = _resolve_asc(ascending, len(names))
+        o = self._ordering
+        if o is not None and o.scope == "global" and _ord.matches_sort_spec(o, names, asc) == len(names):
+            # already in this global order: a fresh handle, same shards
+            bump("ordering.dist_sort_elided")
+            return self._with_shards(self._shards)._attach_ordering(o)
         if self.world_size == 1:
             return self.sort(names, asc)
         shuffled = _shuffle_many([
             _ShuffleSpec(self, (names[0],), kind="range", asc0=asc[0], num_bins=num_bins)
         ])[0]
-        return shuffled.sort(names, asc)
+        res = shuffled.sort(names, asc)
+        if res._ordering is not None:
+            # range bins on the first key + the local sort: shard i's rows
+            # precede shard i+1's
+            res._ordering = res._ordering._replace(scope="global")
+        return res
+
+    def _join_sum_pushdown(
+        self,
+        other: "Table",
+        left_on: Sequence[str],
+        right_on: Sequence[str],
+        val_col: str,
+        out_key_names: Sequence[str],
+        out_val: str,
+    ) -> "Table":
+        """INNER join + groupby-SUM(``val_col``, a left column) BY the join
+        key, per shard in one pass (``ops.join.join_sum_by_key_pushdown``):
+        the planner's ``fused_join_groupby`` lowering. The caller has
+        co-partitioned the pair, unified its dictionaries and promoted its
+        keys, as before a local join. Output: the left key columns named
+        ``out_key_names`` (join-pair order), then ``out_val``, the sum over
+        the join result (null where every left value of the group is
+        null); groups in canonical key order. One host sync reads every
+        shard's group count."""
+        val = self._ref[val_col]
+
+        def fused(s):
+            lk = self._flat_cols(s, left_on)
+            sums, ng, _nj, reps, vcnt = _j.join_sum_by_key_pushdown(
+                lk, other._flat_cols(s, right_on), self._flat_cols(s, [val_col])[0],
+            )
+            return lk, sums, ng, reps, vcnt
+
+        parts = self._per_shard(fused)
+        counts = self._gather_counts([parts[s][2] for s in self.ctx.local_shards])
+
+        def shard(s):
+            lk, sums, _ng, reps, vcnt = parts[s]
+            n = int(counts[s])
+            cols: Shard = OrderedDict()
+            for name, src, (d, v) in zip(out_key_names, left_on,
+                                          pack_gather(lk, reps[:n], all_valid=True)):
+                c = self._shards[s][src]
+                cols[name] = Column(d, c.dtype, v, c.dictionary)
+            cols[out_val] = Column(sums[:n], DataType.from_numpy_dtype(numpy_dtype(sums.dtype)),
+                                   None if val.valid is None else vcnt[:n] > 0, None)
+            return cols
+
+        return Table(self.ctx, self._per_shard(shard), counts)._attach_ordering(Ordering(
+            keys=tuple(out_key_names), ascending=(True,) * len(out_key_names), nulls_last=True,
+            scope="shard", canonical=True,
+            lexsort_exact=all(self._ref[n].valid is None for n in left_on),
+        ))
+
+    def lazy(self):
+        """A lazy query plan over this table (``plan/lazy.py``): build it
+        with ``filter``/``select``/``join``/``groupby``/``sort``/``union``/
+        ``limit``, read it with ``explain()``, run it with ``collect()``."""
+        from .plan.lazy import LazyFrame
+
+        return LazyFrame.from_table(self)
 
     # ------------------------------------------------------------------
     # set operations and unique
@@ -1096,21 +1274,37 @@ class Table:
         return self._two_table_setop(other, "intersect")
 
     def _two_table_setop(self, other: "Table", op: str) -> "Table":
+        def sortable(t: "Table") -> bool:
+            # one mask-free column (not float64) sorted ascending: run
+            # detection and a binary search replace the shared sort
+            if len(t._ref) != 1:
+                return False
+            c = next(iter(t._ref.values()))
+            return (c.valid is None and c.data.dtype != torch.float64
+                    and _ord.covers_prefix(t._ordering, t.column_names, need_canonical=False))
+
+        sorted_fast = sortable(self) and sortable(other)
         a, b = self._setop_pair(other)
         if op == "union" and any(
             ca.dtype != cb.dtype for ca, cb in zip(a._ref.values(), b._ref.values())
         ):
             # mixed dtypes: the union takes concat's promoted column types
             return _concat_tables([a, b]).unique()
+        if sorted_fast:
+            bump("ordering.setop_sorted_probe")
 
         def setop(s):
             lc, rc = a._flat_cols(s), b._flat_cols(s)
             if op == "union":
-                idx, total, cat = _s.union_emit(lc, rc)
+                emit = _s.union_emit_sorted if sorted_fast else _s.union_emit
+                idx, total, cat = emit(lc, rc)
                 return cat, idx, total
-            return (lc, *_s.setop_emit(lc, rc, op == "intersect"))
+            emit = _s.setop_emit_sorted if sorted_fast else _s.setop_emit
+            return (lc, *emit(lc, rc, op == "intersect"))
 
-        return a._emit(a._per_shard(setop))
+        res = a._emit(a._per_shard(setop))
+        # subtract and intersect keep a subset of the left rows in order
+        return res if op == "union" else res._attach_ordering(self._ordering)
 
     def distributed_union(self, other: "Table") -> "Table":
         return self._dist_setop(other, "union")
@@ -1141,18 +1335,28 @@ class Table:
         any other value, as the JAX package does. ``_order_col`` (internal)
         names a column whose values decide first/last in place of the row
         position; it is left out of the output."""
-        keep = "last" if keep == "last" else "first"
         names = self.column_names if columns is None else self._resolve_cols(columns)
         names = [n for n in names if n != _order_col]
         out_names = [n for n in self.column_names if n != _order_col]
+        # over rows canonically ordered by the keys, the first and last of
+        # each key are its run's ends: run detection, no sort
+        sorted_fast = (_order_col is None and keep in ("first", "last")
+                       and _ord.covers_prefix(self._ordering, names))
+        if sorted_fast:
+            bump("ordering.unique_run_detect")
+        keep = "last" if keep == "last" else "first"
 
         def dedup(s):
             sh = self._shards[s]
-            order_lane = None if _order_col is None else orderable_key(sh[_order_col].data)
-            idx, total = _s.unique_emit(self._flat_cols(s, names), keep, order_lane)
+            if sorted_fast:
+                idx, total = _s.unique_emit_sorted(self._flat_cols(s, names), keep)
+            else:
+                order_lane = None if _order_col is None else orderable_key(sh[_order_col].data)
+                idx, total = _s.unique_emit(self._flat_cols(s, names), keep, order_lane)
             return self._flat_cols(s, out_names), idx, total
 
-        return self._emit(self._per_shard(dedup), out_names)
+        # a subset of the rows in order: the descriptor survives
+        return self._emit(self._per_shard(dedup), out_names)._attach_ordering(self._ordering)
 
     def distributed_unique(
         self, columns: Optional[Sequence[Union[str, int]]] = None, keep: str = "first"
@@ -1345,6 +1549,7 @@ class Table:
             self._shards, self._counts = out._shards, out._counts
             self.index_name = out.index_name
             self._built_index = None
+            self._ordering = out._ordering
             return self
         return out
 
@@ -1544,6 +1749,7 @@ class Table:
         """``t['c'] = values | scalar | Column`` adds or replaces a column;
         ``t[mask] = scalar`` sets the masked rows' values (:meth:`mask`)."""
         self._built_index = None
+        self._ordering = None  # an in-place change voids any order claim
         if isinstance(key, str):
             if isinstance(value, Column) or (
                 isinstance(value, (list, tuple)) and any(isinstance(v, Column) for v in value)
@@ -1645,12 +1851,12 @@ class Table:
             raise ValueError("drop=True unsupported: the index is a live column")
         t = self._with_shards(self._shards)
         t.index_name = self._resolve_cols(column)[0]
-        return t
+        return t._attach_ordering(self._ordering)
 
     def reset_index(self) -> "Table":
         t = self._with_shards(self._shards)
         t.index_name = None
-        return t
+        return t._attach_ordering(self._ordering)
 
     @property
     def index(self):
@@ -1696,19 +1902,6 @@ class Table:
     # ------------------------------------------------------------------
     # not ported: each raises naming its ROADMAP item
     # ------------------------------------------------------------------
-    def lazy(self):
-        raise _not_ported("Table.lazy (the query planner)", "A4")
-
-    @property
-    def ordering(self):
-        raise _not_ported("ordering descriptors", "A4")
-
-    def with_ordering(self, ordering):
-        raise _not_ported("ordering descriptors", "A4")
-
-    def _join_sum_pushdown(self, *args, **kwargs):
-        raise _not_ported("the join -> sum pushdown", "A4")
-
     def column_stats(self):
         raise _not_ported("column range stats", "A6")
 
@@ -1755,10 +1948,8 @@ def _check_join_args(algorithm: str, emit_order: str) -> None:
         raise ValueError(f"unknown join algorithm {algorithm!r}")
     if emit_order not in ("left", "key"):
         raise ValueError(f"unknown emit_order {emit_order!r}")
-    if emit_order == "key":
-        if algorithm == "pallas_pk":
-            raise ValueError("emit_order='key' is not supported by algorithm='pallas_pk'")
-        raise _not_ported("emit_order='key'", "queue A, key-order join emit")
+    if emit_order == "key" and algorithm == "pallas_pk":
+        raise ValueError("emit_order='key' is not supported by algorithm='pallas_pk'")
 
 
 def _out_shard(out_names, left: "Table", right: "Table", s: int, out) -> Shard:
@@ -1821,7 +2012,9 @@ def _unify_dict_pair(
         changed = True
     if not changed:
         return a, b
-    return a._with_shards(new_a), b._with_shards(new_b)
+    # the remap keeps code order, so an order claim survives it
+    return (a._with_shards(new_a)._attach_ordering(a._ordering),
+            b._with_shards(new_b)._attach_ordering(b._ordering))
 
 
 def _promote_key_pair(
@@ -1846,7 +2039,9 @@ def _promote_key_pair(
         changed = True
     if not changed:
         return a, b
-    return a._with_shards(new_a), b._with_shards(new_b)
+    # a widening cast keeps value order
+    return (a._with_shards(new_a)._attach_ordering(a._ordering),
+            b._with_shards(new_b)._attach_ordering(b._ordering))
 
 
 def _concat_tables(tables: Sequence[Table]) -> Table:

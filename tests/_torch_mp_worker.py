@@ -280,8 +280,25 @@ def case_overflow(env):
     return {"join": t.distributed_join(t, on="k")}
 
 
+def case_lazy(env):
+    """The lazy q3 (join -> groupby-sum, the fused join-sum), the same
+    query with a filter after the join (pushed below it), and the
+    two-aggregate form (order_reuse: the key-order join emit). Every rank
+    optimizes the same plan from host-side facts alone, so every rank
+    takes the same shuffles."""
+    rng = np.random.default_rng(SEED + 10)
+    left = {"k": rng.integers(0, 200, 500).astype(np.int32), "v": rng.normal(size=500).astype(np.float32)}
+    right = {"rk": rng.permutation(200).astype(np.int32), "w": rng.normal(size=200).astype(np.float32)}
+    a = ctt.Table.from_encoded(env.context, port_encode(left)).lazy()
+    b = ctt.Table.from_encoded(env.context, port_encode(right)).lazy()
+    j = a.join(b, left_on="k", right_on="rk")
+    return {"q3": j.groupby("k", {"v": "sum"}).collect(),
+            "filtered": j.filter(ctt.col("w") > 0.0).groupby("k", {"v": "sum"}).collect(),
+            "multi": j.groupby("k", {"v": ["sum", "mean"]}).collect()}
+
+
 PORT = OrderedDict([("pk", case_pk), ("ingest", case_ingest), ("env", case_env),
-                    ("frame", case_frame), ("surface", case_surface)])
+                    ("frame", case_frame), ("surface", case_surface), ("lazy", case_lazy)])
 CASES = list(SHARED) + list(PORT)
 
 

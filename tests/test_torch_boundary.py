@@ -77,8 +77,8 @@ def _tables():
     "call",
     [
         lambda t: t.distributed_join(t, on="k", mode="fused"),
-        lambda t: t.lazy(),
-        lambda t: t.join(t, on="k", emit_order="key"),
+        lambda t: t.lazy().explain(analyze=True),
+        lambda t: t.lazy().collect_async(),
         lambda t: t.to_arrow(),
         lambda t: t.to_csv("out.csv"),
         lambda t: t.task_partition(["k"], 2),
@@ -117,3 +117,30 @@ def test_pandas_round_trip_and_errors():
     s = ctt.Table.from_pydict(ctx, {"k": np.array(["a", "b"], dtype=object)})
     with pytest.raises(ValueError, match="string key"):
         t.join(s, on="k")
+
+
+PLANNER = ("ordering.py", "utils/tracing.py", "plan/__init__.py", "plan/expr.py",
+           "plan/nodes.py", "plan/rules.py", "plan/lower.py", "plan/lazy.py")
+
+
+@pytest.mark.parametrize("rel", PLANNER)
+def test_planner_modules_import_neither_jax_nor_the_jax_package(rel):
+    """The order descriptors and the planner keep their own copies of the
+    JAX package's modules (none of which imports JAX itself), and import
+    it nowhere, not even inside a function."""
+    path = PKG / rel
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(n.split(".")[0] in ("jax", "jaxlib", "cylon_tpu") for n in names), (rel, names)
+    module = "cylon_tpu_torch." + rel[:-3].replace("/", ".").replace(".__init__", "")
+    code = (f"import sys, importlib; importlib.import_module({module!r}); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cylon_tpu')]; "
+            "assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)), timeout=120)
+    assert out.returncode == 0, out.stderr

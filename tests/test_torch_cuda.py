@@ -516,3 +516,68 @@ def test_loc_list_probes_the_index_on_the_card(dev, kind):
         outs += [_shard_dump(eager), _shard_dump(built)]
     for a in outs[1:]:
         _dumps_equal(outs[0], a)
+
+
+def test_key_order_emit_and_pushdown_on_card_match_cpu(dev):
+    """The key-order join emit and the fused join-sum at 1M rows a side on
+    the card against their plain versions on the CPU: the same rows in the
+    same order, the same groups, sums within float32 tolerance; their merged
+    sort goes through K1 (its launch counters advance)."""
+    from cylon_tpu_torch.ops import join as tjoin
+
+    rng = np.random.default_rng(21)
+    n = 1 << 20
+    lk = torch.from_numpy(rng.integers(0, n, n).astype(np.int32))
+    rk = torch.from_numpy(rng.integers(0, n, n).astype(np.int32))
+    lv = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    valid = torch.from_numpy(rng.random(n) > 0.1)
+    rv = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        before = dict(cuda_radix.LAUNCHES)
+        l_cols = [(lk.to(d), None), (lv.to(d), None)]
+        r_cols = [(rk.to(d), None), (rv.to(d), None)]
+        probe = tjoin.spec_probe(l_cols[:1], r_cols[:1], r_cols, tjoin.LEFT, emit_key_order=True)
+        total = int(probe["total"])
+        emitted = tjoin.spec_emit(probe, l_cols, r_cols, tjoin.LEFT, total)
+        fused = tjoin.join_sum_by_key_pushdown([(lk.to(d), None)], [(rk.to(d), None)],
+                                               (lv.to(d), valid.to(d)))
+        if d.type == "cuda":
+            assert cuda_radix.LAUNCHES["radix_onesweep"] > before["radix_onesweep"]
+            assert cuda_radix.LAUNCHES["radix_lane_hist"] >= before["radix_lane_hist"] + 3
+        outs.append((total, [(x.cpu(), None if v is None else v.cpu()) for x, v in emitted],
+                     [x.cpu() for x in fused]))
+    (tg, eg, fg), (tc, ec, fc) = outs
+    assert tg == tc
+    for (xg, vg), (xc, vc) in zip(eg, ec):
+        assert torch.equal(xg, xc) and ((vg is None and vc is None) or torch.equal(vg, vc))
+    ng = int(fg[1])
+    assert ng == int(fc[1]) and int(fg[2]) == int(fc[2])
+    torch.testing.assert_close(fg[0][:ng], fc[0][:ng], rtol=1e-5, atol=1e-4)
+    assert torch.equal(fg[3][:ng], fc[3][:ng]) and torch.equal(fg[4][:ng], fc[4][:ng])
+
+
+@pytest.mark.parametrize("world", [1, 4])
+def test_lazy_plans_on_card_match_cpu(dev, world):
+    """The lazy q3, its filtered form and the two-aggregate form on the
+    card against the CPU, shard by shard."""
+    rng = np.random.default_rng(22)
+    n = 200_000
+    left = {"k": rng.integers(0, n, n).astype(np.int32), "v": rng.normal(size=n).astype(np.float32)}
+    right = {"rk": rng.integers(0, n, n).astype(np.int32), "w": rng.normal(size=n).astype(np.float32)}
+    outs = []
+    for device in (dev, "cpu"):
+        ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=device, world_size=world))
+        a, b = ctt.Table.from_pydict(ctx, left).lazy(), ctt.Table.from_pydict(ctx, right).lazy()
+        j = a.join(b, left_on="k", right_on="rk")
+        res = [j.groupby("k", {"v": "sum"}).collect(),
+               j.filter(ctt.col("w") > 0.0).groupby("k", {"v": "sum"}).collect(),
+               j.groupby("k", {"v": ["sum", "mean"]}).collect()]
+        outs.append([_shard_dump(t) for t in res])
+    for (cg, sg), (cc, sc) in zip(*outs):
+        np.testing.assert_array_equal(cg, cc)
+        for xg, xc in zip(sg, sc):
+            np.testing.assert_array_equal(xg["k"][0], xc["k"][0])
+            for c in xg:
+                if c != "k":
+                    np.testing.assert_allclose(xg[c][0], xc[c][0], rtol=1e-5, atol=1e-4)

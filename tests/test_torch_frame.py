@@ -120,9 +120,11 @@ def test_unported_and_device_rules(monkeypatch):
         td.merge(td, on="k", env=env, mode="fused")
     with pytest.raises(ValueError, match="unknown join mode"):
         td.join(td, on="k", mode="lazy")
-    for op in ("lazy", "collect_async", "to_arrow"):  # std/var/nunique: test_torch_groupby_aggs
+    for op in ("collect_async", "to_arrow"):  # std/var/nunique: test_torch_groupby_aggs
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(td, op)()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md: A9"):  # lazy: test_torch_plan
+        td.lazy().explain(analyze=True)
     local = ctt.CylonEnv(config=ctt.GPUConfig(device="cpu", world_size=4), distributed=False)
     assert local.world_size == 1 and not local.is_distributed and env.is_distributed
     assert env.rank == 0

@@ -234,11 +234,13 @@ def test_dataframe_surface_matches_reference(rng, ref_env, world):
 
 
 @pytest.mark.parametrize("call", [
-    lambda t: t.lazy(), lambda t: t.to_arrow(), lambda t: t.to_csv("x.csv"),
+    lambda t: t.lazy().explain(analyze=True), lambda t: t.to_arrow(), lambda t: t.to_csv("x.csv"),
     lambda t: t.task_partition(["k"], 2), lambda t: t.column_stats(),
-    lambda t: t.ensure_stats(), lambda t: t.ordering, lambda t: t.with_ordering(None),
-    lambda t: t._join_sum_pushdown(t), lambda t: ctt.Table.from_arrow(t.ctx, None),
-    lambda t: ctt.DataFrame(t).lazy(), lambda t: ctt.DataFrame(t).collect_async(),
+    lambda t: t.ensure_stats(), lambda t: t.lazy().collect_async(),
+    lambda t: t.distributed_join(t, on="k", mode="fused"),
+    lambda t: ctt.DataFrame(t).merge(ctt.DataFrame(t), on="k", mode="fused"),
+    lambda t: ctt.Table.from_arrow(t.ctx, None),
+    lambda t: ctt.DataFrame(t).lazy().collect_async(), lambda t: ctt.DataFrame(t).collect_async(),
     lambda t: ctt.DataFrame(t).to_arrow(), lambda t: ctt.DataFrame(t).to_csv("x.csv"),
 ])
 def test_left_out_surface_raises_naming_its_item(call):
