@@ -88,12 +88,32 @@
               q3_ordered), the groupby run-detecting;
      q3_ordered_lazy: the lazy q3 with {"v": ["sum", "mean"]}, where
               order_reuse turns the join into the key-order emit;
+   then the shuffle tiers the reference runs by default (ROADMAP A6's first
+   slice: the semi-join sketch filter and lane packing), each beside the
+   same call with the tier off and required to give the same rows:
+     SEMI4: benchmarks/semi_filter_bench.make_pair at 8M rows a side (int32
+            key uniform in a window of 2M, three float32 payloads; seed 7,
+            as run_bench.py's config 1b) at world 4, joined on k at
+            selectivity 0.10 (the gate must apply the filter to both
+            sides) and 1.00 (it must skip it), beside sketch.disabled():
+            rows pruned, bucket_cap and rounds, shipped bytes (rounds x
+            W^2 x bucket_cap x row bytes, plus the sketches), ms;
+     PACK: lane_pack_bench.make_sort_table at 8M rows (keys of about 12,
+           16 and 20 bits): sort(["a", "b", "c"]) on one fused uint64 word
+           beside stats.disabled()'s three lanes, K1a and K1b launches, ms;
+     PACK4: lane_pack_bench.make_join_pair at 8M rows a side, world 4: the
+            join on (k1, k2) (fused factorize lanes, wire-narrowed rows),
+            then the groupby sum, beside stats.disabled(): wire row bytes,
+            rounds, ms;
+   every world-4 workload line says which gates fired (``tiers``: the
+   semi filter, the wire narrowing, the fusions, the sketch bytes);
    then the torch.distributed backend, one process per shard:
      MP4: four processes of this script (``--mp4-worker``), each one rank
           of ``GPUConfig(coordinator_address=..., num_processes=4)``: gloo
           with every rank on cuda:0, or NCCL with rank r on cuda:r where
           there are four cards. Each makes A4's, S4's, U4's and PK4's
-          data from the same seeds, stages only its own block, and runs
+          data from the same seeds, stages only its own block (the tiers
+          on, every rank required to take one process's gates), and runs
           distributed_join -> distributed_groupby, distributed_sort("k"),
           distributed_union and distributed_unique(["k"]), the pallas_pk
           join -> groupby, and L4's lazy q3 (every rank optimizes the same
@@ -106,7 +126,9 @@
 3. holds each kernel against its plain PyTorch version on the inputs the
    main path gave it (exact: the kernels move integers; the compact B3
    also on B4's largest received buffer whose rows are not a multiple of
-   16 bytes; B2a in pid mode, B2b and B3 also on S4's range shuffle), and
+   16 bytes; B2a in pid mode, B2b and B3 also on S4's range shuffle; B2a
+   in pid mode also on SEMI4's filtered pid lane with its pruned rows at P;
+   K1 also on PACK's fused uint64 word), and
    times kernel, plain version and the one PyTorch call that computes the
    same function where there is one, beside each kernel's ptxas registers
    and spills;
@@ -124,6 +146,7 @@ Any failed check, missing launch or exception exits nonzero without the
 last line. Without a CUDA card, or without the cylon_tpu_torch package
 beside this file, it exits nonzero at once.
 """
+import contextlib
 import hashlib
 import json
 import os
@@ -153,6 +176,11 @@ N_ISIN = 1024  # values of F's isin and labels of its loc list
 F_GROUPS = 65536  # F's g = k % F_GROUPS
 F_NAMES = np.array([f"name{i:02d}" for i in range(64)])  # F's string column, sorted
 MP4_LIMIT_S = 420  # wall-clock limit of the four MP4 processes
+N_SEMI = 8_000_000  # rows a side of SEMI4 (run_bench.py config 1b's make_pair)
+N_PACK = 8_000_000  # rows of PACK and a side of PACK4 (lane_pack_bench's tables)
+REPS_T = 3  # timed calls of each SEMI4, PACK and PACK4 variant, after a warm-up
+#: the counter families of the shuffle tiers (the semi filter, lane packing)
+TIER_PREFIXES = ("shuffle.semi_filter.", "semi_filter.", "lane_pack.")
 REPS_MP4 = 3  # barrier-synchronised timed calls of each MP4 op
 
 # peak memory bandwidth by card (NVIDIA data sheets); SXM5 H100 otherwise
@@ -314,6 +342,71 @@ MP4_KERNELS = {
 }
 
 
+def _wire_row_bytes(st) -> int:
+    """The exchange row bytes a planned shuffle ships: narrowed or plain."""
+    from cylon_tpu_torch.ops.gather import wire_row_bytes
+
+    return wire_row_bytes(st["wire"]) if st["wire"] is not None else st["row_bytes"]
+
+
+def tier_counts(tracing) -> dict:
+    """{counter: [count, rows]} of the shuffle tiers' counters so far."""
+    out = {}
+    for prefix in TIER_PREFIXES:
+        for k, v in tracing.report(prefix).items():
+            out[k] = [int(v["count"]), int(v.get("rows", 0))]
+    return out
+
+
+def tier_delta(after: dict, before: dict) -> dict:
+    """The tier counters a call added: which gates fired, the rows pruned,
+    the sketch bytes and the bytes the wire narrowing saved."""
+    out = {}
+    for k, (c, r) in after.items():
+        c0, r0 = before.get(k, (0, 0))
+        if c != c0:
+            out[k] = [c - c0, r - r0]
+    return out
+
+
+def make_semi(sel: float):
+    """SEMI4's sides, benchmarks/semi_filter_bench.make_pair's shape at
+    N_SEMI rows a side (seed 7, as run_bench.py's config 1b): left keys
+    U[0, K), right keys U[(1 - sel) K, (2 - sel) K), K = n / 4, so about
+    ``sel`` of each side's rows have a partner; three float32 payloads a
+    side."""
+    rng = np.random.default_rng(7)
+    n, K = N_SEMI, N_SEMI // 4
+    shift = int((1.0 - sel) * K)
+
+    def cols(lo, hi, prefix):
+        out = {"k": rng.integers(lo, hi, n).astype(np.int32)}
+        for i in range(3):
+            out[f"{prefix}{i}"] = rng.normal(size=n).astype(np.float32)
+        return out
+
+    return cols(0, K, "v"), cols(shift, shift + K, "w")
+
+
+def make_pack():
+    """benchmarks/lane_pack_bench.py's make_sort_table (PACK) and
+    make_join_pair (PACK4) at N_PACK rows, seed 0: keys of about 12, 16 and
+    20 bits, float32 payloads."""
+    rng = np.random.default_rng(SEED)
+    n = N_PACK
+    sort_t = {"a": rng.integers(0, 4000, n).astype(np.int32),
+              "b": rng.integers(0, 60000, n).astype(np.int32),
+              "c": rng.integers(0, 1000000, n).astype(np.int32),
+              "v": rng.normal(size=n).astype(np.float32)}
+
+    def side(vname):
+        return {"k1": rng.integers(0, 4000, n).astype(np.int32),
+                "k2": rng.integers(0, 60000, n).astype(np.int32),
+                vname: rng.normal(size=n).astype(np.float32)}
+
+    return sort_t, side("v"), side("w")
+
+
 def shard_digests(outputs, s):
     """{table: {column: sha256 of shard s's data (and validity) bytes}},
     and shard s's float sum columns, which the card adds in no fixed
@@ -342,6 +435,7 @@ def mp4_worker(rank: int, world: int, address: str, backend: str, out_dir: str) 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import cylon_tpu_torch as ctt
     from cylon_tpu_torch.ops import cuda_codec, cuda_gather, cuda_probe, cuda_radix, pk_join
+    from cylon_tpu_torch.utils import tracing
 
     torch.set_num_threads(max(1, (os.cpu_count() or WORLD) // WORLD))  # the host's cores, shared
     device = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
@@ -357,7 +451,9 @@ def mp4_worker(rank: int, world: int, address: str, backend: str, out_dir: str) 
             for k in d:
                 d[k] = 0
         pk_join.COUNTS["fallback"] = 0
-        call()  # the first call: its launches
+        before = tier_counts(tracing)
+        call()  # the first call: its launches and tier gates
+        tiers = tier_delta(tier_counts(tracing), before)
         launches = {k: v for d in counters for k, v in d.items()}
         times = []
         for _ in range(REPS_MP4):
@@ -371,6 +467,7 @@ def mp4_worker(rank: int, world: int, address: str, backend: str, out_dir: str) 
             np.save(os.path.join(out_dir, f"rank{rank}.{op}.{key}.npy"), arr)
         result["ops"][op] = {
             "digests": digests, "launches": launches, "fallbacks": pk_join.COUNTS["fallback"],
+            "tiers": tiers,
             "s": float(np.median(times)), "s_all": times,
             "shard_rows": {n: int(t.row_counts[rank]) for n, t in out.items()},
         }
@@ -428,16 +525,19 @@ def phase_mp4(ctt, ctx4) -> dict:
     after a warm-up). Returns MP4's workload line."""
     import torch
     from cylon_tpu_torch.ops import pk_join
+    from cylon_tpu_torch.utils import tracing
 
     torch.cuda.empty_cache()  # the ranks share card 0 with this process
     backend = "nccl" if torch.cuda.device_count() >= WORLD else "gloo"
     print(json.dumps({"mp4_backend": backend, "processes": WORLD,
                       "rank_devices": [f"cuda:{r}" if backend == "nccl" else "cuda:0"
                                        for r in range(WORLD)]}))
-    ref, single = {}, {}
+    ref, single, tiers = {}, {}, {}
     for op, call in mp4_calls(ctt, ctx4).items():
         pk_join.COUNTS["fallback"] = 0
+        before = tier_counts(tracing)
         call()
+        tiers[op] = tier_delta(tier_counts(tracing), before)
         times = []
         for _ in range(REPS_MP4):
             torch.cuda.synchronize()
@@ -472,6 +572,10 @@ def phase_mp4(ctt, ctx4) -> dict:
                         fail(f"MP4 {op}: rank {r} launched no {k}")
                 if got["fallbacks"]:
                     fail(f"MP4 {op}: rank {r} fell back to the sort join")
+                # every rank takes the gates one process takes, from the
+                # counts gathered from every rank
+                if got["tiers"] != tiers[op]:
+                    fail(f"MP4 {op}: rank {r}'s tier gates {got['tiers']} != one process's {tiers[op]}")
     rank0 = ranks[0]["ops"]
     return {
         "workload": "MP4", "world": WORLD, "backend": backend, "processes": WORLD,
@@ -481,6 +585,7 @@ def phase_mp4(ctt, ctx4) -> dict:
         "single_process_s": single, "single_process_devices": [str(d) for d in ctx4.devices],
         "shard_rows": {op: [res["ops"][op]["shard_rows"] for res in ranks] for op in rank0},
         "launches_rank0": {op: v["launches"] for op, v in rank0.items()},
+        "tiers_rank0": {op: v["tiers"] for op, v in rank0.items()}, "tiers_single_process": tiers,
     }
 
 
@@ -496,8 +601,12 @@ def main(mp4_only: bool = False) -> None:
     try:
         import cylon_tpu_torch as ctt
         from cylon_tpu_torch import _build
+        from cylon_tpu_torch import table as _tbl
         from cylon_tpu_torch.ops import cuda_codec, cuda_gather, cuda_probe, cuda_radix, pk_join
+        from cylon_tpu_torch.ops import sketch as _sketch
+        from cylon_tpu_torch.ops import stats as _stats
         from cylon_tpu_torch.parallel import shuffle as _sh
+        from cylon_tpu_torch.utils import tracing as _tr
         from cylon_tpu_torch.ops import radix as _radix
         from cylon_tpu_torch.ops.partition import hash_partition_ids
         from cylon_tpu_torch.ops.sort import orderable_key
@@ -539,9 +648,10 @@ def main(mp4_only: bool = False) -> None:
         return orig_expand(srcT, li)
 
     orig_hist, orig_dest = cuda_codec.pack_hist, cuda_codec.pack_dest
-    orig_move, orig_plan = cuda_codec.compact_move, _sh.plan_rounds
+    orig_move, orig_plan = cuda_codec.compact_move, _tbl._plan_state
     orig_probe = cuda_probe.probe
-    plans = []  # (bucket_cap, n_rounds) of every shuffle of a run
+    plans = []  # (bucket_cap, n_rounds) of every shuffle of a run, as planned
+    gates = []  # beside each: the semi and wire gates' decisions, the row bytes
 
     def rec_hist(words, valids, has_valid, n, P, pid=None):
         key = "hist_64" if seen.get("key64_next") else "hist"
@@ -564,9 +674,15 @@ def main(mp4_only: bool = False) -> None:
                 seen[key] = (move, recv, P, bc, n_header)
         return orig_move(move, recv, P, bc, n_header)
 
-    def rec_plan(*args, **kw):
-        plans.append(orig_plan(*args, **kw))
-        return plans[-1]
+    def rec_plan(st):
+        orig_plan(st)
+        plans.append((st["bucket_cap"], st["n_rounds"]))
+        semi = None
+        if st["counts_f"] is not None:
+            semi = {"applied": bool(st["use_filter"]), "rows": int(st["counts_u"].sum()),
+                    "rows_filtered": int(st["counts_f"].sum())}
+        gates.append({"semi_filter": semi, "wire": st["wire"] is not None,
+                      "row_bytes": _wire_row_bytes(st)})
 
     def rec_probe(lk, rk, rid, nb, B):
         if "probe" not in seen or lk.numel() > seen["probe"][0].numel():
@@ -576,7 +692,7 @@ def main(mp4_only: bool = False) -> None:
     cuda_radix.radix_sort_lane = rec_lane
     cuda_gather.expand_rows = rec_expand
     cuda_codec.pack_hist, cuda_codec.pack_dest = rec_hist, rec_dest
-    cuda_codec.compact_move, _sh.plan_rounds = rec_move, rec_plan
+    cuda_codec.compact_move, _tbl._plan_state = rec_move, rec_plan
     cuda_probe.probe = rec_probe
     launch_counters = (cuda_radix.LAUNCHES, cuda_gather.LAUNCHES, cuda_codec.LAUNCHES,
                        cuda_probe.LAUNCHES)
@@ -588,6 +704,15 @@ def main(mp4_only: bool = False) -> None:
         _radix.COUNTS["declined"] = 0
         pk_join.COUNTS["fallback"] = 0
         plans.clear()
+        gates.clear()
+        tier_base.clear()
+        tier_base.update(tier_counts(_tr))
+
+    tier_base = {}
+
+    def tiers():
+        """The tier counters since reset_counts(), and each shuffle's gates."""
+        return {"counters": tier_delta(tier_counts(_tr), tier_base), "shuffles": list(gates)}
 
     def counts():
         return {k: v for d in launch_counters for k, v in d.items()}
@@ -785,7 +910,7 @@ def main(mp4_only: bool = False) -> None:
         t0 = time.perf_counter()
         j, g, t_join = run_a4()
         t_end = time.perf_counter()
-        launches, plan = counts(), list(plans)
+        launches, plan, tier = counts(), list(plans), tiers()
         require_launches(launches, what, all_kernels)
         check_a4(j, g, what)
         join_t, gb_t = [t_join - t0], [t_end - t_join]
@@ -803,7 +928,7 @@ def main(mp4_only: bool = False) -> None:
             "join_s": js, "groupby_s": gs, "join_s_all": join_t, "groupby_s_all": gb_t,
             "input_rows_per_s": 2 * N_A / (js + gs), "launches": launches,
             # (bucket_cap, rounds): left and right join shuffles, then the groupby's
-            "shuffle_plans": plan,
+            "shuffle_plans": plan, "tiers": tier,
         }
 
     work_a4 = measure_a4("A4")
@@ -892,7 +1017,7 @@ def main(mp4_only: bool = False) -> None:
             out = call()
             torch.cuda.synchronize()
             times = [time.perf_counter() - t0]
-            launches, plan = counts(), list(plans)
+            launches, plan, tier = counts(), list(plans), tiers()
             require_launches(launches, f"{what} {name}", kernels)
             for _ in range(REPS_L - 1):
                 t0 = time.perf_counter()
@@ -916,7 +1041,7 @@ def main(mp4_only: bool = False) -> None:
                          "spread_ms": (max(times) - min(times)) * 1e3,
                          "input_rows_per_s": 2 * N_A / (ms / 1e3), "groups": out.row_count,
                          "launches": launches, "counters": fired, "plan_cache_hits": hits,
-                         "shuffle_plans": plan}
+                         "shuffle_plans": plan, "tiers": tier}
             del out
         return {"workload": what, "world": world, "rows_per_side": N_A,
                 "budget_bytes": tl_.ctx.shuffle_byte_budget, "queries": res}
@@ -945,7 +1070,7 @@ def main(mp4_only: bool = False) -> None:
     jb4, gb4 = run_b4()
     gb4_host = gb4.to_dict()
     b4_s = time.perf_counter() - t0
-    launches_b4, plans_b4 = counts(), list(plans)
+    launches_b4, plans_b4, tiers_b4 = counts(), list(plans), tiers()
     require_launches(launches_b4, "workload B4", all_kernels)
     order = np.argsort(np.asarray(gb4_host["segment"], dtype=str))
     if len(jb4) != N_ORDERS or [gb4_host["segment"][i] for i in order] != list(seg_names):
@@ -954,6 +1079,7 @@ def main(mp4_only: bool = False) -> None:
         fail("workload B4: price sums differ from the reference")
     work_b4 = {"workload": "B4", "world": WORLD, "orders": N_ORDERS, "customers": N_CUST,
                "end_to_end_s": b4_s, "launches": launches_b4, "shuffle_plans": plans_b4,
+               "tiers": tiers_b4,
                "group_shard_rows": gb4.table.row_counts.tolist()}
     captured_b4 = on_card(seen)
     del jb4, gb4
@@ -1099,7 +1225,7 @@ def main(mp4_only: bool = False) -> None:
         out = fn()
         torch.cuda.synchronize()
         times = [time.perf_counter() - t0]
-        launches, plan = counts(), list(plans)
+        launches, plan, tier = counts(), list(plans), tiers()
         require_launches(launches, what, kernels)
         if _radix.COUNTS["declined"]:
             fail(f"{what}: a sort declined the radix engine")
@@ -1110,7 +1236,7 @@ def main(mp4_only: bool = False) -> None:
             times.append(time.perf_counter() - t0)
             del r
         return out, {"launches": launches, "shuffle_plans": plan, "s": float(np.median(times)),
-                     "s_all": times}
+                     "s_all": times, "tiers": tier}
 
     def host_cols(t, names):
         return [t.column(c).data.cpu().numpy() for c in names]
@@ -1558,7 +1684,7 @@ def main(mp4_only: bool = False) -> None:
     def work_line(tag, world, res):
         return {"workload": tag, "world": world, "rows": n_f,
                 "ops": {op: {k_: w[k_] for k_ in ("ms", "input_rows_per_s", "launches",
-                                                  "shuffle_plans", "s_all")}
+                                                  "shuffle_plans", "s_all", "tiers")}
                         for op, (_o, w) in res.items()}}
 
     df_f = frame_f(ctx)
@@ -1573,10 +1699,160 @@ def main(mp4_only: bool = False) -> None:
     work_f4 = work_line("F4", WORLD, res_f4)
     del res_f4, df_f4, fd, refs_f
 
+    # ------------------------------------------------------------------
+    # workload SEMI4: run_bench.py config 1b's join (semi_filter_bench's
+    # make_pair at 8M rows a side) at world 4, at selectivity 0.10 and
+    # 1.00, each beside the same call under sketch.disabled()
+    # ------------------------------------------------------------------
+    def timed(fn, what, kernels):
+        """Warm-up, then REPS_T calls: the first one's output, launches,
+        plans and tier gates, and every call's ms."""
+        fn()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        times = [time.perf_counter() - t0]
+        launches, plan, tier = counts(), list(plans), tiers()
+        require_launches(launches, what, kernels)
+        for _ in range(REPS_T - 1):
+            t0 = time.perf_counter()
+            r = fn()
+            times.append(time.perf_counter() - t0)
+            del r
+        return out, {"ms": float(np.median(times)) * 1e3, "ms_all": [t * 1e3 for t in times],
+                     "launches": launches, "shuffle_plans": plan, "tiers": tier}
+
+    def shards_equal(a, b, what, sums=()):
+        """Shard for shard, column for column: exactly, but the float sums
+        ``sums`` within workload A's tolerance."""
+        if a.column_names != b.column_names or a.row_counts.tolist() != b.row_counts.tolist():
+            fail(f"{what}: names or shard rows differ")
+        for d in range(a.world_size):
+            for c in a.column_names:
+                x, y = a._shards[d][c], b._shards[d][c]
+                if (x.valid is None) != (y.valid is None) or (
+                        x.valid is not None and not torch.equal(x.valid, y.valid)):
+                    fail(f"{what}: shard {d} {c} validity differs")
+                if c in sums:
+                    err = (x.data.double() - y.data.double()).abs()
+                    if not bool((err <= 1e-4 + 1e-5 * y.data.double().abs()).all()):
+                        fail(f"{what}: shard {d} {c} max abs err {float(err.max())}")
+                elif not torch.equal(x.data, y.data):
+                    fail(f"{what}: shard {d} {c} differs")
+
+    def off_if(gate, off):
+        return gate.disabled() if off else contextlib.nullcontext()
+
+    work_semi = {"workload": "SEMI4", "world": WORLD, "rows_per_side": N_SEMI,
+                 "budget_bytes": ctx4.shuffle_byte_budget, "cells": {}}
+    captured_semi = {}
+    for sel in (0.10, 1.00):
+        ls, rs = make_semi(sel)
+        ts_l, ts_r = ctt.Table.from_pydict(ctx4, ls), ctt.Table.from_pydict(ctx4, rs)
+        cl_s = torch.bincount(torch.from_numpy(ls["k"]).to(dev).long(), minlength=2 * N_SEMI)
+        cr_s = torch.bincount(torch.from_numpy(rs["k"]).to(dev).long(), minlength=2 * N_SEMI)
+        n_join_s = int((cl_s * cr_s).sum())
+        del ls, rs, cl_s, cr_s
+        cell, outs = {}, {}
+        for mode in ("filter", "off"):
+            def call(off=mode == "off"):
+                with off_if(_sketch, off):
+                    j = ts_l.distributed_join(ts_r, on="k", how="inner")
+                torch.cuda.synchronize()
+                return j
+
+            seen.clear()
+            outs[mode], m = timed(call, f"SEMI4 sel {sel} {mode}", all_kernels)
+            if sel < 0.5 and mode == "filter":
+                captured_semi = on_card(seen)
+            if outs[mode].row_count != n_join_s:
+                fail(f"SEMI4 sel {sel} {mode}: join rows {outs[mode].row_count} != {n_join_s}")
+            ctr, shuffles = m["tiers"]["counters"], m["tiers"]["shuffles"]
+            sketch_b = ctr.get("semi_filter.sketch_bytes", [0, 0])[1]
+            m.update({
+                "applied": [None if g["semi_filter"] is None else g["semi_filter"]["applied"]
+                            for g in shuffles],
+                "rows_pruned": ctr.get("shuffle.semi_filter.pruned_rows", [0, 0])[1],
+                "sketch_bytes": sketch_b,
+                # rounds x W^2 x bucket_cap x row bytes per table, + the sketches
+                "shipped_bytes": sum(k * WORLD * WORLD * bc * g["row_bytes"]
+                                     for (bc, k), g in zip(m["shuffle_plans"], shuffles)) + sketch_b,
+            })
+            cell[mode] = m
+        shards_equal(outs["filter"], outs["off"], f"SEMI4 sel {sel}: filtered vs unfiltered rows")
+        want_applied = [True, True] if sel < 0.5 else [False, False]
+        if cell["filter"]["applied"] != want_applied or cell["off"]["applied"] != [None, None]:
+            fail(f"SEMI4 sel {sel}: semi gates {cell['filter']['applied']} / "
+                 f"{cell['off']['applied']}, expected {want_applied} / [None, None]")
+        work_semi["cells"][f"{sel:.2f}"] = cell
+        del outs, ts_l, ts_r
+    if "hist_pid" not in captured_semi or not bool(
+            (captured_semi["hist_pid"][5] == WORLD).any()):
+        fail("SEMI4: B2a got no pid lane with pruned rows (the sentinel P)")
+
+    # ------------------------------------------------------------------
+    # workloads PACK (world 1) and PACK4 (world 4): lane_pack_bench's
+    # tables at 8M rows, fused beside stats.disabled()
+    # ------------------------------------------------------------------
+    sort_t, pack_l, pack_r = make_pack()
+    tp = ctt.Table.from_pydict(ctx, sort_t)
+    a_sorted = np.sort(sort_t["a"])
+    del sort_t
+    work_pack = {"workload": "PACK", "world": 1, "rows": N_PACK, "cells": {}}
+    pack_out, captured_pack = {}, {}
+    for mode in ("fused", "plain"):
+        def call(off=mode == "plain"):
+            with off_if(_stats, off):
+                out = tp.sort(["a", "b", "c"])
+            torch.cuda.synchronize()
+            return out
+
+        seen.clear()
+        pack_out[mode], m = timed(call, f"PACK {mode}", local_kernels[:2])
+        if mode == "fused":
+            captured_pack = on_card(seen)  # the fused uint64 sort word
+        m["radix_passes"] = m["launches"]["radix_onesweep"]
+        work_pack["cells"][mode] = m
+    shards_equal(pack_out["fused"], pack_out["plain"], "PACK: fused vs plain sort")
+    if not np.array_equal(pack_out["fused"].column("a").data.cpu().numpy(), a_sorted):
+        fail("PACK: the sort's first key is not in order")
+    fused_n = work_pack["cells"]["fused"]["tiers"]["counters"].get("lane_pack.sort_fused", [0])[0]
+    if fused_n != 1 or work_pack["cells"]["plain"]["tiers"]["counters"]:
+        fail(f"PACK: lane_pack.sort_fused {fused_n} (plain: "
+             f"{work_pack['cells']['plain']['tiers']['counters']})")
+    del pack_out, tp, a_sorted
+
+    tl_p4, tr_p4 = ctt.Table.from_pydict(ctx4, pack_l), ctt.Table.from_pydict(ctx4, pack_r)
+    del pack_l, pack_r
+    work_pack4 = {"workload": "PACK4", "world": WORLD, "rows_per_side": N_PACK, "cells": {}}
+    pack4_out = {}
+    for mode in ("fused", "plain"):
+        def call(off=mode == "plain"):
+            with off_if(_stats, off):
+                j = tl_p4.distributed_join(tr_p4, on=["k1", "k2"], how="inner")
+                g = j.distributed_groupby(["k1_x", "k2_x"], {"v": "sum", "w": "sum"})
+            torch.cuda.synchronize()
+            return j, g
+
+        pack4_out[mode], m = timed(call, f"PACK4 {mode}", all_kernels)
+        m["wire_row_bytes"] = [g["row_bytes"] for g in m["tiers"]["shuffles"]]
+        m["rounds"] = [k for _bc, k in m["shuffle_plans"]]
+        work_pack4["cells"][mode] = m
+    (jf, gf), (jp, gp) = pack4_out["fused"], pack4_out["plain"]
+    shards_equal(jf, jp, "PACK4: fused vs plain join")
+    shards_equal(gf, gp, "PACK4: fused vs plain groupby", sums=("v_sum", "w_sum"))
+    ctr4 = work_pack4["cells"]["fused"]["tiers"]["counters"]
+    for c_ in ("lane_pack.join_fused", "lane_pack.wire.applied"):
+        if not ctr4.get(c_):
+            fail(f"PACK4: {c_} did not fire ({ctr4})")
+    if any(k_.startswith("lane_pack.") for k_ in work_pack4["cells"]["plain"]["tiers"]["counters"]):
+        fail("PACK4: lane packing under stats.disabled()")
+    del pack4_out, jf, gf, jp, gp, tl_p4, tr_p4
+
 
     cuda_radix.radix_sort_lane, cuda_gather.expand_rows = orig_lane, orig_expand
     cuda_codec.pack_hist, cuda_codec.pack_dest = orig_hist, orig_dest
-    cuda_codec.compact_move, _sh.plan_rounds = orig_move, orig_plan
+    cuda_codec.compact_move, _tbl._plan_state = orig_move, orig_plan
     cuda_probe.probe = orig_probe
 
     work_mp4 = phase_mp4(ctt, ctx4)
@@ -1609,11 +1885,14 @@ def main(mp4_only: bool = False) -> None:
 
     keys32, err_h, err_s = hold_lane(captured_a["radix_32"])
     lo32, hi32 = captured_a["radix_32"][2:]
-    wide = captured_b.get("radix_64")
-    if wide is None:
-        fail("workload B made no 64-bit radix sort")
-    _k64, err_h64, err_s64 = hold_lane(wide)
-    err_h, err_s = max(err_h, err_h64), max(err_s, err_s64)
+    # the 64-bit lane: PACK's fused uint64 sort word (and B's 64-bit lane
+    # where its join still sorts one)
+    if "radix_64" not in captured_pack:
+        fail("workload PACK sorted no fused uint64 word")
+    for wide in (captured_pack["radix_64"], captured_b.get("radix_64")):
+        if wide is not None:
+            _k64, err_h64, err_s64 = hold_lane(wide)
+            err_h, err_s = max(err_h, err_h64), max(err_s, err_s64)
     srcT, li = captured_a["expand"]
     xk = cuda_gather.expand_rows(srcT, li)
     torch.cuda.synchronize()
@@ -1669,6 +1948,14 @@ def main(mp4_only: bool = False) -> None:
     s_moved = cuda_codec.compact_move(*sm_args)
     torch.cuda.synchronize()
     err_cm_s = max_err(s_moved, cuda_codec.compact_move_plain(*sm_args))
+    # SEMI4's semi-filtered side: B2a in pid mode on hash pids with the
+    # sentinel P at every row the other side's sketch pruned
+    q_args = captured_semi["hist_pid"]
+    q_lane, q_hist = cuda_codec.pack_hist(*q_args)
+    torch.cuda.synchronize()
+    want_q = cuda_codec.pack_hist_plain(*q_args)
+    err_ph_q = max(max_err(q_lane, want_q[0]), max_err(q_hist, want_q[1]))
+    err_ph_s = max(err_ph_s, err_ph_q)
     err_ph, err_pd, err_cm = max(err_ph, err_ph_s), max(err_pd, err_pd_s), max(err_cm, err_cm_s)
     if err_ph or err_pd or err_cm:
         fail(f"kernel mismatch: pack_hist {err_ph}, pack_dest {err_pd}, compact_move {err_cm}")
@@ -1749,6 +2036,10 @@ def main(mp4_only: bool = False) -> None:
     cap_s, P_s = s_args[5].shape[0], s_args[4]
     ms_ph_s = cuda_ms(lambda: cuda_codec.pack_hist(*s_args))
     ms_php_s = cuda_ms(lambda: cuda_codec.pack_hist_plain(*s_args))
+    cap_q = q_args[5].shape[0]
+    ms_ph_q = cuda_ms(lambda: cuda_codec.pack_hist(*q_args))
+    ms_php_q = cuda_ms(lambda: cuda_codec.pack_hist_plain(*q_args))
+    bytes_ph_q = 4 * cap_q * 2 + 4 * P_s * cuda_codec.n_tiles(cap_q)
     ms_pd_s = cuda_ms(lambda: cuda_codec.pack_dest(*sd_args))
     ms_pdp_s = cuda_ms(lambda: cuda_codec.pack_dest_plain(*sd_args))
     ms_cm_s = cuda_ms(lambda: cuda_codec.compact_move(*sm_args))
@@ -1816,7 +2107,10 @@ def main(mp4_only: bool = False) -> None:
          "s4_pid_mode": {"shape": [cap_s, P_s], "max_abs_err": err_ph_s, "ms": ms_ph_s,
                          "plain_ms": ms_php_s, "bound_ms": bytes_ph_s / bw * 1e3,
                          "launches_s4": work_s4["launches"]["pack_hist"],
-                         "launches_s4_k4": work_s4k["launches"]["pack_hist"]}},
+                         "launches_s4_k4": work_s4k["launches"]["pack_hist"]},
+         "semi4_pid_mode": {"shape": [cap_q, P_s], "max_abs_err": err_ph_q, "ms": ms_ph_q,
+                            "plain_ms": ms_php_q, "bound_ms": bytes_ph_q / bw * 1e3,
+                            "pruned_rows": int((q_args[5] == P_s).sum())}},
         {"name": "shuffle_pack_dest", "route": "cuda", "source": src_codec,
          "replaces": "cylon_tpu/ops/pallas_codec.py:344",
          "launches": work_a4["launches"]["pack_dest"], "max_abs_err": err_pd,
@@ -1859,6 +2153,12 @@ def main(mp4_only: bool = False) -> None:
         ck = k["name"].replace("shuffle_", "")  # its launch counter's key
         k["launches_l"] = {q: v["launches"][ck] for q, v in work_l["queries"].items()}
         k["launches_l4"] = {q: v["launches"][ck] for q, v in work_l4["queries"].items()}
+        # this slice's workloads: each variant's first timed call
+        for tag, w in (("semi4", work_semi), ("pack", work_pack), ("pack4", work_pack4)):
+            cells = w["cells"].items()
+            if tag == "semi4":
+                cells = [(f"{sel}_{mode}", m) for sel, c in w["cells"].items() for mode, m in c.items()]
+            k[f"launches_{tag}"] = {name: m["launches"].get(ck, 0) for name, m in cells}
         src, fn = kernel_fn[k["name"]]
         k["ptxas"] = {m: u for m, u in usage[src].items() if fn in m}
         if not k["ptxas"]:
@@ -1874,7 +2174,7 @@ def main(mp4_only: bool = False) -> None:
     print(json.dumps(work_pk4))
     print(json.dumps(work_dup))
     for w in (work_s, work_s4, work_s4k, work_u, work_u4, work_o, work_f, work_f4, work_l, work_l4,
-              work_mp4):
+              work_semi, work_pack, work_pack4, work_mp4):
         print(json.dumps(w))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,8 @@ from typing import List, Optional, Sequence, Union
 import torch
 import torch.distributed as dist
 
+from .utils import envgate as _envgate
+
 Device = Union[str, torch.device]
 
 BACKENDS = ("nccl", "gloo")
@@ -45,17 +47,47 @@ BACKENDS = ("nccl", "gloo")
 # and per shard, the engine sizes bucket_cap so that
 # ``world * bucket_cap * row_bytes <= budget`` and drains the table over
 # ceil(hottest bucket / bucket_cap) rounds. Override per context with
-# ``ctx.add_config("shuffle_byte_budget", n)`` or per call with the
-# ``byte_budget=`` argument of ``Table.shuffle``.
+# ``ctx.add_config("shuffle_byte_budget", n)``, per process with
+# CYLON_TPU_TORCH_SHUFFLE_BUDGET, or per call with the ``byte_budget=``
+# argument of ``Table.shuffle``.
 DEFAULT_SHUFFLE_BYTE_BUDGET = 32 * 1024 * 1024
 
 
 def shuffle_byte_budget(configured: Optional[object] = None) -> int:
     """The effective per-round shuffle byte budget: an explicit value wins,
-    else the module default."""
+    then CYLON_TPU_TORCH_SHUFFLE_BUDGET, then the module default."""
     if configured:
         return int(configured)
+    env = _envgate.SHUFFLE_BUDGET.get()
+    if env:
+        return int(env)
     return DEFAULT_SHUFFLE_BYTE_BUDGET
+
+
+# semi-join sketch filter (ops/sketch.py; table._shuffle_pair). The cap on
+# one key sketch's blocked-Bloom size, in bits: 2 Mi bits = 256 KiB of
+# uint32 words, the bound on what each side injects into the one sketch
+# collective. The engine sizes the sketch from the build side's row count
+# (sketch.BITS_PER_KEY a key) up to this cap; a saturated sketch only
+# misses pruning. Override per context with ``ctx.add_config("sketch_bits",
+# n)`` or per process with CYLON_TPU_TORCH_SKETCH_BITS.
+DEFAULT_SKETCH_BITS = 1 << 21
+
+# size gate: build sketches only when the filtered sides' per-shard
+# exchange bytes (rows x row_bytes / world) are at least this multiple of
+# the sketch collective's own bytes
+SEMI_FILTER_MIN_PAYOFF = 2
+
+
+def sketch_bits(configured: Optional[object] = None) -> int:
+    """The semi-join sketch bit cap: an explicit value wins, then
+    CYLON_TPU_TORCH_SKETCH_BITS, then the module default."""
+    if configured:
+        return int(configured)
+    env = _envgate.SKETCH_BITS.get()
+    if env:
+        return int(env)
+    return DEFAULT_SKETCH_BITS
 
 
 def _resolve(device: Device) -> torch.device:

@@ -14,7 +14,10 @@ process owns (``local_shards``) only:
   another process owns.
 
 The interface: ``all_to_all(bufs)`` (the shuffle's exchange),
-``all_reduce(tensors, op)``, ``all_gather_counts(local_counts)`` (host
+``all_reduce(tensors, op)``, ``all_gather(tensors)`` (every shard's tensor
+stacked on every shard: the semi-join sketches, which NCCL cannot
+OR-reduce, so each rank ORs the gathered words itself, as the JAX package
+does), ``all_gather_counts(local_counts)`` (host
 integers that decide control flow, so that every rank takes the same
 branch), ``gather_host(obj)`` (host output) and ``barrier()``.
 """
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .config import GPUConfig, init_method, shuffle_byte_budget
+from .config import GPUConfig, init_method, shuffle_byte_budget, sketch_bits
 
 
 _REDUCE = {"sum": torch.sum, "min": torch.amin, "max": torch.amax}
@@ -79,6 +82,16 @@ class LocalCommunicator:
         dev0 = self.devices[0]
         red = _REDUCE[op](torch.stack([t.to(dev0) for t in tensors]), dim=0)
         return [red.to(d) for d in self.devices]
+
+    def all_gather(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """``tensors[s]`` is shard s's tensor (one shape for all); returns
+        them stacked ``[W, ...]``, one copy on each shard's device: the JAX
+        package's ``lax.all_gather``."""
+        if len(tensors) != self.world_size:
+            raise ValueError(f"all_gather needs {self.world_size} tensors, got {len(tensors)}")
+        dev0 = self.devices[0]
+        stacked = torch.stack([t.to(dev0) for t in tensors])
+        return [stacked.to(d) for d in self.devices]
 
     def all_gather_counts(self, local_counts) -> np.ndarray:
         """Host integers, one entry (a count or a row of counts) per shard,
@@ -154,6 +167,14 @@ class DistCommunicator:
         if t.dtype == torch.bool:
             x = x.to(torch.int64) if op == "sum" else x.to(torch.bool)
         return [x]
+
+    def all_gather(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """This shard's tensor -> every shard's, stacked ``[W, ...]``: one
+        ``all_gather_into_tensor``."""
+        t = self._one(tensors, "all_gather").contiguous()
+        out = torch.empty(self.world_size * t.numel(), dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, t.reshape(-1))
+        return [out.view((self.world_size,) + tuple(t.shape))]
 
     def all_gather_counts(self, local_counts) -> np.ndarray:
         mine = torch.from_numpy(np.ascontiguousarray(np.asarray(local_counts, np.int64)))
@@ -253,6 +274,26 @@ class CylonContext:
         """Per-round chunked-shuffle byte budget (config KV
         ``shuffle_byte_budget`` > config.DEFAULT_SHUFFLE_BYTE_BUDGET)."""
         return shuffle_byte_budget(self._config.get("shuffle_byte_budget"))
+
+    @property
+    def sketch_bits(self) -> int:
+        """Semi-join sketch bit cap (config KV ``sketch_bits`` >
+        CYLON_TPU_TORCH_SKETCH_BITS > config.DEFAULT_SKETCH_BITS)."""
+        return sketch_bits(self._config.get("sketch_bits"))
+
+    def check_shuffle_tiers(self) -> None:
+        """Raise for a config that asks for a shuffle tier the port has not
+        ported: a lossy-wire tolerance (``quant_tol`` above 0) or a 2-D
+        mesh (``mesh_shape``). Read by every shuffle."""
+        tol = self._config.get("quant_tol", "")
+        if tol and float(tol) > 0:
+            raise NotImplementedError(
+                "quant_tol: the quantized wire tier is not ported yet (ROADMAP.md: A6)"
+            )
+        if self._config.get("mesh_shape"):
+            raise NotImplementedError(
+                "mesh_shape: the two-hop topology exchange is not ported yet (ROADMAP.md: A6)"
+            )
 
     def __repr__(self):
         return (

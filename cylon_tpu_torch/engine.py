@@ -49,7 +49,8 @@ class PlanEntry(NamedTuple):
 def plan_executable(ctx, fingerprint, compile_fn: Callable[[], PlanEntry]):
     """Per-context cache of optimized and lowered plans, keyed by the plan's
     gated fingerprint (node shapes, schemas, world size, scan order
-    descriptors, the ordering gate; not row counts). A hit skips optimize
+    descriptors, the ordering, semi-filter and lane-packing gates; not row
+    counts). A hit skips optimize
     and lower. Returns ``(entry, hit)`` and counts ``plan.cache.hit`` /
     ``plan.cache.miss``. A miss compiles under a lock, so racing threads
     compile one plan once; the oldest entry goes past 256 (literal values

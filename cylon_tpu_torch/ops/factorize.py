@@ -15,14 +15,15 @@ from ..dtypes import promote_key_dtypes
 from .sort import KeyCol, canonical_row_lanes, sentinel_compact, sorted_runs
 
 
-def factorize(key_cols: Sequence[KeyCol]) -> Tuple[torch.Tensor, int]:
+def factorize(key_cols: Sequence[KeyCol], fuse=None) -> Tuple[torch.Tensor, int]:
     """(ids [n] int32 in sorted key order, number of groups). One host sync
-    reads the group count."""
+    reads the group count. ``fuse``: a sort-word fusion plan
+    (ops/sort.FusePlan) of the canonical lanes: the same ids."""
     n = key_cols[0][0].shape[0]
     device = key_cols[0][0].device
     if n == 0:
         return torch.zeros(0, dtype=torch.int32, device=device), 0
-    order, diff = sorted_runs(canonical_row_lanes(key_cols))
+    order, diff = sorted_runs(canonical_row_lanes(key_cols, fuse), fuse)
     ids_sorted = torch.cumsum(diff.to(torch.int32), 0, dtype=torch.int32) - 1
     num_groups = int(ids_sorted[-1].item()) + 1
     (ids,) = sentinel_compact(order, [ids_sorted])  # back to row order
@@ -30,11 +31,12 @@ def factorize(key_cols: Sequence[KeyCol]) -> Tuple[torch.Tensor, int]:
 
 
 def factorize_two(
-    l_cols: Sequence[KeyCol], r_cols: Sequence[KeyCol]
+    l_cols: Sequence[KeyCol], r_cols: Sequence[KeyCol], fuse=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Joint factorization of two tables' key rows onto one dense id space
     (equal key tuples across the tables share an id). Returns (l_ids [nl],
-    r_ids [nr]) int32; ids are < nl + nr."""
+    r_ids [nr]) int32; ids are < nl + nr. ``fuse``: a fusion plan over the
+    concatenated key columns, sized by both sides' merged stats."""
     nl = l_cols[0][0].shape[0]
     nr = r_cols[0][0].shape[0]
     device = l_cols[0][0].device
@@ -53,7 +55,7 @@ def factorize_two(
     if n == 0:
         empty = torch.zeros(0, dtype=torch.int32, device=device)
         return empty, empty
-    order, diff = sorted_runs(canonical_row_lanes(cat_cols))
+    order, diff = sorted_runs(canonical_row_lanes(cat_cols, fuse), fuse)
     ids_sorted = torch.cumsum(diff.to(torch.int32), 0, dtype=torch.int32) - 1
     (ids,) = sentinel_compact(order, [ids_sorted])
     return ids[:nl], ids[nl:]

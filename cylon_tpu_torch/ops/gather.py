@@ -11,8 +11,9 @@ narrower columns widen to one lane.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 KeyCol = Tuple[torch.Tensor, Optional[torch.Tensor]]
@@ -116,3 +117,216 @@ def pack_gather(
         return ok if lane is None else (ok & lane.to(torch.bool))
 
     return unpack_cols(plan, g_cols, make_valid)[0]
+
+
+# ----------------------------------------------------------------------
+# the bit-width-adaptive WIRE codec (ops/stats.py range stats drive it)
+#
+# The lane codec above ships every value as whole int32 lanes and every
+# validity mask as a lane. On the shuffle's exchange that width is pure
+# wire cost: a column whose measured range fits 12 bits ships 12 bits
+# rebased by a GLOBAL per-column base (both sides of the exchange must
+# agree, so the base comes from the host-folded stats of every shard), a
+# validity mask 1 bit, a bool 1 bit, a float16 its 16 bits. Only
+# bit-lossless encodings narrow (int families, bools, dictionary codes);
+# float32 rides as a plain lane, float64 as two passthrough lanes behind
+# the packed words. The quantized fields of the lossy tier (kind 'q') are
+# ROADMAP.md A6's next slice: no plan holds one yet.
+# ----------------------------------------------------------------------
+
+class WireField(NamedTuple):
+    """One bit-field of the wire layout, in column-major field order.
+
+    ``kind``: 'enc' (stats-rebased orderable encoding), 'lane' (one plain
+    32-bit lane of an un-narrowed column), 'valid' (1-bit validity), 'h16'
+    (the native 16 bits of a float16/bfloat16), 'q' (a lossy quantized
+    field, not ported). ``off``: a 'lane' field's lane within its column.
+    ``cls``: an 'enc' field's encoding class; an 'h16' field's dtype."""
+
+    col: int
+    kind: str
+    off: int
+    bits: int
+    cls: str
+
+
+class WirePlan(NamedTuple):
+    """Static wire-narrowing plan (quantized widths only): ``plan`` is the
+    :func:`wire_lane_plan` it narrows."""
+
+    plan: tuple
+    fields: Tuple[WireField, ...]
+    n_words: int
+    n_plain: int
+
+
+def wire_lane_plan(cols: Sequence[KeyCol]):
+    """The JAX package's lane-codec plan of a column set, from dtypes alone:
+    (tag or None, n_lanes, has_valid) per column, tag the dtype's name and
+    None for float64, which rides outside the packed words."""
+    plan = []
+    for data, valid in cols:
+        dt = data.dtype
+        if dt == torch.float64:
+            plan.append((None, 0, valid is not None))
+        else:
+            plan.append((str(dt).replace("torch.", ""), 2 if data.element_size() == 8 else 1,
+                         valid is not None))
+    return plan
+
+
+def wire_plan(cols_plan, stats_list, quant=None) -> Optional[WirePlan]:
+    """The wire layout of a column set, or None when packing would not
+    strictly cut the word count.
+
+    ``stats_list``: per column ``(enc_class, field_bits)`` from measured
+    global range stats, or None. Lossless narrow encodings take 'enc'
+    fields (bool needs no stats: 1 bit, base 0), float16/bfloat16 'h16'
+    fields, everything else its plain 32-bit lanes; float64 stays outside;
+    every validity mask takes 1 bit. ``quant`` (the lossy tier's per-column
+    codecs) is not ported: it must be None."""
+    from .stats import wire_narrowable
+
+    if quant is not None and any(q is not None for q in quant):
+        raise NotImplementedError("quantized wire fields are not ported yet (ROADMAP.md: A6)")
+    fields: List[WireField] = []
+    n_plain = 0
+    for ci, (tag, nl, has_valid) in enumerate(cols_plan):
+        if tag is not None:
+            n_plain += nl
+            st = stats_list[ci]
+            if tag == "bool":
+                fields.append(WireField(ci, "enc", 0, 1, "bool"))
+            elif tag in ("float16", "bfloat16"):
+                fields.append(WireField(ci, "h16", 0, 16, tag))
+            elif st is not None and wire_narrowable(st[0]):
+                fields.append(WireField(ci, "enc", 0, int(st[1]), st[0]))
+            else:
+                for j in range(nl):
+                    fields.append(WireField(ci, "lane", j, 32, ""))
+        if has_valid:
+            n_plain += 1
+            fields.append(WireField(ci, "valid", 0, 1, ""))
+    if not fields:
+        return None
+    total = sum(f.bits for f in fields)
+    n_words = max(-(-total // 32), 1)
+    if n_words >= n_plain:
+        return None
+    return WirePlan(tuple(cols_plan), tuple(fields), n_words, n_plain)
+
+
+def wire_row_bytes(wplan: WirePlan) -> int:
+    """Bytes one row takes in a wire-narrowed exchange buffer: 4 per packed
+    word + 8 per float64 column (two lanes behind the words)."""
+    qcols = {f.col for f in wplan.fields if f.kind == "q"}
+    total = 4 * wplan.n_words
+    total += sum(8 for ci, (tag, _nl, _hv) in enumerate(wplan.plan) if tag is None and ci not in qcols)
+    return max(total, 1)
+
+
+def wire_has_quant(wplan: Optional[WirePlan]) -> bool:
+    """Whether the plan holds a lossy field: never, until the quant slice."""
+    return wplan is not None and any(f.kind == "q" for f in wplan.fields)
+
+
+def wire_pt_order(wplan: WirePlan, pt_order) -> tuple:
+    """The passthrough (float64) columns that still ride outside the words."""
+    qcols = {f.col for f in wplan.fields if f.kind == "q"}
+    return tuple(ci for ci in pt_order if ci not in qcols)
+
+
+def wire_bases(wplan: WirePlan, stats_by_col: dict) -> np.ndarray:
+    """[n_enc, 2] uint32 (hi, lo) base words of the plan's 'enc' fields in
+    field order, the same on every rank; bool fields (and absent stats)
+    use base 0."""
+    rows = []
+    for f in wplan.fields:
+        if f.kind != "enc":
+            continue
+        st = stats_by_col.get(f.col)
+        lo = 0 if (f.cls == "bool" or st is None) else int(st.lo)
+        rows.append(((lo >> 32) & 0xFFFFFFFF, lo & 0xFFFFFFFF))
+    return np.asarray(rows, np.uint32).reshape(-1, 2)
+
+
+def _enc_base(bases: Optional[np.ndarray], ei: int) -> int:
+    """Base of 'enc' field ``ei`` as an int64 value (a uint64 base as its
+    two's-complement pattern). ``bases=None``: every base is 0."""
+    if bases is None:
+        return 0
+    b = (int(bases[ei, 0]) << 32) | int(bases[ei, 1])
+    return b - (1 << 64) if b >= 1 << 63 else b
+
+
+def wire_pack_cols(cols: Sequence[KeyCol], wplan: WirePlan, bases: Optional[np.ndarray]):
+    """Encode every column into the plan's packed words.
+
+    Returns (word lanes, each an int32 [n] tensor, passthrough {col ->
+    float64 data}). 'enc' fields clamp to their width: the values fit
+    whenever the stats were sound bounds (values under null were measured
+    too), so the clamp is a firewall, not a data path."""
+    from .stats import M32, assemble_words, clamp_field, encode_enc, layout_words
+
+    field_vals: List[torch.Tensor] = []
+    bits_list: List[int] = []
+    ei = 0
+    for f in wplan.fields:
+        data, valid = cols[f.col]
+        if f.kind == "enc":
+            base = _enc_base(bases, ei)
+            ei += 1
+            if f.bits == 0:
+                v = torch.zeros(data.shape, dtype=torch.int64, device=data.device)
+            else:
+                v = clamp_field(encode_enc(data, f.cls) - base, f.bits)
+        elif f.kind == "h16":
+            v = data.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF
+        elif f.kind == "lane":
+            v = _to_lanes(data)[f.off].to(torch.int64) & M32
+        elif f.kind == "valid":
+            v = valid.to(torch.int64)
+        else:
+            raise NotImplementedError("quantized wire fields are not ported yet (ROADMAP.md: A6)")
+        field_vals.append(v)
+        bits_list.append(f.bits)
+    passthrough = {ci: cols[ci][0] for ci, (tag, _nl, _hv) in enumerate(wplan.plan) if tag is None}
+    return assemble_words(field_vals, layout_words(bits_list, False), bits_list), passthrough
+
+
+def wire_unpack_cols(word_lanes, wplan: WirePlan, bases: Optional[np.ndarray],
+                     handle_passthrough, make_valid):
+    """Decode :func:`wire_pack_cols` words back into columns: the wire
+    counterpart of :func:`unpack_cols` (``handle_passthrough(ci)`` gives a
+    float64 column, ``make_valid(lane_or_None)`` shapes each validity)."""
+    from .stats import decode_enc, extract_fields, layout_words
+
+    bits_list = [f.bits for f in wplan.fields]
+    vals = extract_fields(list(word_lanes), layout_words(bits_list, False), bits_list)
+    per_col: dict = {}
+    ei = 0
+    for f, v in zip(wplan.fields, vals):
+        slot = -1
+        if f.kind == "enc":
+            slot = ei
+            ei += 1
+        per_col.setdefault(f.col, []).append((f, v, slot))
+    out: List[KeyCol] = []
+    for ci, (tag, _nl, has_valid) in enumerate(wplan.plan):
+        data = vlane = None
+        frags: List[torch.Tensor] = []
+        for f, v, slot in per_col.get(ci, []):
+            if f.kind == "enc":
+                data = decode_enc(v + _enc_base(bases, slot), f.cls, getattr(torch, tag))
+            elif f.kind == "h16":
+                data = torch.where(v >= 2**15, v - 2**16, v).to(torch.int16).view(getattr(torch, f.cls))
+            elif f.kind == "lane":
+                frags.append(torch.where(v >= 2**31, v - 2**32, v).to(torch.int32))
+            else:
+                vlane = v.to(torch.int32)
+        if data is None and tag is None:
+            data = handle_passthrough(ci)
+        elif data is None:
+            data = _from_lanes(frags, getattr(torch, tag))
+        out.append((data, make_valid(vlane) if has_valid else make_valid(None)))
+    return out

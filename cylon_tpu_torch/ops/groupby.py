@@ -46,9 +46,10 @@ def agg_op_id(name) -> int:
     return op
 
 
-def group_ids(key_cols: Sequence[KeyCol]) -> Tuple[torch.Tensor, int]:
-    """(ids [n] int32, number of groups)."""
-    return factorize(key_cols)
+def group_ids(key_cols: Sequence[KeyCol], fuse=None) -> Tuple[torch.Tensor, int]:
+    """(ids [n] int32, number of groups). ``fuse``: the canonical lanes'
+    sort-word fusion plan (ops/sort.FusePlan), the same ids."""
+    return factorize(key_cols, fuse=fuse)
 
 
 def sorted_group_ids(key_cols: Sequence[KeyCol]) -> Tuple[torch.Tensor, int]:

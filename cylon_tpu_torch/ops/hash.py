@@ -4,8 +4,10 @@ columns with ``h = 31 * h + column_hash``, nulls hashing to 0. Equal hashes
 in both packages put every row on the same shard.
 
 torch has no full uint32 arithmetic, so a uint32 pattern rides in an int64
-tensor and every multiply and shift is masked back to 32 bits. Multiplies
-split one factor into 16-bit halves so no product leaves int64's range.
+tensor between steps and every multiply and shift is masked back to 32
+bits (:func:`mul32` splits one factor into 16-bit halves so no product
+leaves int64's range); the murmur rounds themselves run in int32, whose
+products wrap mod 2^32.
 On a card the shuffle's pack kernel (ops/cuda_codec.py, kernel B2) replays
 the murmur chain itself over the words :func:`to_words` makes here.
 """
@@ -110,12 +112,48 @@ def to_words(data: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     raise TypeError(f"cannot hash a column of dtype {dt}")
 
 
-def murmur3_words(w0: torch.Tensor, w1: torch.Tensor, seed: int = 0) -> torch.Tensor:
-    """murmur3_x86_32 of two uint32 words per row -> uint32 in int64."""
-    h = torch.full(w0.shape, seed & M32, dtype=torch.int64, device=w0.device)
-    h = mix_word(h, w0)
-    h = mix_word(h, w1)
-    return fmix32(h ^ 8)
+# the same murmur3 in int32 tensors: a product of int32 values wraps mod
+# 2^32 (its low 32 bits are the uint32 product's), so one multiply does
+# what mul32 does in seven int64 ops, at half the bytes; right shifts are
+# arithmetic on int32, so the logical ones mask the sign bits off
+
+
+def _s32(c: int) -> int:
+    """A uint32 constant as the int32 with its bits."""
+    c &= M32
+    return c - (1 << 32) if c >= 1 << 31 else c
+
+
+def _shr32(x: torch.Tensor, s: int) -> torch.Tensor:
+    return (x >> s) & ((1 << (32 - s)) - 1)
+
+
+def _rotl_i32(x: torch.Tensor, r: int) -> torch.Tensor:
+    return (x << r) | _shr32(x, 32 - r)
+
+
+def _mix_i32(h: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    k = _rotl_i32(k * _s32(C1), 15) * _s32(C2)
+    h = _rotl_i32(h ^ k, 13)
+    return h * 5 + _s32(0xE6546B64)
+
+
+def murmur3_words(w0: torch.Tensor, w1: torch.Tensor, seed=0) -> torch.Tensor:
+    """murmur3_x86_32 of two uint32 words per row (in int64) -> uint32 in
+    int64, computed in int32. ``seed``: an int, or a sequence of S seeds,
+    which hashes every row under each at once -> [S, n]."""
+    k0 = (w0 - ((w0 >> 31) << 32)).to(torch.int32) if w0.dtype == torch.int64 else w0
+    k1 = (w1 - ((w1 >> 31) << 32)).to(torch.int32) if w1.dtype == torch.int64 else w1
+    if isinstance(seed, int):
+        h0 = torch.full(k0.shape, _s32(seed), dtype=torch.int32, device=k0.device)
+    else:
+        h0 = torch.tensor([_s32(x) for x in seed], dtype=torch.int32, device=k0.device)
+        h0 = h0[:, None].expand(len(seed), k0.shape[0])
+    h = _mix_i32(h0, k0)
+    h = _mix_i32(h, k1) ^ 8
+    h = (h ^ _shr32(h, 16)) * _s32(0x85EBCA6B)
+    h = (h ^ _shr32(h, 13)) * _s32(0xC2B2AE35)
+    return (h ^ _shr32(h, 16)).to(torch.int64) & M32
 
 
 def murmur3_column(data: torch.Tensor, seed: int = 0) -> torch.Tensor:
@@ -123,9 +161,10 @@ def murmur3_column(data: torch.Tensor, seed: int = 0) -> torch.Tensor:
     return murmur3_words(*to_words(data), seed=seed)
 
 
-def hash_columns(cols: Sequence[KeyCol], seed: int = 0) -> torch.Tensor:
+def hash_columns(cols: Sequence[KeyCol], seed=0) -> torch.Tensor:
     """Composite row hash over (data, valid) columns: ``h = 31*h + col``,
-    null entries contributing 0. uint32 values in an int64 tensor."""
+    null entries contributing 0. uint32 values in an int64 tensor (``[S,
+    n]`` for a sequence of S seeds, :func:`murmur3_words`)."""
     h = None
     for data, valid in cols:
         ch = murmur3_column(data, seed)

@@ -74,11 +74,12 @@ def _fast_path_ok(cols: Sequence[KeyCol]) -> bool:
 
 
 def _canonical_ids(
-    l_key_cols: Sequence[KeyCol], r_key_cols: Sequence[KeyCol]
+    l_key_cols: Sequence[KeyCol], r_key_cols: Sequence[KeyCol], fuse=None
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[_radix.Hint]]:
     """Comparable key ids of one integer dtype for both tables, plus the
     radix hint of the id lane: the uint32 fast path keeps its full 32-bit
-    span, factorized ids are dense and bounded by nl + nr."""
+    span, factorized ids are dense and bounded by nl + nr. ``fuse``: the
+    factorize lanes' sort-word fusion plan (the fast path ignores it)."""
     if (
         len(l_key_cols) == 1
         and len(r_key_cols) == 1
@@ -89,7 +90,7 @@ def _canonical_ids(
         r_key_cols = [(r_key_cols[0][0].to(common), r_key_cols[0][1])]
     if _fast_path_ok(l_key_cols) and _fast_path_ok(r_key_cols):
         return orderable_key(l_key_cols[0][0]), orderable_key(r_key_cols[0][0]), None
-    l_ids, r_ids = factorize_two(l_key_cols, r_key_cols)
+    l_ids, r_ids = factorize_two(l_key_cols, r_key_cols, fuse=fuse)
     n = l_ids.shape[0] + r_ids.shape[0]
     return l_ids, r_ids, _radix.bound_hint(n)
 
@@ -230,9 +231,13 @@ def _emit_inner_left(
     cnt_g = outT[n_payload + 1]
     offs_g = outT[n_payload + 2].to(torch.int64)
 
+    # every left column gets a validity mask, all-true where it had none,
+    # as the JAX package's left-order emit gives it (its in-output mask):
+    # a later shuffle or groupby then plans the same lanes
+    all_true = torch.ones(total, dtype=torch.bool, device=device)
     out_l, _ = unpack_cols(
         plan, list(outT[:n_payload].unbind(0)),
-        lambda lane: None if lane is None else lane.to(torch.bool),
+        lambda lane: all_true if lane is None else lane.to(torch.bool),
     )
     out_pos = torch.arange(total, dtype=torch.int64, device=device)
     rpos = torch.where(cnt_g > 0, lo_g - offs_g + out_pos, -1)
@@ -289,6 +294,7 @@ def spec_probe(
     how: int,
     r_presorted: bool = False,
     emit_key_order: bool = False,
+    key_fuse=None,
 ) -> dict:
     """Probe + count of one shard, with no host sync: the state
     :func:`spec_emit` takes, ``"total"`` the output row count as a device
@@ -298,8 +304,10 @@ def spec_probe(
 
     ``r_presorted``: the right rows are already in key order (the caller's
     ordering descriptor proves it), so the right sort is the identity and
-    is skipped. ``emit_key_order`` (INNER / LEFT): the key-order emit."""
-    l_ids, r_ids, hint = _canonical_ids(l_key_cols, r_key_cols)
+    is skipped. ``emit_key_order`` (INNER / LEFT): the key-order emit.
+    ``key_fuse``: the multi-key / masked probe's factorize fusion plan
+    (``Table.join`` sizes it from both sides' merged stats)."""
+    l_ids, r_ids, hint = _canonical_ids(l_key_cols, r_key_cols, key_fuse)
     nr = r_ids.shape[0]
     if how in (INNER, LEFT):
         if r_presorted:

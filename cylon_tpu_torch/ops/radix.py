@@ -42,6 +42,27 @@ def bound_hint(upper: int) -> Hint:
     return (_SPAN, 0, max(int(upper).bit_length(), 1))
 
 
+def span_hint(lo: int, hi: int) -> Hint:
+    """Span hint for an unsigned lane whose significant bits are [lo, hi)."""
+    return (_SPAN, int(lo), int(hi))
+
+
+def fuse_word_hints(fuse) -> List[Optional[Hint]]:
+    """Least-significant-first span hints of a FusePlan's fused sort words
+    (ops/sort.py): the layout packs unused bits at the bottom of the last
+    word as constant-zero tie padding, so those digits are skipped."""
+    from .stats import layout_words
+
+    bits_list = [b for _k, _p, b, _a in fuse.fields]
+    layout = layout_words(bits_list, fuse.allow64)
+    widths = [w for w, _ in layout]
+    unused = sum(widths) - sum(bits_list)
+    hints: List[Optional[Hint]] = [span_hint(0, w) for w in reversed(widths)]
+    if hints:
+        hints[0] = span_hint(unused, hints[0][2])
+    return hints
+
+
 def _digit_lane(
     lane: torch.Tensor, hint: Optional[Hint]
 ) -> Optional[Tuple[torch.Tensor, int, int, bool]]:

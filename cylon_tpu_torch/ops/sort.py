@@ -9,7 +9,7 @@ declines to chained ``lax.sort`` passes.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -158,12 +158,18 @@ def run_count_from(new_run: torch.Tensor, flag: torch.Tensor) -> torch.Tensor:
     return torch.flip(run_count_upto(torch.flip(run_end, (0,)), torch.flip(flag, (0,))), (0,))
 
 
-def canonical_row_lanes(cols: Sequence[KeyCol]) -> list:
+def canonical_row_lanes(cols: Sequence[KeyCol], fuse: Optional["FusePlan"] = None) -> list:
     """Canonical key lanes for one combined row ordering, most significant
     first: per column (null lane, value lane). Value lanes are zeroed under
     null so a run of nulls is ONE run (null == null). The JAX package's
     leading padding-class lane is constant here (no padding rows) and is
-    left out."""
+    left out.
+
+    ``fuse``: a stats-driven :class:`FusePlan` (pad_bits=1) bit-packs the
+    whole lane stack into fewer words; the sorted order and the run
+    boundaries are the same by construction, so factorize ids are too."""
+    if fuse is not None:
+        return fused_key_words(fuse, cols, nulls_last=True, zero_null_values=True)
     lanes: list = []
     for data, valid in cols:
         vlane = orderable_key(data)
@@ -185,12 +191,16 @@ def lane_runs_differ(sorted_lanes: Sequence[torch.Tensor]) -> torch.Tensor:
     return diff
 
 
-def sorted_runs(lanes_msb_first: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+def sorted_runs(
+    lanes_msb_first: Sequence[torch.Tensor], fuse: Optional["FusePlan"] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stable row ordering + run boundaries over canonical lanes: (order
-    [n] int32 original row indices in sorted order, new_run [n] bool)."""
+    [n] int32 original row indices in sorted order, new_run [n] bool).
+    ``fuse``: the lanes are that plan's fused words (their digit spans)."""
     lanes = list(lanes_msb_first)
     n = lanes[0].shape[0]
-    order = lexsort_indices(list(reversed(lanes)), n)
+    hints = None if fuse is None else _radix.fuse_word_hints(fuse)
+    order = lexsort_indices(list(reversed(lanes)), n, hints)
     return order, lane_runs_differ([lane.index_select(0, order) for lane in lanes])
 
 
@@ -237,13 +247,26 @@ def lexsort_rows_payload(
     ascending: Optional[Sequence[bool]] = None,
     nulls_last: bool = True,
     prefix_lane: Optional[torch.Tensor] = None,
+    fuse: Optional["FusePlan"] = None,
 ) -> Tuple[torch.Tensor, list]:
     """Stable argsort of rows by several key columns, nulls per column
     first or last; returns (order [n] int32, payloads gathered by it).
     ``prefix_lane`` (a :func:`prefix_run_lane`) is the most significant
-    key, ahead of ``key_cols``."""
+    key, ahead of ``key_cols``.
+
+    ``fuse``: a stats-driven :class:`FusePlan` over exactly (pad_bits=2,
+    prefix, key_cols in order): the lane stack bit-packs into
+    ``fuse.n_words`` words, each one K1 lane sort over its live bits. The
+    permutation is the same (null rows still order by their masked value,
+    which the stats measured too)."""
     if ascending is None:
         ascending = [True] * len(key_cols)
+    device = key_cols[0][0].device if key_cols else torch.device("cpu")
+    if fuse is not None:
+        words = fused_key_words(fuse, list(key_cols), nulls_last=nulls_last,
+                                prefix_lane=prefix_lane)
+        perm = lexsort_indices(list(reversed(words)), n, _radix.fuse_word_hints(fuse))
+        return perm, [p.index_select(0, perm) for p in payloads]
     lanes, hints = [], []  # least-significant first
     for (data, valid), asc in zip(reversed(list(key_cols)), reversed(list(ascending))):
         lanes.append(_norm_key(data, asc))
@@ -254,9 +277,126 @@ def lexsort_rows_payload(
     if prefix_lane is not None:
         lanes.append(prefix_lane)
         hints.append(_radix.bound_hint(n))
-    device = key_cols[0][0].device if key_cols else torch.device("cpu")
     if not lanes:
         perm = torch.arange(n, dtype=torch.int32, device=device)
     else:
         perm = lexsort_indices(lanes, n, hints)
     return perm, [p.index_select(0, perm) for p in payloads]
+
+
+# ---------------------------------------------------------------------------
+# bit-width-adaptive sort-word fusion (ops/stats.py range stats drive it)
+#
+# Each chained K1 lane sort streams one lane; a 12-bit dictionary code, a
+# 16-bit int key and a 1-bit null flag each take a whole word. The planner
+# bit-packs narrow orderable_key lanes, rebased by their per-shard minimum
+# (the stats fix only the field widths), into the fewest words. Order is
+# kept by construction: the encodings are monotone, a uniform rebase keeps
+# order, and msb-first fields make word order equal lane order.
+# ---------------------------------------------------------------------------
+
+class FusePlan(NamedTuple):
+    """Sort-word fusion plan (quantized widths only, never raw bounds).
+
+    ``fields``: msb-first ``(kind, key_pos, bits, ascending)`` with kind in
+    {'pad', 'prefix', 'null', 'value'}; the 'pad' field is the JAX
+    package's padding class, constant zero here (no padding rows), kept so
+    that plans and their gate agree with it. ``allow64``: the layout is one
+    uint64 word (only when the whole plan fits one). ``n_words`` /
+    ``n_plain``: fused vs unfused lane counts (fusion engages only when
+    strictly fewer)."""
+
+    fields: Tuple[Tuple[str, int, int, bool], ...]
+    allow64: bool
+    n_words: int
+    n_plain: int
+
+
+def plan_lane_fusion(
+    key_specs: Sequence[Optional[Tuple[str, int, bool, bool]]],
+    pad_bits: int,
+    prefix_bits: int,
+    allow64: bool,
+) -> Optional[FusePlan]:
+    """A :class:`FusePlan` for key columns with measured range stats.
+
+    ``key_specs``: per key ``(enc_class, field_bits, has_valid, ascending)``
+    or None where the key has no usable stats. ``pad_bits``: 2 for the
+    lexsort row class, 1 for the canonical live flag; ``prefix_bits``: the
+    run-id prefix lane's width (0: none). None when a key is unplannable, a
+    float key sorts descending (NaN stays last in both directions, which a
+    rebased descending float field cannot give), or fusion would not
+    strictly cut the pass count."""
+    from .stats import layout_words
+
+    if any(s is None for s in key_specs) or not key_specs:
+        return None
+    fields: list = [("pad", -1, pad_bits, True)]
+    if prefix_bits:
+        fields.append(("prefix", -1, prefix_bits, True))
+    n_plain = 1 + (1 if prefix_bits else 0)
+    for pos, (cls, bits, has_valid, asc) in enumerate(key_specs):
+        if cls == "f32" and not asc:
+            return None
+        if bits > 32 and not allow64:
+            return None
+        if has_valid:
+            fields.append(("null", pos, 1, True))
+            n_plain += 1
+        fields.append(("value", pos, bits, bool(asc)))
+        n_plain += 1
+    bits_list = [b for _k, _p, b, _a in fields]
+    # a 64-bit word only as the single sort word (the JAX package's rule)
+    layout = layout_words(bits_list, allow64)
+    use64 = allow64 and len(layout) == 1
+    if not use64:
+        layout = layout_words(bits_list, False)
+    n_words = len(layout)
+    if n_words >= n_plain:
+        return None
+    return FusePlan(tuple(fields), use64, n_words, n_plain)
+
+
+def fused_key_words(
+    plan: FusePlan,
+    key_cols: Sequence[KeyCol],
+    nulls_last: bool = True,
+    prefix_lane: Optional[torch.Tensor] = None,
+    zero_null_values: bool = False,
+) -> list:
+    """The fused sort words of one plan, most significant first (int32
+    uint32 words, or one int64 uint64 word).
+
+    A value field is the key's orderable encoding rebased by its minimum
+    over the shard (its maximum minus it, descending) and clamped to the
+    field width. ``zero_null_values`` gives canonical_row_lanes' zeroed
+    value under null (null == null runs); without it null rows order by
+    their masked value, as the lexsort does."""
+    from .stats import M32, assemble_words, clamp_field, layout_words, umax, umin
+
+    n = key_cols[0][0].shape[0]
+    fields, bits_list = [], []
+    for kind, pos, bits, asc in plan.fields:
+        v = None  # a constant-zero field: the pad class (no padding rows here)
+        if kind == "prefix":
+            v = prefix_lane.to(torch.int64).clamp(0, (1 << bits) - 1)
+        elif kind == "null":
+            valid = key_cols[pos][1]
+            v = (~valid if nulls_last else valid).to(torch.int64)
+        elif kind == "value":
+            data, valid = key_cols[pos]
+            if bits and n:
+                enc = orderable_key(data)
+                if enc.dtype == torch.int32:  # uint32 patterns: widen, then plain min/max
+                    enc = enc.to(torch.int64) & M32
+                    v = enc - enc.min() if asc else enc.max() - enc
+                else:  # uint64 patterns
+                    v = enc - umin(enc) if asc else umax(enc) - enc
+                v = clamp_field(v, bits)
+            if v is not None and zero_null_values and valid is not None:
+                v = v.masked_fill(~valid, 0)
+        fields.append(v)
+        bits_list.append(bits)
+    if all(f is None for f in fields):
+        fields[0] = torch.zeros(n, dtype=torch.int64, device=key_cols[0][0].device)
+    return assemble_words(fields, layout_words(bits_list, plan.allow64), bits_list)

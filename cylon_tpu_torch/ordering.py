@@ -27,8 +27,9 @@ keys its cache by :func:`enabled`.
 """
 from __future__ import annotations
 
-from contextlib import contextmanager
-from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+from .utils.envgate import env_gate
 
 
 class Ordering(NamedTuple):
@@ -75,26 +76,14 @@ def validate(ordering: Optional[Ordering], column_names) -> Optional[Ordering]:
     return ordering
 
 
-#: nesting depth of :func:`disabled` (process-global, as an environment
-#: switch would be)
-_OFF = [0]
-
-
-def enabled() -> bool:
-    """Whether the consumers may use descriptors (False inside
-    :func:`disabled`)."""
-    return _OFF[0] == 0
-
-
-@contextmanager
-def disabled() -> Iterator[None]:
-    """Turn every descriptor consumer off for the block: each op then takes
-    the path it takes on an unordered input (the differential oracle)."""
-    _OFF[0] += 1
-    try:
-        yield
-    finally:
-        _OFF[0] -= 1
+# the CYLON_TPU_TORCH_NO_ORDERING=1 kill switch: ``enabled()`` is False
+# inside ``disabled()`` (or with the variable set), and every descriptor
+# consumer then takes the path it takes on an unordered input (the
+# differential oracle); the planner keys its cache by the gate
+enabled, disabled = env_gate(
+    "CYLON_TPU_TORCH_NO_ORDERING",
+    keyed_via="the plan fingerprint carries the gate (plan/lazy.py)",
+)
 
 
 def covers_prefix(

@@ -9,7 +9,9 @@ goes straight to execution. ``.explain()`` shows the plan before and after
 the rewrites and which rules fired.
 
 Not ported: ``explain(analyze=True)`` and ``collect_async`` (ROADMAP.md A9,
-with the plan feedback component of the fingerprint).
+with the plan feedback component of the fingerprint). :func:`gate_report`
+reads the counters of the engine's adaptive decisions (``GATE_PREFIXES``),
+which the JAX package prints per node under ``explain(analyze=True)``.
 """
 from __future__ import annotations
 
@@ -17,8 +19,10 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union as TUnion
 
 from .. import ordering as _ord
 from ..engine import PlanEntry, plan_executable
+from ..ops import sketch as _sketch
+from ..ops import stats as _stats
 from ..table import _not_ported
-from ..utils.tracing import bump
+from ..utils.tracing import bump, report
 from . import lower as _lower
 from . import rules as _rules
 from .expr import Col, Expr
@@ -31,12 +35,27 @@ def _as_list(x) -> List[str]:
     return list(x)
 
 
+#: counter families of the engine's adaptive decisions, attributable to the
+#: plan node whose execution made them
+GATE_PREFIXES = ("ordering.", "shuffle.semi_filter.", "lane_pack.", "plan.cache.")
+
+
+def gate_report() -> Dict[str, Dict[str, float]]:
+    """The rollup counters under :data:`GATE_PREFIXES`."""
+    out: Dict[str, Dict[str, float]] = {}
+    for prefix in GATE_PREFIXES:
+        out.update(report(prefix))
+    return out
+
+
 def gated_fingerprint(plan: Node) -> tuple:
     """The executable identity of a plan: its structural fingerprint and
-    the ordering gate, which decides which rewrites fire. The JAX package
-    adds the gates of tiers the port has not ported (A6, A7) and a
-    feedback component (A9)."""
-    return (plan.fingerprint(), _ord.enabled())
+    the ordering, semi-filter and lane-packing gates, which decide which
+    rewrites fire and which paths the lowered ops take, so a gate flip
+    re-optimizes instead of reusing an executor built under the other
+    state. The JAX package adds the gates of tiers the port has not ported
+    (quant, topo, spill: A6, A7) and a feedback component (A9)."""
+    return (plan.fingerprint(), _ord.enabled(), _sketch.enabled(), _stats.enabled())
 
 
 def _normalize_aggs(agg: Dict[str, TUnion[str, Sequence[str]]]) -> List[Tuple[str, str]]:

@@ -56,8 +56,8 @@ def scan_tables(root: Node) -> list:
 
 
 def detach_scans(root: Node) -> Node:
-    """Copy the plan with table-less Scan stubs (frozen ordinals, schema and
-    order descriptor). The plan cache stores executors built over the
+    """Copy the plan with table-less Scan stubs (frozen ordinals, schema,
+    order descriptor and range stats). The plan cache stores executors built over the
     detached plan: live Scans belong to the user's LazyFrame, and their
     tables would otherwise stay alive as long as the context."""
     memo: Dict[int, Node] = {}
@@ -72,6 +72,7 @@ def detach_scans(root: Node) -> Node:
             stub.ordinal = n.ordinal
             stub.schema = n.schema
             stub.table_ordering = n.ordering()  # frozen compile-time claim
+            stub.table_stats = dict(n.col_stats())  # frozen likewise
             out: Node = stub
         elif n.children:
             out = n.with_children([walk(c) for c in n.children])
@@ -92,18 +93,23 @@ def _peel_shuffle(child: Node, keys: Sequence[str]):
     return child, False
 
 
-def _prepare_join_inputs(lt, rt, l_keys, r_keys, l_shuf: bool, r_shuf: bool):
+# plan-side semi_filter annotation -> table._shuffle_pair sides
+_SEMI_SIDES = {"both": "both", "left": "a", "right": "b"}
+
+
+def _prepare_join_inputs(lt, rt, l_keys, r_keys, l_shuf: bool, r_shuf: bool, semi=None):
     """The join-input invariant in ONE place (Join and the fused node):
     unify dictionaries and promote key dtypes BEFORE hashing, then replay
     the peeled planner Shuffles; when both sides move, one engine call
-    shuffles the pair (``table._shuffle_pair``), as the eager join does."""
+    shuffles the pair (``table._shuffle_pair``), as the eager join does,
+    with the semi-join filter of the node's ``semi`` annotation."""
     from ..table import _promote_key_pair, _shuffle_pair, _unify_dict_pair
 
     lt, rt = _unify_dict_pair(lt, rt, l_keys, r_keys)
     lt, rt = _promote_key_pair(lt, rt, l_keys, r_keys)
     if lt.world_size > 1:
         if l_shuf and r_shuf:
-            lt, rt = _shuffle_pair(lt, l_keys, rt, r_keys)
+            lt, rt = _shuffle_pair(lt, l_keys, rt, r_keys, semi=_SEMI_SIDES.get(semi))
         elif l_shuf:
             lt = lt._shuffle_impl(l_keys)
         elif r_shuf:
@@ -169,7 +175,8 @@ def _lower_one(node: Node, ex, tables):
         lt = lt.rename({n: node.l_rename[n] for n in lt.column_names})
         rt = rt.rename({n: node.r_rename[n] for n in rt.column_names})
         l_keys, r_keys = list(node.l_key_out), list(node.r_key_out)
-        lt, rt = _prepare_join_inputs(lt, rt, l_keys, r_keys, l_shuf, r_shuf)
+        lt, rt = _prepare_join_inputs(lt, rt, l_keys, r_keys, l_shuf, r_shuf,
+                                      semi=node.semi_filter)
         return lt.join(
             rt, left_on=l_keys, right_on=r_keys, how=node.how, suffixes=node.suffixes,
             # order_reuse: the key-order emit, whose descriptor lets the
@@ -180,7 +187,8 @@ def _lower_one(node: Node, ex, tables):
         lchild, l_shuf = _peel_shuffle(node.children[0], node.l_on)
         rchild, r_shuf = _peel_shuffle(node.children[1], node.r_on)
         l_on, r_on = list(node.l_on), list(node.r_on)
-        lt, rt = _prepare_join_inputs(ex(lchild), ex(rchild), l_on, r_on, l_shuf, r_shuf)
+        lt, rt = _prepare_join_inputs(ex(lchild), ex(rchild), l_on, r_on, l_shuf, r_shuf,
+                                      semi=node.semi_filter)
         # the kernel emits the keys in join-pair order; name them so that
         # projecting to node.names restores the groupby key order
         pair_names = [None] * len(l_on)

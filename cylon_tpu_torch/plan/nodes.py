@@ -8,7 +8,8 @@ and for the plan fingerprint, without holding any data.
 Partitioning is derived, not stored: :meth:`Node.partitioning` returns the
 column tuples whose equal values are guaranteed to share a shard, which is
 what lets the rewriter prove a re-partition redundant. :meth:`Node.ordering`
-derives the order property the same way (``ordering.py``).
+derives the order property the same way (``ordering.py``), and
+:meth:`Node.col_stats` the column range stats (``ops/stats.py``).
 """
 from __future__ import annotations
 
@@ -64,6 +65,15 @@ class Node:
         consumes it, and ``.explain()`` prints it per node."""
         return None
 
+    def col_stats(self) -> Dict[str, object]:
+        """Known column range stats (ops/stats.ColStat) of this node's
+        output, derived like partitioning and ordering: a Scan reads its
+        table's measured bounds, row-subset and rename nodes carry them
+        (bounds stay sound over any subset), value-rewriting nodes drop
+        them. Advisory: the eager ops decide their own packing from live
+        tables; ``.explain()`` prints the quantized widths per node."""
+        return {}
+
     def _params(self) -> tuple:
         """Node-local fingerprint parameters (no children, no schema —
         schema is derived and scans carry theirs explicitly)."""
@@ -81,12 +91,18 @@ class Node:
         return type(self).__name__
 
     def line(self) -> str:
-        """The node's single rendered line (label + derived order). The
-        JAX package adds column range stats here (ROADMAP.md A6)."""
+        """The node's single rendered line (label + derived order + the
+        quantized widths of its column range stats)."""
         line = self.label()
         o = self.ordering()
         if o is not None:
             line += f"  -- order: {o.describe()}"
+        stats = self.col_stats()
+        if stats:
+            from ..ops.stats import field_bits
+
+            widths = ", ".join(f"{n}:{field_bits(v)}b" for n, v in sorted(stats.items()))
+            line += f"  -- stats: {widths}"
         return line
 
     def render(self, indent: int = 0) -> str:
@@ -105,8 +121,10 @@ class Scan(Node):
         self.ordinal: Optional[int] = None
         # a detached stub (lower.detach_scans) freezes the descriptor it
         # was compiled under; a live Scan reads the table's at use time, so
-        # an in-place change that voided it is seen (no stale claim)
+        # an in-place change that voided it is seen (no stale claim); range
+        # stats follow the same live-read / frozen-stub rule
         self.table_ordering: Optional[Ordering] = None
+        self.table_stats: Dict[str, object] = {}
         self.schema = tuple(
             (n, int(table._ref[n].dtype.type), str(numpy_dtype(table._ref[n].data.dtype)))
             for n in table.column_names
@@ -120,6 +138,11 @@ class Scan(Node):
         if self.table is None:  # detached stub
             return self.table_ordering
         return self.table._ordering
+
+    def col_stats(self) -> Dict[str, object]:
+        if self.table is None:  # detached stub
+            return dict(self.table_stats)
+        return dict(self.table._stats)
 
     def _params(self) -> tuple:
         # the descriptor is part of the plan identity: an executor whose
@@ -151,6 +174,10 @@ class Project(Node):
     def ordering(self) -> Optional[Ordering]:
         return _ord.truncate_to(self.children[0].ordering(), self.cols)
 
+    def col_stats(self) -> Dict[str, object]:
+        kept = set(self.cols)
+        return {n: v for n, v in self.children[0].col_stats().items() if n in kept}
+
     def _params(self) -> tuple:
         return (self.cols,)
 
@@ -176,6 +203,10 @@ class Filter(Node):
     def ordering(self) -> Optional[Ordering]:
         return self.children[0].ordering()  # row subset keeps row order
 
+    def col_stats(self) -> Dict[str, object]:
+        # a row subset only shrinks ranges: the bounds stay sound
+        return self.children[0].col_stats()
+
     def _params(self) -> tuple:
         return (self.expr.key(),)
 
@@ -199,6 +230,7 @@ class Join(Node):
         suffixes: Tuple[str, str] = ("_x", "_y"),
         _renames: Optional[Tuple[Dict[str, str], Dict[str, str]]] = None,
         emit_key_order: bool = False,
+        semi_filter: Optional[str] = None,
     ):
         self.children = (left, right)
         self.l_on = tuple(l_on)
@@ -208,6 +240,10 @@ class Join(Node):
         # set by the order_reuse rewrite: lower with emit_order='key' so the
         # join's probe kv-sort doubles as the downstream op's key sort
         self.emit_key_order = bool(emit_key_order)
+        # set by the semi_filter rewrite: which input sides' shuffles may
+        # prune against the other side's key sketch ('both'/'left'/'right';
+        # None = ineligible or off), ops/sketch.join_filter_sides
+        self.semi_filter = semi_filter
         if _renames is None:
             lnames, rnames = left.names, right.names
             out = _suffix_names(lnames, rnames, suffixes)
@@ -225,6 +261,7 @@ class Join(Node):
             kids[0], kids[1], self.l_on, self.r_on, self.how, self.suffixes,
             _renames=(self.l_rename, self.r_rename),
             emit_key_order=self.emit_key_order,
+            semi_filter=self.semi_filter,
         )
 
     @property
@@ -267,17 +304,31 @@ class Join(Node):
             return _ord.rename(self.children[0].ordering(), self.l_rename)
         return None
 
+    def col_stats(self) -> Dict[str, object]:
+        # every output value comes from an input row (outer rows add nulls,
+        # not values), so each side's bounds survive under the output names
+        out: Dict[str, object] = {}
+        for n, v in self.children[0].col_stats().items():
+            out[self.l_rename.get(n, n)] = v
+        for n, v in self.children[1].col_stats().items():
+            out[self.r_rename.get(n, n)] = v
+        return out
+
     def _params(self) -> tuple:
+        # semi_filter is part of the plan identity: an executor that lowers
+        # the filtered pair exchange must not serve an unannotated plan
         return (
             self.l_on, self.r_on, self.how, self.suffixes,
             tuple(sorted(self.l_rename.items())),
             tuple(sorted(self.r_rename.items())),
-            self.emit_key_order,
+            self.emit_key_order, self.semi_filter,
         )
 
     def label(self) -> str:
         keys = ", ".join(f"{a}={b}" for a, b in zip(self.l_on, self.r_on))
         tail = " emit=key-order" if self.emit_key_order else ""
+        if self.semi_filter:
+            tail += f" semi-filter={self.semi_filter}"
         return f"Join how={self.how} on [{keys}]{tail}"
 
 
@@ -318,6 +369,10 @@ class GroupBy(Node):
             nulls_last=True, scope="shard", canonical=True,
             lexsort_exact=False,
         )
+
+    def col_stats(self) -> Dict[str, object]:
+        kept = set(self.keys)
+        return {n: v for n, v in self.children[0].col_stats().items() if n in kept}
 
     def _params(self) -> tuple:
         return (self.keys, self.aggs, self.sorted_input)
@@ -362,6 +417,9 @@ class Sort(Node):
             scope=scope, canonical=False, lexsort_exact=True,
         )
 
+    def col_stats(self) -> Dict[str, object]:
+        return self.children[0].col_stats()  # a permutation of the rows
+
     def _params(self) -> tuple:
         return (self.by, self.ascending)
 
@@ -389,6 +447,9 @@ class Shuffle(Node):
         if self.kind == "hash":
             return [self.keys]
         return []  # range partitions co-locate ranges, not equal tuples
+
+    def col_stats(self) -> Dict[str, object]:
+        return self.children[0].col_stats()  # rows reroute, values don't
 
     def _params(self) -> tuple:
         return (self.keys, self.kind, self.asc0)
@@ -459,6 +520,7 @@ class FusedJoinGroupBySum(Node):
         key_order: Sequence[int],   # join-key-pair index for each out key
         out_val: str,
         val_dtype: Tuple[int, str],
+        semi_filter: Optional[str] = None,
     ):
         self.children = (left, right)
         self.l_on = tuple(l_on)
@@ -467,6 +529,9 @@ class FusedJoinGroupBySum(Node):
         self.out_keys = tuple(out_keys)
         self.key_order = tuple(key_order)
         self.out_val = out_val
+        # the fused node is an inner join: the semi_filter rewrite may mark
+        # both input shuffles prunable, as for Join
+        self.semi_filter = semi_filter
         lby = {e[0]: e for e in left.schema}
         entries = []
         for name, ki in zip(self.out_keys, self.key_order):
@@ -479,7 +544,7 @@ class FusedJoinGroupBySum(Node):
         return FusedJoinGroupBySum(
             kids[0], kids[1], self.l_on, self.r_on, self.val_col,
             self.out_keys, self.key_order, self.out_val,
-            self.schema[-1][1:],
+            self.schema[-1][1:], semi_filter=self.semi_filter,
         )
 
     def partitioning(self) -> Partitioning:
@@ -509,14 +574,15 @@ class FusedJoinGroupBySum(Node):
     def _params(self) -> tuple:
         return (
             self.l_on, self.r_on, self.val_col, self.out_keys,
-            self.key_order, self.out_val,
+            self.key_order, self.out_val, self.semi_filter,
         )
 
     def label(self) -> str:
         keys = ", ".join(f"{a}={b}" for a, b in zip(self.l_on, self.r_on))
+        tail = f" semi-filter={self.semi_filter}" if self.semi_filter else ""
         return (
             f"FusedJoinGroupBySum on [{keys}] sum({self.val_col}) "
-            f"-> join_sum_by_key_pushdown"
+            f"-> join_sum_by_key_pushdown{tail}"
         )
 
 

@@ -1,6 +1,6 @@
 """The rule-based plan rewriter (counterpart of cylon_tpu/plan/rules.py).
 
-``optimize(root, world_size)`` runs six passes and returns the rewritten
+``optimize(root, world_size)`` runs seven passes and returns the rewritten
 plan plus the ordered list of rule firings (surfaced by ``.explain()`` and
 counted into the tracing registry by ``collect()``):
 
@@ -28,14 +28,20 @@ counted into the tracing registry by ``collect()``):
    join emits GROUPED-KEY order (``Join(emit_key_order=True)`` lowers to
    ``emit_order='key'``, same kernel cost) and the groupby's factorize
    lexsort elides into a run-detect;
-6. ``projection_pushdown`` — prune unused columns down to the scans (and
+6. ``semi_filter`` — annotate Join / FusedJoinGroupBySum nodes whose input
+   Shuffles both still stand with their semi-join filter eligibility by
+   join type (inner: both sides; left: right side only; right: left side
+   only; outer: never). Lowering threads the annotation into the pair
+   shuffle (``table._shuffle_pair(semi=...)``), where each eligible side's
+   rows are probed against the other side's key sketch (ops/sketch.py)
+   before they are packed; printed by ``.explain()`` and part of the plan
+   fingerprint. CYLON_TPU_TORCH_NO_SEMI_FILTER=1 turns it off;
+7. ``projection_pushdown`` — prune unused columns down to the scans (and
    below the shuffles, where narrower rows mean fewer exchanged lanes).
 
-The JAX package runs a ``semi_filter`` annotation between 5 and 6; it needs
-the semi-join sketch (ROADMAP.md A6), so the port's plans are the JAX
-package's under ``CYLON_TPU_NO_SEMI_FILTER=1``. Every rule reads only the
-plan and host-side table properties (schemas, order descriptors), never a
-device value, so every rank of a distributed context optimizes alike.
+Every rule reads only the plan and host-side table properties (schemas,
+order descriptors, range stats), never a device value, so every rank of a
+distributed context optimizes alike.
 """
 from __future__ import annotations
 
@@ -63,6 +69,7 @@ FILTER_PUSHDOWN = "filter_pushdown"
 SHUFFLE_ELIM = "shuffle_elimination"
 FUSED_JOIN_GROUPBY = "fused_join_groupby"
 ORDER_REUSE = "order_reuse"
+SEMI_FILTER = "semi_filter"
 PROJECTION_PUSHDOWN = "projection_pushdown"
 
 
@@ -74,6 +81,8 @@ def optimize(root: Node, world_size: int) -> Tuple[Node, List[str]]:
     root = _eliminate_shuffles(root, fired)
     root = _fuse_join_groupby(root, fired)
     root = _reuse_order(root, fired)
+    if world_size > 1:
+        root = _annotate_semi_filter(root, fired)
     root = _prune_columns(root, fired)
     return root, fired
 
@@ -318,7 +327,46 @@ def _reuse_order(node: Node, fired: List[str]) -> Node:
 
 
 # ----------------------------------------------------------------------
-# 6. projection pushdown (column pruning)
+# 6. semi-join sketch filter annotation
+# ----------------------------------------------------------------------
+def _both_shuffled(node: Node, l_on, r_on) -> bool:
+    """Both inputs are (still) hash Shuffles on their side's join keys:
+    lowering then routes the pair through ``_shuffle_pair``, the one place
+    a sketch can prune. An elided shuffle ships no rows to prune."""
+    left, right = node.children
+    return (
+        isinstance(left, Shuffle) and left.kind == "hash"
+        and set(left.keys) == set(l_on)
+        and isinstance(right, Shuffle) and right.kind == "hash"
+        and set(right.keys) == set(r_on)
+    )
+
+
+def _annotate_semi_filter(node: Node, fired: List[str]) -> Node:
+    """Mark Join / FusedJoinGroupBySum nodes whose pair shuffle may prune
+    rows against the other side's key sketch. Annotation only: the eager
+    engine re-checks soundness and measures selectivity at run time."""
+    from ..ops.sketch import enabled, join_filter_sides
+
+    kids = [_annotate_semi_filter(c, fired) for c in node.children]
+    node = node.with_children(kids) if node.children else node
+    if not enabled():
+        return node
+    # Join/Fused nodes have children, so `node` is the fresh copy above
+    if isinstance(node, Join) and node.semi_filter is None:
+        sides = join_filter_sides(node.how)
+        if sides is not None and _both_shuffled(node, node.l_on, node.r_on):
+            fired.append(SEMI_FILTER)
+            node.semi_filter = {"both": "both", "a": "left", "b": "right"}[sides]
+    elif isinstance(node, FusedJoinGroupBySum) and node.semi_filter is None:
+        if _both_shuffled(node, node.l_on, node.r_on):
+            fired.append(SEMI_FILTER)
+            node.semi_filter = "both"  # the fused node is an inner join
+    return node
+
+
+# ----------------------------------------------------------------------
+# 7. projection pushdown (column pruning)
 # ----------------------------------------------------------------------
 def _narrowed(node: Node, req: Set[str], fired: List[str]) -> Node:
     """Recursively prune, then guarantee the output schema is exactly the

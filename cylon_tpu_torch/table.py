@@ -57,13 +57,19 @@ from .ops import join as _j
 from .ops import partition as _p
 from .ops import pk_join as _pk
 from .ops import setops as _s
-from .ops.gather import KeyCol, lane_plan, pack_cols, pack_gather
+from .ops import sketch as _sketch
+from .ops import sort as _sort_mod
+from .ops import stats as _st
+from .ops.gather import (
+    KeyCol, _from_lanes, _to_lanes, lane_plan, pack_cols, pack_gather, wire_bases,
+    wire_lane_plan, wire_pack_cols, wire_plan, wire_pt_order, wire_row_bytes, wire_unpack_cols,
+)
 from .ops.hash import hash_dictionary_host
 from .ops.sort import lexsort_rows_payload, orderable_key, prefix_run_lane
 from .ops.partition import _saturating_int
 from .ordering import Ordering
 from .parallel import shuffle as _sh
-from .utils.tracing import bump
+from .utils.tracing import bump, gauge, span
 
 Encoded = Tuple[np.ndarray, Optional[np.ndarray], Any, Optional[np.ndarray]]
 Shard = "OrderedDict[str, Column]"
@@ -211,6 +217,11 @@ class Table:
         self._built_index = None  # (kind, index name) -> the index build_index made
         # the order descriptor: None unless an op attaches one (ordering.py)
         self._ordering: Optional[Ordering] = None
+        # column range stats (ops/stats.py): name -> ColStat bounds of the
+        # orderable encoding. Empty unless a pass that touched the data
+        # attached them (the shuffle's count phase, ensure_stats): a missed
+        # propagation costs a lane-packing chance, never a result
+        self._stats: Dict[str, _st.ColStat] = {}
 
     def _per_shard(self, fn) -> List[Any]:
         return _per_shard(self.ctx, fn)
@@ -363,6 +374,78 @@ class Table:
         return self
 
     @property
+    def column_stats(self) -> Dict[str, "_st.ColStat"]:
+        """The known column range stats (ops/stats.py): name -> [lo, hi]
+        bounds of the column's orderable encoding. May be empty:
+        :meth:`ensure_stats` measures on demand."""
+        return dict(self._stats)
+
+    def _attach_stats(self, stats: Optional[Dict[str, "_st.ColStat"]],
+                      rename: Optional[Dict[str, str]] = None) -> "Table":
+        """Carry range bounds onto this table for every column that still
+        exists with the same encoding class (row subsets, permutations,
+        renames: the bounds stay sound); a lapsed entry drops silently."""
+        if not stats:
+            return self
+        out = {}
+        for name, stat in stats.items():
+            if stat is None:
+                continue
+            name = (rename or {}).get(name, name)
+            col = self._ref.get(name)
+            if col is None or _st.enc_class(col.data.dtype) != stat.cls:
+                continue
+            out[name] = stat
+        if out:
+            self._stats = {**self._stats, **out}
+        return self
+
+    def _fusion_specs(self, names: Sequence[str],
+                      ascending: Optional[Sequence[bool]] = None) -> Optional[list]:
+        """Per key ``(enc_class, field_bits, has_valid, ascending)`` for
+        :func:`ops.sort.plan_lane_fusion`, or None where a key has no
+        measurable stats (shared by sort and groupby)."""
+        stats = self.ensure_stats(names)
+        specs = []
+        for i, kn in enumerate(names):
+            stat = stats.get(kn)
+            if stat is None:
+                return None
+            specs.append((stat.cls, _st.field_bits(stat), self._ref[kn].valid is not None,
+                          bool(ascending[i]) if ascending is not None else True))
+        return specs or None
+
+    def ensure_stats(self, names: Sequence[str]) -> Dict[str, Optional["_st.ColStat"]]:
+        """Range stats of ``names``, measured on demand and kept on this
+        table (cleared by an in-place change, absent on fresh handles);
+        None for a column with no packable encoding (float64). One pass per
+        missing column a shard and one host fetch, gathered from every
+        rank; a table that came out of a shuffle already holds them. {}
+        when CYLON_TPU_TORCH_NO_LANE_PACK is set."""
+        if not _st.enabled():
+            return {}
+        out: Dict[str, Optional[_st.ColStat]] = {}
+        missing = []
+        for n in names:
+            cls = _st.enc_class(self._ref[n].data.dtype)
+            got = self._stats.get(n)
+            if cls is None:
+                out[n] = None
+            elif got is not None and got.cls == cls:
+                out[n] = got
+            else:
+                missing.append((n, cls))
+        if missing:
+            words = self._gather_counts([
+                torch.cat([_st.stat_words(self._flat_cols(s, [n])[0]) for n, _c in missing])
+                for s in self.ctx.local_shards
+            ]).reshape(self.world_size, len(missing), 4)
+            bump("lane_pack.stats_kernel")
+            for i, (n, cls) in enumerate(missing):
+                self._stats[n] = out[n] = _st.fold_stat_words(words[:, i, :], cls)
+        return out
+
+    @property
     def column_names(self) -> List[str]:
         return list(self._ref.keys())
 
@@ -436,22 +519,27 @@ class Table:
         out = self._with_shards(
             self._map_shards(lambda sh: OrderedDict(zip(new_names, sh.values())))
         )
-        return out._attach_ordering(
-            _ord.rename(self._ordering, dict(zip(self.column_names, new_names)))
+        ren = dict(zip(self.column_names, new_names))
+        return out._attach_ordering(_ord.rename(self._ordering, ren))._attach_stats(
+            self._stats, rename=ren
         )
 
     def project(self, columns: Sequence[Union[str, int]]) -> "Table":
         names = self._resolve_cols(columns)
         out = self._with_shards(self._map_shards(lambda sh: OrderedDict((n, sh[n]) for n in names)))
         # rows untouched: the order survives on the longest key prefix kept
-        return out._attach_ordering(_ord.truncate_to(self._ordering, names))
+        return out._attach_ordering(_ord.truncate_to(self._ordering, names))._attach_stats(
+            self._stats
+        )
 
     def drop(self, columns: Sequence[str]) -> "Table":
         gone = set(columns)
         out = self._with_shards(self._map_shards(
             lambda sh: OrderedDict((n, c) for n, c in sh.items() if n not in gone)
         ))
-        return out._attach_ordering(_ord.truncate_to(self._ordering, out.column_names))
+        return out._attach_ordering(
+            _ord.truncate_to(self._ordering, out.column_names)
+        )._attach_stats(self._stats)
 
     def add_prefix(self, prefix: str) -> "Table":
         """Prefix every column name; a set index follows its column."""
@@ -587,7 +675,7 @@ class Table:
         masks = self._shard_masks(mask)
         return self._emit(self._per_shard(
             lambda s: (self._flat_cols(s), *_s.compact_mask(masks[s], masks[s].shape[0]))
-        ))._attach_ordering(self._ordering)  # a row subset in order
+        ))._attach_ordering(self._ordering)._attach_stats(self._stats)  # a row subset in order
 
     def select(self, predicate) -> "Table":
         """Keep the rows where ``predicate`` holds; it maps each shard's dict
@@ -870,6 +958,12 @@ class Table:
         )
         emit_key = emit_order == "key"
         left, right = _unify_dict_pair(self, other, l_names, r_names)
+        # factorize-lane fusion (ops/stats.py): the multi-key / masked
+        # probe's joint factorize bit-packs both sides' canonical key lanes,
+        # sized by the pair's merged range stats
+        join_fuse = _plan_join_fusion(left, l_names, right, r_names)
+        if join_fuse is not None:
+            bump("lane_pack.join_fused", rows=join_fuse.n_plain - join_fuse.n_words)
         out_names = _suffix_names(left.column_names, right.column_names, suffixes)
         l_rename = dict(zip(left.column_names, out_names[: len(left.column_names)]))
         if emit_key:
@@ -887,7 +981,7 @@ class Table:
             bump("ordering.join_presorted_probe")
         probes = self._per_shard(lambda s: _j.spec_probe(
             left._flat_cols(s, l_names), right._flat_cols(s, r_names), right._flat_cols(s), howi,
-            r_presorted=r_presorted, emit_key_order=emit_key,
+            r_presorted=r_presorted, emit_key_order=emit_key, key_fuse=join_fuse,
         ))
         counts = self._gather_counts([probes[s]["total"] for s in self.ctx.local_shards])
         # every rank checks every shard's count, so all raise alike
@@ -952,8 +1046,9 @@ class Table:
         def emit(s):
             l_idx, r_idx, _total, _bad = parts[s]
             n = int(stats[s, 0])
-            out = pack_gather(left._flat_cols(s), l_idx[:n], all_valid=True) + pack_gather(
-                right._flat_cols(s), r_idx[:n], all_valid=True
+            # all-true masks where a column had none, as the JAX package's
+            out = pack_gather(left._flat_cols(s), l_idx[:n]) + pack_gather(
+                right._flat_cols(s), r_idx[:n]
             )
             return _out_shard(out_names, left, right, s, out)
 
@@ -989,7 +1084,11 @@ class Table:
         # the physical dtype, so an int32 5 and an int64 5 would otherwise
         # land on different shards
         left, right = _promote_key_pair(left, right, l_names, r_names)
-        ls, rs = _shuffle_pair(left, l_names, right, r_names)
+        # the semi-join sketch filter prunes provably partnerless rows before
+        # the exchange, by join type (inner: both sides; left/right: the
+        # other side only; outer: off)
+        ls, rs = _shuffle_pair(left, l_names, right, r_names,
+                               semi=_sketch.join_filter_sides(kwargs["how"]))
         return ls.join(rs, **kwargs)
 
     # ------------------------------------------------------------------
@@ -1019,7 +1118,21 @@ class Table:
             _sorted = True
             bump("ordering.groupby_run_detect")
         out_canonical = (not _sorted) or provably_sorted
-        ids_fn = _g.sorted_group_ids if _sorted else _g.group_ids
+        # canonical-lane fusion (ops/stats.py): the factorize lexsort's lane
+        # stack bit-packs into fewer words where the key ranges are known;
+        # the group ids are the same
+        gb_fuse = None
+        if not _sorted and _st.enabled():
+            gspecs = self._fusion_specs(key_names)
+            if gspecs:
+                gb_fuse = _sort_mod.plan_lane_fusion(gspecs, pad_bits=1, prefix_bits=0,
+                                                     allow64=True)
+        if gb_fuse is not None:
+            bump("lane_pack.groupby_fused", rows=gb_fuse.n_plain - gb_fuse.n_words)
+
+        def ids_fn(keys):
+            return _g.sorted_group_ids(keys) if _sorted else _g.group_ids(keys, fuse=gb_fuse)
+
         specs: List[Tuple[str, int, str]] = []
         for col, ops in agg.items():
             self._resolve_cols(col)
@@ -1046,6 +1159,7 @@ class Table:
         parts = self._per_shard(group)
         counts = self._gather_counts([parts[s][1] for s in self.ctx.local_shards])
         res = Table(self.ctx, self._per_shard(lambda s: parts[s][0]), counts)
+        res._attach_stats({n: self._stats.get(n) for n in key_names})
         if out_canonical:
             res._attach_ordering(Ordering(
                 keys=tuple(key_names), ascending=(True,) * len(key_names), nulls_last=True,
@@ -1146,20 +1260,34 @@ class Table:
         # run ids agree with the lexsort only over mask-free prefix keys
         if not (0 < m < len(names) and all(self._ref[n].valid is None for n in names[:m])):
             m = 0
+        # sort-word fusion (ops/stats.py, ops/sort.py): measured key ranges
+        # bit-pack the suffix key lanes, null flags and the prefix lane into
+        # the fewest words; CYLON_TPU_TORCH_NO_LANE_PACK=1 turns it off. The
+        # prefix field is as wide as the JAX package's (its shard capacity)
+        fuse = None
+        if _st.enabled():
+            specs = self._fusion_specs(names[m:], asc[m:])
+            if specs:
+                prefix_bits = (round_cap(int(self._counts.max())) + 1).bit_length() if m else 0
+                fuse = _sort_mod.plan_lane_fusion(specs, pad_bits=2, prefix_bits=prefix_bits,
+                                                  allow64=True)
 
         def sort_shard(s):
             prefix = prefix_run_lane(self._flat_cols(s, names[:m])) if m else None
             perm, _ = lexsort_rows_payload(
                 self._flat_cols(s, names[m:]), int(self._counts[s]), ascending=asc[m:],
-                prefix_lane=prefix,
+                prefix_lane=prefix, fuse=fuse,
             )
             out = pack_gather(self._flat_cols(s), perm, all_valid=True)
             return self._shard_like(s, self.column_names, out)
 
         if m:
             bump("ordering.sort_suffix")
+        if fuse is not None:
+            bump("lane_pack.sort_fused", rows=fuse.n_plain - fuse.n_words)
         mask_free = all(self._ref[n].valid is None for n in names)
-        return self._with_shards(self._per_shard(sort_shard))._attach_ordering(Ordering(
+        res = self._with_shards(self._per_shard(sort_shard))._attach_stats(self._stats)
+        return res._attach_ordering(Ordering(
             keys=tuple(names), ascending=asc, nulls_last=True, scope="shard",
             canonical=mask_free and all(asc), lexsort_exact=True,
         ))
@@ -1304,7 +1432,9 @@ class Table:
 
         res = a._emit(a._per_shard(setop))
         # subtract and intersect keep a subset of the left rows in order
-        return res if op == "union" else res._attach_ordering(self._ordering)
+        if op == "union":
+            return res
+        return res._attach_ordering(self._ordering)._attach_stats(a._stats)
 
     def distributed_union(self, other: "Table") -> "Table":
         return self._dist_setop(other, "union")
@@ -1321,7 +1451,11 @@ class Table:
         if self.world_size == 1:
             return getattr(self, op)(other)
         a, b = self._setop_pair(other)
-        asf, bsf = _shuffle_pair(a, a.column_names, b, b.column_names)
+        # intersect and subtract are semi joins: rows provably absent from
+        # the side that decides their fate never ship (null == null, as the
+        # sketches treat nulls)
+        asf, bsf = _shuffle_pair(a, a.column_names, b, b.column_names,
+                                 semi=_sketch.setop_filter_sides(op))
         return getattr(asf, op)(bsf)
 
     def unique(
@@ -1356,7 +1490,9 @@ class Table:
             return self._flat_cols(s, out_names), idx, total
 
         # a subset of the rows in order: the descriptor survives
-        return self._emit(self._per_shard(dedup), out_names)._attach_ordering(self._ordering)
+        return self._emit(self._per_shard(dedup), out_names)._attach_ordering(
+            self._ordering
+        )._attach_stats(self._stats)
 
     def distributed_unique(
         self, columns: Optional[Sequence[Union[str, int]]] = None, keep: str = "first"
@@ -1550,6 +1686,7 @@ class Table:
             self.index_name = out.index_name
             self._built_index = None
             self._ordering = out._ordering
+            self._stats = dict(out._stats)
             return self
         return out
 
@@ -1750,6 +1887,7 @@ class Table:
         ``t[mask] = scalar`` sets the masked rows' values (:meth:`mask`)."""
         self._built_index = None
         self._ordering = None  # an in-place change voids any order claim
+        self._stats = {}  # ...and any range-stats claim
         if isinstance(key, str):
             if isinstance(value, Column) or (
                 isinstance(value, (list, tuple)) and any(isinstance(v, Column) for v in value)
@@ -1902,12 +2040,6 @@ class Table:
     # ------------------------------------------------------------------
     # not ported: each raises naming its ROADMAP item
     # ------------------------------------------------------------------
-    def column_stats(self):
-        raise _not_ported("column range stats", "A6")
-
-    def ensure_stats(self, *args, **kwargs):
-        raise _not_ported("column range stats", "A6")
-
     def task_partition(self, *args, **kwargs):
         raise _not_ported("the task shuffle", "A7")
 
@@ -1985,6 +2117,36 @@ def _remap_codes(col: Column, mapping: np.ndarray, dictionary: np.ndarray) -> Co
     return Column(data, col.dtype, col.valid, dictionary)
 
 
+def _plan_join_fusion(left: Table, l_names, right: Table, r_names):
+    """Sort-word fusion plan of a join pair's factorize lanes, or None: lane
+    packing is off; the pair takes the one-uint32-key fast path (one lane
+    already, no stats pass); a key pair's dtypes differ; or a key has no
+    measurable stats. The merged bounds of both sides size each field."""
+    if not _st.enabled():
+        return None
+    if len(l_names) == 1:
+        ca, cb = left._ref[l_names[0]], right._ref[r_names[0]]
+        if (ca.valid is None and cb.valid is None
+                and ca.data.element_size() <= 4 and cb.data.element_size() <= 4):
+            return None
+    lstats = left.ensure_stats(l_names)
+    rstats = right.ensure_stats(r_names)
+    specs = []
+    for ln, rn in zip(l_names, r_names):
+        ca, cb = left._ref[ln], right._ref[rn]
+        if ca.data.dtype != cb.data.dtype:
+            return None
+        a, b = lstats.get(ln), rstats.get(rn)
+        if a is None or b is None:
+            return None
+        merged = a.merge(b)
+        if merged is None:
+            return None
+        specs.append((merged.cls, _st.field_bits(merged),
+                      ca.valid is not None or cb.valid is not None, True))
+    return _sort_mod.plan_lane_fusion(specs, pad_bits=1, prefix_bits=0, allow64=True)
+
+
 def _unify_dict_pair(
     a: Table, b: Table, a_cols: Sequence[str], b_cols: Sequence[str]
 ) -> Tuple[Table, Table]:
@@ -1992,7 +2154,7 @@ def _unify_dict_pair(
     union dictionary, so codes compare across the two tables. A pure
     function of the dictionaries, which every rank holds alike."""
     new_a, new_b = a._map_shards(OrderedDict), b._map_shards(OrderedDict)
-    changed = False
+    changed_a, changed_b = set(), set()
     for an, bn in zip(a_cols, b_cols):
         ca, cb = a._ref[an], b._ref[bn]
         if ca.dtype.is_dictionary != cb.dtype.is_dictionary:
@@ -2009,12 +2171,18 @@ def _unify_dict_pair(
             sh[an] = _remap_codes(sh[an], map_a, union)
         for sh in filter(None, new_b):
             sh[bn] = _remap_codes(sh[bn], map_b, union)
-        changed = True
-    if not changed:
+        changed_a.add(an)
+        changed_b.add(bn)
+    if not changed_a:
         return a, b
-    # the remap keeps code order, so an order claim survives it
-    return (a._with_shards(new_a)._attach_ordering(a._ordering),
-            b._with_shards(new_b)._attach_ordering(b._ordering))
+    # the remap keeps code order, so an order claim survives it; range
+    # stats survive on the columns whose codes were not rewritten
+    return (
+        a._with_shards(new_a)._attach_ordering(a._ordering)._attach_stats(
+            {n: v for n, v in a._stats.items() if n not in changed_a}),
+        b._with_shards(new_b)._attach_ordering(b._ordering)._attach_stats(
+            {n: v for n, v in b._stats.items() if n not in changed_b}),
+    )
 
 
 def _promote_key_pair(
@@ -2039,9 +2207,14 @@ def _promote_key_pair(
         changed = True
     if not changed:
         return a, b
-    # a widening cast keeps value order
-    return (a._with_shards(new_a)._attach_ordering(a._ordering),
-            b._with_shards(new_b)._attach_ordering(b._ordering))
+    # a widening cast keeps value order; range stats of the cast columns
+    # drop (_attach_stats also re-checks the encoding class)
+    ra = a._with_shards(new_a)._attach_ordering(a._ordering)
+    rb = b._with_shards(new_b)._attach_ordering(b._ordering)
+    return (
+        ra._attach_stats({n: v for n, v in a._stats.items() if ra._ref[n] is a._ref[n]}),
+        rb._attach_stats({n: v for n, v in b._stats.items() if rb._ref[n] is b._ref[n]}),
+    )
 
 
 def _concat_tables(tables: Sequence[Table]) -> Table:
@@ -2087,7 +2260,13 @@ class _ShuffleSpec(NamedTuple):
     """One table of a shuffle: its keys, the per-round byte budget (None:
     the context's) and the kind: "hash" routes a row by the murmur3 hash
     of its keys, "range" by the range partition of its first key
-    (``asc0``: that key's direction; ``num_bins``: 0 for 16 x W)."""
+    (``asc0``: that key's direction; ``num_bins``: 0 for 16 x W).
+
+    The sketch fields carry the semi-join filter (ops/sketch.py): with
+    ``sketch`` (per owned shard, the pair's combined ``[S, L]`` sketches
+    of :func:`_pair_sketches`), the count phase probes the key columns
+    against row ``probe_row`` and a row that provably has no partner on
+    the other side goes to B2a's pid mode as P, never to the exchange."""
 
     table: Table
     key_names: Tuple[str, ...]
@@ -2095,18 +2274,28 @@ class _ShuffleSpec(NamedTuple):
     kind: str = "hash"
     asc0: bool = True
     num_bins: int = 0
+    sketch: Optional[Dict[int, torch.Tensor]] = None
+    probe_row: int = 0
+    use_range: bool = False
+    #: per owned shard the key hashes the sketch build made of this table
+    #: (both sides filtered: each table is built and probed), or None
+    key_hashes: Optional[Dict[int, Tuple[torch.Tensor, torch.Tensor]]] = None
 
 
 def _shuffle_state(spec: _ShuffleSpec) -> dict:
-    """Per-table state: the lane plan, and per source shard the row-major
-    lanes, the partition-id lane of kernel B2a (hash mode: from the key
-    words; range mode: the range pid lane it is given), each tile's first
-    position within each bucket (the scan of B2a's histogram, for B2b) and
-    the bucket totals (the send counts)."""
+    """Per-table count phase: per source shard the partition-id lane of
+    kernel B2a (hash mode: from the key words; range mode: the range pid
+    lane it is given), each tile's first position within each bucket (the
+    scan of B2a's histogram, for B2b) and the bucket totals (the send
+    counts). A semi-filtered table also gets the filtered lane: the same
+    pids with P for the rows the other side's sketch prunes, through B2a in
+    pid mode, beside the unfiltered counts. Beside them, the stat words of
+    every statable column (lane packing), to ride the same host fetch."""
     t = spec.table
     world, local = t.world_size, t.ctx.local_shards
     if not t.column_names:
         raise ValueError("cannot shuffle a table without columns")
+    t.ctx.check_shuffle_tiers()
     counts = [int(n) for n in t._counts]
     if spec.kind == "range":
         pids = _p.range_partition_ids(
@@ -2121,49 +2310,169 @@ def _shuffle_state(spec: _ShuffleSpec) -> dict:
     else:
         raise ValueError(f"unknown shuffle kind {spec.kind!r}")
     flat = {s: t._flat_cols(s) for s in local}
+    ref = flat[local[0]]  # the schema's, the same on every rank
+    stat_cols = tuple(
+        ci for ci, (d, _v) in enumerate(ref) if _st.enabled() and _st.enc_class(d.dtype) is not None
+    )
     shards = {}
     for s, (lane, hist) in packs.items():
-        _plan, lanes = pack_cols(flat[s])
-        shards[s] = {
-            "packed": torch.stack(lanes, 1),  # [n, L] row-major
-            "lane": lane, "base": _codec.scan_tiles(hist),
-            "cnt": hist.sum(1, dtype=torch.int32),
-        }
-    ref = flat[local[0]]  # the lane plan is the schema's, the same on every rank
+        sh = {"lane": lane, "hist": hist}
+        meas = [hist.sum(1).to(torch.int64)]
+        if spec.sketch is not None:
+            keys = t._flat_cols(s, spec.key_names)
+            hashes = None if spec.key_hashes is None else spec.key_hashes[s]
+            ok = _sketch.probe(keys, spec.sketch[s][spec.probe_row], spec.use_range, hashes)
+            pid_f = torch.where(ok, lane, torch.full_like(lane, world))
+            sh["lane_f"], sh["hist_f"] = _codec.pack_hist(None, None, (), counts[s], world, pid=pid_f)
+            meas.append(sh["hist_f"].sum(1).to(torch.int64))
+        meas += [_st.stat_words(flat[s][ci]) for ci in stat_cols]
+        sh["meas"] = torch.cat(meas)
+        shards[s] = sh
     return {
-        "spec": spec, "t": t, "ctx": t.ctx, "world": world, "local": local,
-        "plan": lane_plan(ref), "row_bytes": _sh.exchange_row_bytes(ref),
+        "spec": spec, "t": t, "ctx": t.ctx, "world": world, "local": local, "flat": flat,
+        "ref": ref, "row_bytes": _sh.exchange_row_bytes(ref), "stat_cols": stat_cols,
         "shards": shards,
     }
+
+
+def _count_phase(st: dict) -> None:
+    """The count phase's one host fetch: this process's send counts
+    (unfiltered, filtered) and stat words, gathered from every rank, so
+    that every rank plans from the same numbers. Folds the global column
+    stats and keeps them on the input table (later local ops skip their
+    stats pass) and for the wire plan and the output."""
+    w, local = st["world"], st["local"]
+    dev0 = st["ctx"].device
+    mine = torch.stack([st["shards"][s]["meas"].to(dev0) for s in local]).cpu().numpy()
+    got = st["ctx"].comm.all_gather_counts(mine)  # [src, per]
+    semi = st["spec"].sketch is not None
+    st["counts_u"] = got[:, :w]  # [src, dst]
+    st["counts_f"] = got[:, w:2 * w] if semi else None
+    base = 2 * w if semi else w
+    sw = got[:, base:].reshape(w, len(st["stat_cols"]), 4)
+    st["col_stats"] = {
+        ci: _st.fold_stat_words(sw[:, i, :], _st.enc_class(st["ref"][ci][0].dtype))
+        for i, ci in enumerate(st["stat_cols"])
+    }
+    names = st["t"].column_names
+    st["t"]._attach_stats({names[ci]: v for ci, v in st["col_stats"].items()})
+
+
+def _plan_state(st: dict) -> None:
+    """The round plan of one table, and the two plan-aware gates.
+
+    Semi filter: shipped bytes are rounds x W x bucket_cap x row bytes
+    however full the buffers are, so the filter applies only where the
+    filtered counts give a strictly cheaper plan (``cap_f * k_f < cap_u *
+    k_u``). Wire narrowing: the narrowed rows apply only where their plan
+    ships strictly fewer bytes. The JAX package's skew split (A7) would
+    re-plan through ``plan_schedule``; without it that is ``plan_rounds``."""
+    w = st["world"]
+    budget = int(st["spec"].byte_budget or st["ctx"].shuffle_byte_budget)
+    row_bytes = st["row_bytes"]
+    st["use_filter"] = False
+    if st["counts_f"] is not None:
+        unf, filt = st["counts_u"], st["counts_f"]
+        tot_u, tot_f = int(unf.sum()), int(filt.sum())
+        gauge("shuffle.semi_filter.selectivity", tot_f / max(tot_u, 1))
+        cap_u, k_u = _sh.plan_rounds(unf, row_bytes, w, budget)
+        cap_f, k_f = _sh.plan_rounds(filt, row_bytes, w, budget)
+        st["use_filter"] = cap_f * k_f < cap_u * k_u
+        if st["use_filter"]:
+            bump("shuffle.semi_filter.applied")
+            bump("shuffle.semi_filter.pruned_rows", rows=tot_u - tot_f)
+            st["send_counts"], (cap, k) = filt, (cap_f, k_f)
+        else:
+            bump("shuffle.semi_filter.gate_skipped")
+            st["send_counts"], (cap, k) = unf, (cap_u, k_u)
+    else:
+        st["send_counts"] = st["counts_u"]
+        cap, k = _sh.plan_rounds(st["send_counts"], row_bytes, w, budget)
+    st["wire"] = st["bases"] = None
+    if st["col_stats"]:
+        stats_list: List[Optional[Tuple[str, int]]] = [None] * len(st["ref"])
+        for ci, stat in st["col_stats"].items():
+            stats_list[ci] = (stat.cls, _st.field_bits(stat))
+        wplan = wire_plan(wire_lane_plan(st["ref"]), stats_list)
+        if wplan is not None:
+            rb_w = wire_row_bytes(wplan)
+            cap_w, k_w = _sh.plan_rounds(st["send_counts"], rb_w, w, budget)
+            total_wire = k_w * w * w * cap_w * rb_w
+            total_plain = k * w * w * cap * row_bytes
+            if total_wire < total_plain:
+                st["wire"] = wplan
+                st["bases"] = wire_bases(wplan, st["col_stats"])
+                cap, k = cap_w, k_w
+                bump("lane_pack.wire.applied")
+                bump("lane_pack.wire.bytes_saved", rows=int(total_plain - total_wire))
+                gauge("lane_pack.wire.row_bytes_ratio", rb_w / max(row_bytes, 1))
+            else:
+                bump("lane_pack.wire.gate_skipped")
+    st["bucket_cap"], st["n_rounds"] = cap, k
+
+
+def _send_rows(st: dict, s: int) -> dict:
+    """Shard ``s``'s send state under the decided plan: its row-major lane
+    matrix (the wire-narrowed words, float64 columns as two lanes behind
+    them, or the plain lanes) and the pid lane, tile bases and bucket
+    totals B2b and the rounds read."""
+    sh = st["shards"][s]
+    cols = st["flat"][s]
+    if st["wire"] is not None:
+        words, passthrough = wire_pack_cols(cols, st["wire"], st["bases"])
+        lanes = words + [x for ci in sorted(passthrough) for x in _to_lanes(passthrough[ci])]
+    else:
+        _plan, lanes = pack_cols(cols)
+    lane, hist = (sh["lane_f"], sh["hist_f"]) if st["use_filter"] else (sh["lane"], sh["hist"])
+    return {"packed": torch.stack(lanes, 1), "lane": lane, "base": _codec.scan_tiles(hist),
+            "cnt": hist.sum(1, dtype=torch.int32)}
+
+
+def _received_cols(st: dict, moved: torch.Tensor) -> List[KeyCol]:
+    """The columns of the received rows, a front-packed ``[rows, L]`` lane
+    matrix of :func:`_send_rows`' layout."""
+    def make_valid(lane):
+        return None if lane is None else lane.to(torch.bool)
+
+    wplan = st["wire"]
+    if wplan is None:
+        return _sh.compact_received_lanes(lane_plan(st["ref"]), moved)
+    nw = wplan.n_words
+    lanes = list(moved.unbind(1))
+    pt_cols = wire_pt_order(wplan, [ci for ci, (tag, _nl, _hv) in enumerate(wplan.plan) if tag is None])
+    pos = {ci: nw + 2 * i for i, ci in enumerate(pt_cols)}
+    return wire_unpack_cols(
+        lanes[:nw], wplan, st["bases"],
+        lambda ci: _from_lanes(lanes[pos[ci]:pos[ci] + 2], torch.float64), make_valid,
+    )
 
 
 def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
     """The chunked shuffle engine (every Distributed* op funnels through
     here), the JAX package's round structure with its two host syncs:
 
-    1. COUNT: kernel B2a per source shard; ONE fetch per table of this
-       process's rows of the [W, W] send-count matrix, gathered from every
-       rank, so that every rank plans alike;
+    1. COUNT: kernel B2a per source shard (twice for a semi-filtered one:
+       hash mode, then pid mode with the pruned rows at P), and the stat
+       words of every statable column; ONE fetch per table of this
+       process's rows of the [W, W] send-count matrices and the words,
+       gathered from every rank, so that every rank plans alike;
     2. PLAN: ``plan_rounds`` turns the counts, the row bytes and the byte
-       budget into ``bucket_cap`` and K rounds;
+       budget into ``bucket_cap`` and K rounds, with the semi-filter and
+       wire-narrowing gates (:func:`_plan_state`);
     3. K ROUNDS of PACK (kernel B2b + the header-fused lane scatter),
        COLLECTIVE (one all_to_all), COMPACT (kernel B3), with no host sync;
        each round keeps its live rows, whose count the plan already knows;
     4. ONE deferred fetch per table of every round's received counts,
        gathered from every rank and checked against the plan on every
        rank (a mismatch is an internal routing bug, raised everywhere),
-       then each shard's rounds concatenated round-major.
+       then each shard's rounds concatenated round-major and unpacked
+       (the wire-narrowed words decoded after B3).
     """
     states = [_shuffle_state(s) for s in specs]
     for st in states:
-        w, comm = st["world"], st["ctx"].comm
-        dev0 = st["ctx"].device
-        mine = torch.stack([st["shards"][s]["cnt"].to(dev0) for s in st["local"]]).cpu().numpy()
-        st["send_counts"] = comm.all_gather_counts(mine)  # [src, dst]: the count phase's host sync
-        budget = int(st["spec"].byte_budget or st["ctx"].shuffle_byte_budget)
-        st["bucket_cap"], st["n_rounds"] = _sh.plan_rounds(
-            st["send_counts"], st["row_bytes"], w, budget
-        )
+        _count_phase(st)
+        _plan_state(st)
+        st["send"] = {s: _send_rows(st, s) for s in st["local"]}
         st["rounds_out"] = {s: [] for s in st["local"]}
         st["recv"] = []
 
@@ -2174,7 +2483,7 @@ def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
             w, bc = st["world"], st["bucket_cap"]
             bufs = []
             for s in st["local"]:
-                sh = st["shards"][s]
+                sh = st["send"][s]
                 dest = _codec.pack_dest(sh["lane"], sh["base"], r, w, bc)
                 rc = _sh.round_counts(sh["cnt"], bc, r)
                 bufs.append(_sh.pack_lane_buffer(sh["packed"], dest, rc, w, bc))
@@ -2201,16 +2510,18 @@ def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
                 )
         t = st["t"]
 
-        def received(d):
+        def received(d, st=st, t=t):
             parts = st["rounds_out"][d]
             moved = parts[0] if len(parts) == 1 else torch.cat(parts)
-            out = _sh.compact_received_lanes(st["plan"], moved)
             cols: Shard = OrderedDict()
-            for (name, c), (data, valid) in zip(t._shards[d].items(), out):
+            for (name, c), (data, valid) in zip(t._shards[d].items(), _received_cols(st, moved)):
                 cols[name] = Column(data, c.dtype, valid, c.dictionary)
             return cols
 
-        results.append(t._with_shards(_per_shard(st["ctx"], received), sum(expect_all)))
+        res = t._with_shards(_per_shard(st["ctx"], received), sum(expect_all))
+        # the shuffle moves rows, not values: the measured bounds hold
+        names = t.column_names
+        results.append(res._attach_stats({names[ci]: v for ci, v in st["col_stats"].items()}))
     return results
 
 
@@ -2219,13 +2530,95 @@ def _expected_received(send_counts: np.ndarray, bucket_cap: int, round_idx: int)
     return np.clip(send_counts - round_idx * bucket_cap, 0, bucket_cap).sum(axis=0)
 
 
+def _pair_sketches(
+    a: Table, a_keys: Sequence[str], b: Table, b_keys: Sequence[str], sides: str,
+) -> Optional[dict]:
+    """The combined semi-join key sketches of a shuffle pair
+    (ops/sketch.py): each side named in ``sides`` ('both'/'a'/'b', the
+    tables that get FILTERED) needs the OTHER side's sketch. Every needed
+    local sketch rides ONE ``comm.all_gather``.
+
+    None where the filter is not sound or not worth it: a paired key's
+    hashing family differs across the sides (the local op may equate
+    values the sketches hash apart), or the prunable payload is under
+    ``SEMI_FILTER_MIN_PAYOFF`` times the sketch collective's bytes. The
+    range words engage only where both first keys share an exact
+    monotone-uint32 class (dictionary codes qualify)."""
+    from .config import SEMI_FILTER_MIN_PAYOFF
+
+    ctx = a.ctx
+    world = ctx.world_size
+    for an, bn in zip(a_keys, b_keys):
+        ca, cb = a._ref[an], b._ref[bn]
+        if ca.dtype.is_dictionary != cb.dtype.is_dictionary:
+            return None
+        ha, hb = _sketch.hash_class(ca.data.dtype), _sketch.hash_class(cb.data.dtype)
+        if ha is None or ha != hb:
+            return None
+    ra = _sketch.range_class(a._ref[a_keys[0]].data.dtype)
+    rb = _sketch.range_class(b._ref[b_keys[0]].data.dtype)
+    use_range = ra is not None and ra == rb
+    build = []
+    if sides in ("both", "b"):
+        build.append(("a", a, tuple(a_keys)))  # a's sketch: b probes it
+    if sides in ("both", "a"):
+        build.append(("b", b, tuple(b_keys)))  # b's sketch: a probes it
+    if not build:
+        return None
+    bits = max(_sketch.sketch_bits_for(t.row_count, ctx.sketch_bits) for _, t, _k in build)
+    wire = len(build) * _sketch.sketch_len(bits) * 4
+    # per-shard basis on both sides: a shard ships rows / world of payload
+    # but injects its whole local sketch
+    prunable = 0
+    if sides in ("both", "a"):
+        prunable += a.row_count * _sh.exchange_row_bytes(a._flat_cols(a.ctx.local_shards[0]))
+    if sides in ("both", "b"):
+        prunable += b.row_count * _sh.exchange_row_bytes(b._flat_cols(b.ctx.local_shards[0]))
+    prunable //= max(world, 1)
+    if prunable < SEMI_FILTER_MIN_PAYOFF * wire:
+        return None
+    with span("shuffle.semi_filter.sketch", rows=wire):
+        hashes = {name: {s: _sketch.key_hashes(t._flat_cols(s, list(keys))) for s in ctx.local_shards}
+                  for name, t, keys in build}
+        local = [
+            torch.stack([_sketch.build_local(t._flat_cols(s, list(keys)), bits, use_range,
+                                             hashes[name][s])
+                         for name, t, keys in build])
+            for s in ctx.local_shards
+        ]
+        combined = _sketch.combine_pair(local, ctx.comm)
+    bump("semi_filter.sketch_bytes", rows=wire)
+    row_of = {name: i for i, (name, _t, _k) in enumerate(build)}
+    probe = {}
+    if sides in ("both", "a"):
+        probe["a"] = row_of["b"]
+    if sides in ("both", "b"):
+        probe["b"] = row_of["a"]
+    return dict(sketch=dict(zip(ctx.local_shards, combined)), probe=probe, use_range=use_range,
+                hashes=hashes)
+
+
 def _shuffle_pair(
     a: Table, a_keys: Sequence[str], b: Table, b_keys: Sequence[str],
-    byte_budget: Optional[int] = None,
+    byte_budget: Optional[int] = None, semi: Optional[str] = None,
 ) -> Tuple[Table, Table]:
-    """Hash-shuffle the two sides of a join in one engine call."""
-    out = _shuffle_many([
-        _ShuffleSpec(a, tuple(a_keys), byte_budget),
-        _ShuffleSpec(b, tuple(b_keys), byte_budget),
-    ])
+    """Hash-shuffle the two sides of a join or set op in one engine call.
+
+    ``semi`` ('both'/'a'/'b', ops/sketch.join_filter_sides) engages the
+    semi-join sketch filter: the named sides' rows are probed against the
+    other side's sketch in the count phase, and provably partnerless rows
+    never enter the exchange. The output equals the unfiltered shuffle's
+    (CYLON_TPU_TORCH_NO_SEMI_FILTER=1 turns it off)."""
+    sa = _ShuffleSpec(a, tuple(a_keys), byte_budget)
+    sb = _ShuffleSpec(b, tuple(b_keys), byte_budget)
+    if semi is not None and a.world_size > 1 and _sketch.enabled():
+        got = _pair_sketches(a, a_keys, b, b_keys, semi)
+        if got is not None:
+            if "a" in got["probe"]:
+                sa = sa._replace(sketch=got["sketch"], probe_row=got["probe"]["a"],
+                                 use_range=got["use_range"], key_hashes=got["hashes"].get("a"))
+            if "b" in got["probe"]:
+                sb = sb._replace(sketch=got["sketch"], probe_row=got["probe"]["b"],
+                                 use_range=got["use_range"], key_hashes=got["hashes"].get("b"))
+    out = _shuffle_many([sa, sb])
     return out[0], out[1]

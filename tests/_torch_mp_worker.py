@@ -38,6 +38,9 @@ SEED = 7
 AGG_COMBINE = {"v": "sum", "a": "min", "w": "max"}          # pre-combined per shard
 AGG_FULL = {"v": ["sum", "mean"], "a": ["count", "max"], "w": "sum"}  # shuffled raw
 WORDS = np.array([f"w{i:03d}" for i in range(60)], dtype=object)
+#: the port's kill switches of its two default-on shuffle tiers: the tests
+#: run the ranks with them set, as they hold the JAX side with its own set
+PORT_NO_TIERS = ("CYLON_TPU_TORCH_NO_SEMI_FILTER", "CYLON_TPU_TORCH_NO_LANE_PACK")
 
 
 def port_encode(cols):
@@ -280,6 +283,38 @@ def case_overflow(env):
     return {"join": t.distributed_join(t, on="k")}
 
 
+@contextlib.contextmanager
+def tiers_on():
+    """The port's semi filter and lane packing at their defaults (on) for
+    the calls inside, whatever the process's environment says."""
+    saved = {k: os.environ.pop(k) for k in PORT_NO_TIERS if k in os.environ}
+    try:
+        yield
+    finally:
+        os.environ.update(saved)
+
+
+def case_semi(env):
+    """A semi-filtered distributed_join, the tiers at their defaults: the
+    right keys are 10% of the left ones, so the pair's key sketches (one
+    all_gather of both sides' words) prune the rest before the exchange."""
+    from cylon_tpu_torch.utils import tracing
+
+    rng = np.random.default_rng(SEED + 11)
+    n = 1600
+    lk = rng.permutation(n).astype(np.int32)
+    rk = np.concatenate([rng.choice(lk, n // 10, replace=False), np.arange(n, 2 * n - n // 10)])
+    a = ctt.Table.from_encoded(env.context, port_encode(
+        {"k": lk, "v": rng.normal(size=n).astype(np.float32)}))
+    b = ctt.Table.from_encoded(env.context, port_encode(
+        {"k": rng.permutation(rk).astype(np.int32), "w": rng.normal(size=n)}))
+    with tiers_on():
+        before = tracing.get_count("shuffle.semi_filter.applied")
+        j = a.distributed_join(b, on="k")
+        applied = tracing.get_count("shuffle.semi_filter.applied") - before
+    return {"join": j, "applied": applied}
+
+
 def case_lazy(env):
     """The lazy q3 (join -> groupby-sum, the fused join-sum), the same
     query with a filter after the join (pushed below it), and the
@@ -298,7 +333,8 @@ def case_lazy(env):
 
 
 PORT = OrderedDict([("pk", case_pk), ("ingest", case_ingest), ("env", case_env),
-                    ("frame", case_frame), ("surface", case_surface), ("lazy", case_lazy)])
+                    ("frame", case_frame), ("surface", case_surface), ("lazy", case_lazy),
+                    ("semi", case_semi)])
 CASES = list(SHARED) + list(PORT)
 
 

@@ -144,3 +144,31 @@ def test_planner_modules_import_neither_jax_nor_the_jax_package(rel):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          env=dict(os.environ, PYTHONPATH=str(ROOT)), timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+TORCHRUN_VARS = {"WORLD_SIZE", "RANK", "LOCAL_RANK"}
+
+
+def test_environment_is_read_only_through_the_knob_registry():
+    """Outside utils/envgate.py no module of the port touches os.environ
+    (or getenv), but config.py's reads of torch's launcher variables; and
+    every knob the registry declares is named CYLON_TPU_TORCH_*."""
+    for path in PKG.rglob("*.py"):
+        rel = path.relative_to(PKG).as_posix()
+        if rel == "utils/envgate.py":
+            continue
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.module == "os":
+                assert not {a.name for a in node.names} & {"environ", "getenv", "putenv"}, rel
+            if not (isinstance(node, ast.Attribute) and node.attr in ("environ", "getenv", "putenv")):
+                continue
+            assert rel == "config.py", (rel, node.lineno)
+        if rel == "config.py":
+            reads = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+                     and isinstance(n.func, ast.Attribute) and n.func.attr == "get"
+                     and isinstance(n.func.value, ast.Attribute) and n.func.value.attr == "environ"]
+            assert reads and {r.args[0].value for r in reads} <= TORCHRUN_VARS
+    from cylon_tpu_torch.utils import envgate
+
+    assert envgate.REGISTRY and all(k.startswith("CYLON_TPU_TORCH_") for k in envgate.REGISTRY)

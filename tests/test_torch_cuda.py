@@ -581,3 +581,93 @@ def test_lazy_plans_on_card_match_cpu(dev, world):
             for c in xg:
                 if c != "k":
                     np.testing.assert_allclose(xg[c][0], xc[c][0], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("cap", [4097, 70_001])
+def test_pack_hist_pid_mode_on_semi_filter_sentinels(dev, cap):
+    """B2a in pid mode on the lane the semi filter gives it: a real key
+    sketch of the other side (built and probed on the card, its words equal
+    to the CPU's), the hash partition id where a row may match and the
+    sentinel P where the sketch prunes it, against the plain version."""
+    from cylon_tpu_torch.ops import sketch
+
+    rng = np.random.default_rng(cap)
+    P, bits = 4, 1 << 15
+    keys = torch.from_numpy(rng.permutation(2 * cap)[:cap].astype(np.int32))
+    other = torch.from_numpy(rng.choice(keys.numpy(), cap // 10).astype(np.int32))
+    sk = sketch.build_local([(other.to(dev), None)], bits, True)
+    sk_cpu = sketch.build_local([(other, None)], bits, True)
+    assert torch.equal(sk.cpu(), sk_cpu)
+    ok = sketch.probe([(keys.to(dev), None)], sk, True)
+    assert torch.equal(ok.cpu(), sketch.probe([(keys, None)], sk_cpu, True))
+    assert 0 < int(ok.sum()) < cap
+    words, valids, hv = cuda_codec.key_words([(keys.to(dev), None)])
+    lane, _hist = cuda_codec.pack_hist(words, valids, hv, cap, P)
+    pid_f = torch.where(ok, lane, torch.full_like(lane, P))
+    got_l, got_h = cuda_codec.pack_hist(None, None, (), cap, P, pid=pid_f)
+    want_l, want_h = cuda_codec.pack_hist_plain(None, None, (), cap, P, pid=pid_f.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(got_l.cpu(), want_l) and torch.equal(got_h.cpu(), want_h)
+    assert int(got_h.sum()) == int(ok.sum())
+
+
+@pytest.mark.parametrize("n", [70_001, 2**22 + 7])
+def test_radix_on_a_fused_uint64_word_matches_plain(dev, n):
+    """K1 on the one uint64 sort word of lane_pack_bench's 12/16/20-bit
+    keys (a null flag and a descending key among them), over the word's
+    live bits, against its plain version and the unfused lexsort."""
+    from cylon_tpu_torch.ops import sort as tsort
+    from cylon_tpu_torch.ops import stats
+
+    rng = np.random.default_rng(n)
+    cols = [torch.from_numpy(rng.integers(0, hi, n).astype(np.int32)) for hi in (4000, 60000, 10**6)]
+    valid = torch.from_numpy(rng.random(n) > 0.1)
+    key_cols = [(cols[0], None), (cols[1], valid), (cols[2], None)]
+    asc = [True, True, False]
+    specs = [(stats.enc_class(c.dtype), stats.field_bits(stats.fold_stat_words(
+        stats.stat_words((c, None)).numpy()[None], "i32")), v is not None, a)
+        for (c, v), a in zip(key_cols, asc)]
+    fuse = tsort.plan_lane_fusion(specs, pad_bits=2, prefix_bits=0, allow64=True)
+    assert fuse.allow64 and fuse.n_words == 1
+    (word,) = tsort.fused_key_words(fuse, [(c.to(dev), None if v is None else v.to(dev))
+                                           for c, v in key_cols])
+    (word_cpu,) = tsort.fused_key_words(fuse, key_cols)
+    assert word.dtype == torch.int64 and torch.equal(word.cpu(), word_cpu)
+    (_, lo, hi), = radix.fuse_word_hints(fuse)
+    got_k, got_p = cuda_radix.radix_sort_lane(word, None, lo, hi)
+    torch.cuda.synchronize()
+    want_k, want_p = cuda_radix.radix_sort_lane_plain(word_cpu, None, lo, hi)
+    assert torch.equal(got_k.cpu(), want_k) and torch.equal(got_p.cpu(), want_p)
+    plain, _ = tsort.lexsort_rows_payload(key_cols, n, ascending=asc)
+    assert torch.equal(got_p.cpu(), plain)
+
+
+@pytest.mark.parametrize("world", [1, 4])
+def test_shuffle_tiers_on_card_match_cpu(dev, world):
+    """The semi-filtered join (10% selectivity), the wire-narrowed groupby
+    shuffle and the fused multi-key sort on the card against the CPU, shard
+    by shard, with the same gates taken."""
+    from cylon_tpu_torch.utils import tracing
+
+    rng = np.random.default_rng(31)
+    n = 200_000
+    lk = rng.permutation(n).astype(np.int32)
+    rk = np.concatenate([rng.choice(lk, n // 10, replace=False), np.arange(n, 2 * n - n // 10)])
+    left = {"k": lk, "g": rng.integers(0, 4000, n).astype(np.int32),
+            "v": rng.normal(size=n).astype(np.float32)}
+    right = {"k": rng.permutation(rk).astype(np.int32), "w": rng.normal(size=n).astype(np.float32)}
+    outs, gates = [], []
+    for device in (dev, "cpu"):
+        tracing.reset_trace()
+        ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=device, world_size=world))
+        tl, tr = ctt.Table.from_pydict(ctx, left), ctt.Table.from_pydict(ctx, right)
+        j = tl.distributed_join(tr, on="k")
+        res = [j, tl.distributed_groupby(["g"], {"k": "count"}), tl.sort(["g", "k"], [True, False])]
+        outs.append([_shard_dump(t) for t in res])
+        gates.append({k: v["count"] for p in ("shuffle.semi_filter.", "lane_pack.")
+                      for k, v in tracing.report(p).items()})
+    for a, b in zip(*outs):
+        _dumps_equal(a, b)
+    assert gates[0] == gates[1] and gates[0]["lane_pack.sort_fused"] == 1
+    if world > 1:
+        assert gates[0]["shuffle.semi_filter.applied"] == 2 and gates[0]["lane_pack.wire.applied"] >= 1

@@ -9,8 +9,12 @@ empty shard, ``distributed_sort`` on float keys with nulls, the set
 operations and ``distributed_unique``, the PK join with a duplicate right
 key that falls back on every rank, per-rank ingest
 (``Table.from_encoded_shards``), the whole-table aggregates, the context's
-rank, the DataFrame flow and the DataFrame and Table surface's steps that
-gather from every rank (``case_surface``). The test process runs the same case functions
+rank, the DataFrame flow, the DataFrame and Table surface's steps that
+gather from every rank (``case_surface``), and a semi-filtered join whose
+key sketches ride one all_gather (``case_semi``). The ranks run with the
+port's semi filter and lane packing off, as the JAX side runs with its
+own off (tests/test_torch_shuffle_slice.py), but ``case_semi``, which
+turns them on for its join. The test process runs the same case functions
 on ``LocalCommunicator`` at the same world (every shard in one process),
 and the shared ones on the JAX package's 4-device CPU mesh at W = 4 (the
 configuration of tests/test_torch_shuffle_slice.py), and holds rank d's
@@ -58,14 +62,19 @@ def runs(tmp_path_factory):
     def get(world):
         if world not in cache:
             tmp = tmp_path_factory.mktemp(f"mp{world}")
-            codes, logs, _s = W.run_ranks(tmp, world, limit=LIMIT_S)
-            if codes != [0] * world:
-                cache[world] = RuntimeError(f"ranks exited {codes}:\n" + "\n".join(
-                    f"--- rank {r}\n{log[-3000:]}" for r, log in enumerate(logs)))
-            else:
-                ranks = [pickle.loads((tmp / f"rank{r}.pkl").read_bytes()) for r in range(world)]
-                local = W.run_cases(ctt.CylonEnv(config=ctt.GPUConfig(device="cpu", world_size=world)))
-                cache[world] = (ranks, local)
+            with pytest.MonkeyPatch.context() as mp:
+                for k in W.PORT_NO_TIERS:
+                    mp.setenv(k, "1")
+                codes, logs, _s = W.run_ranks(tmp, world, limit=LIMIT_S)
+                if codes != [0] * world:
+                    cache[world] = RuntimeError(f"ranks exited {codes}:\n" + "\n".join(
+                        f"--- rank {r}\n{log[-3000:]}" for r, log in enumerate(logs)))
+                else:
+                    ranks = [pickle.loads((tmp / f"rank{r}.pkl").read_bytes())
+                             for r in range(world)]
+                    local = W.run_cases(ctt.CylonEnv(
+                        config=ctt.GPUConfig(device="cpu", world_size=world)))
+                    cache[world] = (ranks, local)
         if isinstance(cache[world], Exception):
             raise cache[world]
         return cache[world]
@@ -108,6 +117,15 @@ def test_rounds_and_pk_fallback_are_taken_on_every_rank(runs, world):
             assert list(dup) == list(srt)
             for s in dup:
                 W.same_bits(dup[s][c][0], srt[s][c][0], c)
+
+
+def test_semi_filter_prunes_on_every_rank(runs):
+    """Two gloo processes: the semi gate applies the filter to both sides
+    on every rank (the gate reads counts gathered from every rank), and
+    each rank's join shard equals LocalCommunicator's (the case test
+    above compares them bit for bit)."""
+    ranks, local = runs(2)
+    assert [res["semi"]["applied"] for res in ranks] == [2, 2] == [local["semi"]["applied"]] * 2
 
 
 def _jax_shard(t, s):
@@ -193,6 +211,13 @@ def test_dist_all_reduce_matches_local(dist_ctx, op, dtype):
     want = LocalCommunicator([torch.device("cpu")]).all_reduce([x], op)
     assert len(got) == 1 and got[0].dtype == want[0].dtype
     assert torch.equal(got[0], want[0])
+
+
+def test_dist_all_gather_matches_local(dist_ctx):
+    x = torch.from_numpy(np.random.default_rng(4).integers(-9, 9, (2, 5)).astype(np.int32))
+    got = dist_ctx.comm.all_gather([x])
+    want = LocalCommunicator([torch.device("cpu")]).all_gather([x])
+    assert len(got) == 1 and got[0].shape == (1, 2, 5) and torch.equal(got[0], want[0])
 
 
 def test_dist_all_to_all_and_counts_match_local(dist_ctx):

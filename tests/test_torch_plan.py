@@ -11,9 +11,12 @@ and ``ordering.*`` counters a collect bumps. Results compare shard by shard
 at worlds 1 and 4: keys and counts exactly, in the order the plan defines
 (a groupby's key order, a sort); float32 sums at rtol 1e-5 and float64 at
 rtol 1e-6 (tests/test_torch_slice.py), since segment sums add in another
-order. The JAX side runs with the shuffle tiers the port has not ported
-off, ``CYLON_TPU_NO_SEMI_FILTER`` among them (ROADMAP.md C): the port has
-no ``semi_filter`` rule. Its sort and emit are its defaults, as in
+order. Both packages run with their shuffle tiers off: the JAX side under
+``CYLON_TPU_NO_SEMI_FILTER``, ``CYLON_TPU_NO_LANE_PACK`` and the other
+tiers' switches, the port under ``CYLON_TPU_TORCH_NO_SEMI_FILTER`` and
+``CYLON_TPU_TORCH_NO_LANE_PACK`` (tests/test_torch_semi_filter.py holds
+the ``semi_filter`` rule and the ``-- stats:`` text with both on). The JAX
+side's sort and emit are its defaults, as in
 tests/test_torch_shuffle_slice.py: with its sort forced through the Pallas
 radix pass in interpret mode, its fused join-sum kernel fails on a key
 that carries a validity mask (every filtered key does, in the JAX package),
@@ -36,7 +39,8 @@ from test_torch_shuffle_slice import _contexts, _shard_frame, _shards_equal
 torch.set_num_threads(1)
 
 REF_ENV = ("CYLON_TPU_NO_SEMI_FILTER", "CYLON_TPU_NO_LANE_PACK", "CYLON_TPU_NO_QUANT",
-           "CYLON_TPU_NO_TOPO", "CYLON_TPU_NO_SKEW_SPLIT", "CYLON_TPU_NO_AUTOTUNE")
+           "CYLON_TPU_NO_TOPO", "CYLON_TPU_NO_SKEW_SPLIT", "CYLON_TPU_NO_AUTOTUNE",
+           "CYLON_TPU_TORCH_NO_SEMI_FILTER", "CYLON_TPU_TORCH_NO_LANE_PACK")
 
 
 @pytest.fixture

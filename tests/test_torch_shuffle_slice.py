@@ -7,11 +7,15 @@ made with numpy from a fixed seed.
 
 The murmur3 hash is the same in both packages, so every row lands on the
 same shard: outputs are compared shard by shard, the same rows in the same
-order, and so are ``row_counts``. The JAX side runs with the shuffle tiers
-the port has not ported switched off: ``CYLON_TPU_NO_SEMI_FILTER``,
-``CYLON_TPU_NO_LANE_PACK``, ``CYLON_TPU_NO_QUANT``, ``CYLON_TPU_NO_TOPO``
-and ``CYLON_TPU_NO_SKEW_SPLIT`` (the skew split would relay hot-key tails
-through the host and change the row order on a shard). Its sort and emit
+order, and so are ``row_counts``. The JAX side runs with its shuffle tiers
+switched off: ``CYLON_TPU_NO_SEMI_FILTER``, ``CYLON_TPU_NO_LANE_PACK``,
+``CYLON_TPU_NO_QUANT``, ``CYLON_TPU_NO_TOPO`` and
+``CYLON_TPU_NO_SKEW_SPLIT`` (the skew split would relay hot-key tails
+through the host and change the row order on a shard), and the port with
+its two, ``CYLON_TPU_TORCH_NO_SEMI_FILTER`` and
+``CYLON_TPU_TORCH_NO_LANE_PACK``, so the comparison stays like for like
+(tests/test_torch_semi_filter.py and test_torch_lane_pack.py hold both
+packages with these tiers on). Its sort and emit
 are the defaults, not the forced Pallas radix pass and windowed expand of
 tests/test_torch_slice.py: at world > 1 the forced configuration trips the
 reference fault recorded in ROADMAP.md C (an outer or null-key join whose
@@ -37,8 +41,10 @@ from test_torch_slice import _frames_equal_agg, _frames_equal_exact
 
 torch.set_num_threads(1)
 
+#: the port's kill switches of the same two tiers
+PORT_NO_TIERS = ("CYLON_TPU_TORCH_NO_SEMI_FILTER", "CYLON_TPU_TORCH_NO_LANE_PACK")
 NO_TIERS = ("CYLON_TPU_NO_SEMI_FILTER", "CYLON_TPU_NO_LANE_PACK", "CYLON_TPU_NO_QUANT",
-            "CYLON_TPU_NO_TOPO", "CYLON_TPU_NO_SKEW_SPLIT")
+            "CYLON_TPU_NO_TOPO", "CYLON_TPU_NO_SKEW_SPLIT") + PORT_NO_TIERS
 
 _CTX = {}
 

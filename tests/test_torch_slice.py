@@ -7,8 +7,9 @@ The JAX side runs the configuration whose kernels the port translates:
 ``CYLON_TPU_SORT_IMPL=radix_pallas`` (every sort pass through the Pallas
 radix kernels, interpret mode here) and ``CYLON_TPU_EMIT_IMPL=windowed``
 (the left emit through the Pallas windowed expand), with
-``CYLON_TPU_NO_LANE_PACK=1`` because the port has no stats-driven sort-word
-fusion. Sides have >= 512 rows so the Pallas radix pass engages, and the
+``CYLON_TPU_NO_LANE_PACK=1``, and the port with
+``CYLON_TPU_TORCH_NO_LANE_PACK=1``: sort-word fusion off on both sides
+(tests/test_torch_lane_pack.py holds it on). Sides have >= 512 rows so the Pallas radix pass engages, and the
 join outputs stay inside the JAX package's speculative capacity.
 
 Tolerances: the join output is compared exactly, in emitted row order (the
@@ -45,6 +46,7 @@ def pallas_env(monkeypatch):
     monkeypatch.setenv("CYLON_TPU_SORT_IMPL", "radix_pallas")
     monkeypatch.setenv("CYLON_TPU_EMIT_IMPL", "windowed")
     monkeypatch.setenv("CYLON_TPU_NO_LANE_PACK", "1")
+    monkeypatch.setenv("CYLON_TPU_TORCH_NO_LANE_PACK", "1")
 
 
 def _encode(cols):

@@ -233,10 +233,18 @@ def test_dataframe_surface_matches_reference(rng, ref_env, world):
         td[3]
 
 
+def _shuffle_under(key, value):
+    """A shuffle of a context whose config asks for a tier not ported yet
+    (the lossy wire, the two-hop topology: A6)."""
+    ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device="cpu", world_size=2))
+    ctx.add_config(key, value)
+    ctt.Table.from_pydict(ctx, {"k": np.arange(4, dtype=np.int32)}).shuffle(["k"])
+
+
 @pytest.mark.parametrize("call", [
     lambda t: t.lazy().explain(analyze=True), lambda t: t.to_arrow(), lambda t: t.to_csv("x.csv"),
-    lambda t: t.task_partition(["k"], 2), lambda t: t.column_stats(),
-    lambda t: t.ensure_stats(), lambda t: t.lazy().collect_async(),
+    lambda t: t.task_partition(["k"], 2), lambda t: _shuffle_under("quant_tol", "0.01"),
+    lambda t: _shuffle_under("mesh_shape", "2x1"), lambda t: t.lazy().collect_async(),
     lambda t: t.distributed_join(t, on="k", mode="fused"),
     lambda t: ctt.DataFrame(t).merge(ctt.DataFrame(t), on="k", mode="fused"),
     lambda t: ctt.Table.from_arrow(t.ctx, None),
