@@ -180,7 +180,7 @@ N_SEMI = 8_000_000  # rows a side of SEMI4 (run_bench.py config 1b's make_pair)
 N_PACK = 8_000_000  # rows of PACK and a side of PACK4 (lane_pack_bench's tables)
 REPS_T = 3  # timed calls of each SEMI4, PACK and PACK4 variant, after a warm-up
 #: the counter families of the shuffle tiers (the semi filter, lane packing)
-TIER_PREFIXES = ("shuffle.semi_filter.", "semi_filter.", "lane_pack.")
+TIER_PREFIXES = ("shuffle.semi_filter.", "semi_filter.", "lane_pack.", "shuffle.quant.")
 REPS_MP4 = 3  # barrier-synchronised timed calls of each MP4 op
 
 # peak memory bandwidth by card (NVIDIA data sheets); SXM5 H100 otherwise
@@ -1849,6 +1849,249 @@ def main(mp4_only: bool = False) -> None:
         fail("PACK4: lane packing under stats.disabled()")
     del pack4_out, jf, gf, jp, gp, tl_p4, tr_p4
 
+    # ------------------------------------------------------------------
+    # workload Q4: run_bench.py config 1a, A4's join (8M rows a side,
+    # world 4, 32 MiB budget) under the quantized wire (quant_tol 1e-2)
+    # beside the exact wire; then tests/test_quant_wire.py's _pair at 1M
+    # rows, matched by row id
+    # ------------------------------------------------------------------
+    from cylon_tpu_torch.engine import round_cap
+    from cylon_tpu_torch.ops.join import INNER
+    from cylon_tpu_torch.parallel import pipeline as _pl
+
+    def shipped_bytes():
+        return int(_tr.report("shuffle.exchanged_bytes").get(
+            "shuffle.exchanged_bytes", {}).get("rows", 0))
+
+    def host_syncs():
+        return _tr.get_count("host_sync")
+
+    def with_quant(tol, fn):
+        """``fn()`` with ctx4's quant_tol set, its shipped bytes and host syncs."""
+        ctx4.add_config("quant_tol", tol)
+        try:
+            b0, h0 = shipped_bytes(), host_syncs()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, shipped_bytes() - b0, host_syncs() - h0
+        finally:
+            ctx4.add_config("quant_tol", "")
+
+    def cat_col(t, c):
+        return torch.cat([t._shards[d][c].data.to(dev) for d in range(t.world_size)])
+
+    def keys_per_shard_equal(a, b, key, what):
+        if a.row_counts.tolist() != b.row_counts.tolist():
+            fail(f"{what}: shard rows {a.row_counts.tolist()} != {b.row_counts.tolist()}")
+        for d in range(a.world_size):
+            if not torch.equal(torch.sort(a._shards[d][key].data).values,
+                               torch.sort(b._shards[d][key].data).values):
+                fail(f"{what}: shard {d} keys differ as multisets")
+
+    def per_key_sums_close(a, b, key, cols, tol, what):
+        """Per key, the sum of each float column within ``tol * max|x| *
+        rows of that key`` of the exact call's."""
+        ka, kb = cat_col(a, key).long(), cat_col(b, key).long()
+        rows = torch.bincount(ka, minlength=N_A).double()
+        worst = 0.0
+        for c in cols:
+            xa, xb = cat_col(a, c).double(), cat_col(b, c).double()
+            sa = torch.zeros(N_A, dtype=torch.float64, device=dev).index_add_(0, ka, xa)
+            sb = torch.zeros(N_A, dtype=torch.float64, device=dev).index_add_(0, kb, xb)
+            bound = tol * float(xa.abs().max()) * rows
+            err = (sa - sb).abs()
+            if not bool((err <= bound).all()):
+                fail(f"{what}: {c} per-key sum off by {float(err.max())}")
+            worst = max(worst, float((err / bound.clamp(min=1e-30)).max()))
+        return worst
+
+    tl4, tr4 = ctt.Table.from_pydict(ctx4, left), ctt.Table.from_pydict(ctx4, right)
+    work_q4 = {"workload": "Q4", "world": WORLD, "rows_per_side": N_A, "quant_tol": 1e-2,
+               "budget_bytes": ctx4.shuffle_byte_budget, "cells": {}}
+    q4_out = {}
+    for mode, tol in (("exact", ""), ("quant", "0.01")):
+        if mode == "quant":
+            seen.clear()
+        out, cell = timed(lambda tol=tol: with_quant(tol, lambda: tl4.distributed_join(
+            tr4, on="k", how="inner")), f"Q4_{mode}", all_kernels)
+        j_q, bytes_q, _h = out
+        cell.update({"shipped_bytes": bytes_q, "join_rows": j_q.row_count,
+                     "rounds": [k_ for _b, k_ in cell["shuffle_plans"]],
+                     "bucket_cap": [b_ for b_, _k in cell["shuffle_plans"]],
+                     "wire_row_bytes": [g_["row_bytes"] for g_ in cell["tiers"]["shuffles"]]})
+        work_q4["cells"][mode] = cell
+        q4_out[mode] = j_q
+        if mode == "quant":
+            captured_q4 = on_card(seen)
+    if not work_q4["cells"]["quant"]["tiers"]["counters"].get("shuffle.quant.applied"):
+        fail(f"Q4: the quantized wire did not apply ({work_q4['cells']['quant']['tiers']})")
+    keys_per_shard_equal(q4_out["exact"], q4_out["quant"], "k_x", "Q4")
+    work_q4["per_key_err_over_bound"] = per_key_sums_close(
+        q4_out["exact"], q4_out["quant"], "k_x", ("v", "w"), 1e-2, "Q4")
+    del q4_out
+    # the 1M-row pair with row ids: every value within 1e-2 * max|x|
+    rng_q = np.random.default_rng(SEED)
+    n_q = 1_000_000
+    q_left = {"k": rng_q.integers(0, n_q // 20, n_q).astype(np.int32),
+              "v": (rng_q.normal(size=n_q) * 10).astype(np.float32),
+              "rid": np.arange(n_q, dtype=np.int64)}
+    q_right = {"rk": rng_q.integers(0, n_q // 20, n_q // 2).astype(np.int32),
+               "w": (rng_q.normal(size=n_q // 2) * 10).astype(np.float32),
+               "sid": np.arange(n_q // 2, dtype=np.int64)}
+    tq_l, tq_r = ctt.Table.from_pydict(ctx4, q_left), ctt.Table.from_pydict(ctx4, q_right)
+    pair = {}
+    for mode, tol in (("exact", ""), ("quant", "0.01")):
+        j_p, _b, _h = with_quant(tol, lambda: tq_l.distributed_join(tq_r, left_on="k", right_on="rk"))
+        order = torch.argsort(cat_col(j_p, "rid") * (n_q // 2) + cat_col(j_p, "sid"))
+        pair[mode] = {c: cat_col(j_p, c)[order] for c in ("k", "rid", "sid", "v", "w")}
+    for c in ("k", "rid", "sid"):
+        if not torch.equal(pair["exact"][c], pair["quant"][c]):
+            fail(f"Q4 pair: {c} differs under the quantized wire")
+    pair_err = {}
+    for c in ("v", "w"):
+        ref = pair["exact"][c].double()
+        err = float((ref - pair["quant"][c].double()).abs().max())
+        pair_err[c] = err / (1e-2 * float(ref.abs().max()))
+        if pair_err[c] > 1.0:
+            fail(f"Q4 pair: {c} err {err} past 1e-2 * max|x|")
+    work_q4["pair_1m"] = {"join_rows": int(pair["exact"]["k"].numel()), "err_over_bound": pair_err}
+    del pair, tq_l, tq_r, q_left, q_right
+
+    # ------------------------------------------------------------------
+    # workloads FUSED and FUSED4: run_bench.py's dist_inner_join_fused and
+    # dist_join_groupby_q3_fused, A's tables at world 1 and A4's at world
+    # 4, each beside the eager call
+    # ------------------------------------------------------------------
+    def rows_sorted(t):
+        return t.sort(t.column_names)
+
+    def multisets_equal(a, b, what):
+        """Per shard the same rows: both sorted by every column, then equal."""
+        shards_equal(rows_sorted(a), rows_sorted(b), what)
+
+    def fused_cell(fn, what, kernels, ref=None):
+        (out, _b, h), cell = timed(lambda: with_quant(getattr(fn, "tol", ""), fn), what, kernels)
+        cell["host_syncs"] = h
+        if ref is not None:
+            multisets_equal(out, ref, what)
+        return out, cell
+
+    slice_lanes = []
+    orig_bsp = _sh.build_slice_plan
+
+    def rec_bsp(pid, sid, world, num_slices):
+        def lane(enc, perm, lo, hi):
+            slice_lanes.append((enc, perm, lo, hi))
+            return rec_lane(enc, perm, lo, hi)
+
+        cuda_radix.radix_sort_lane = lane
+        try:
+            return orig_bsp(pid, sid, world, num_slices)
+        finally:
+            cuda_radix.radix_sort_lane = rec_lane
+
+    _sh.build_slice_plan = rec_bsp
+    work_fused = {"workload": "FUSED", "world": 1, "rows_per_side": N_A, "cells": {}}
+    j_e, work_fused["cells"]["eager"] = fused_cell(
+        lambda: tl.distributed_join(tr, on="k"), "FUSED_eager", local_kernels)
+    j_f, work_fused["cells"]["fused"] = fused_cell(
+        lambda: tl.distributed_join(tr, on="k", mode="fused"), "FUSED", local_kernels, j_e)
+    if work_fused["cells"]["fused"]["host_syncs"] != 1:
+        fail(f"FUSED: {work_fused['cells']['fused']['host_syncs']} host syncs, not 1")
+    del j_e, j_f
+
+    work_fused4 = {"workload": "FUSED4", "world": WORLD, "rows_per_side": N_A,
+                   "budget_bytes": ctx4.shuffle_byte_budget, "cells": {}}
+    c4 = work_fused4["cells"]
+    j_e4, c4["eager"] = fused_cell(lambda: tl4.distributed_join(tr4, on="k"), "FUSED4_eager",
+                                   all_kernels)
+    seen.clear()
+    j_f4, c4["fused"] = fused_cell(lambda: tl4.distributed_join(tr4, on="k", mode="fused"),
+                                   "FUSED4", all_kernels, j_e4)
+    captured_f4 = on_card(seen)
+    print(json.dumps({"profile_fused4": profile(
+        lambda: tl4.distributed_join(tr4, on="k", mode="fused")),
+        "profile_fused4_eager": profile(lambda: tl4.distributed_join(tr4, on="k"))}))
+    slice_lanes.clear()
+    # a slice round's send slots come from the slice plan's one K1 sort
+    # (the JAX package's slice_round_dest), not from B2b
+    _j, c4["fused_slices2"] = fused_cell(
+        lambda: tl4.distributed_join(tr4, on="k", mode="fused", num_slices=2),
+        "FUSED4_slices2", [k_ for k_ in all_kernels if k_ != "pack_dest"], j_e4)
+    if not slice_lanes:
+        fail("FUSED4_slices2: build_slice_plan sorted no lane through K1")
+    slice_lane = max(slice_lanes, key=lambda a: a[0].shape[0])
+    slice_lane = tuple(x.to(dev) if isinstance(x, torch.Tensor) else x for x in slice_lane)
+
+    # A4's rows (k, float32) ship no narrower on the static wire plan (32 +
+    # 8 bits fill two words; tests/test_torch_pipeline.py holds that on the
+    # CPU); with the right payload float64 the right side rides q8 fields
+    # and its rounds carry the scale rows
+    tr4d = ctt.Table.from_pydict(ctx4, {"k": right["k"], "w": right["w"].astype(np.float64)})
+    j_e4d = tl4.distributed_join(tr4d, on="k")
+
+    def fused_quant_f64():
+        return tl4.distributed_join(tr4d, on="k", mode="fused")
+
+    fused_quant_f64.tol = "0.01"
+    seen.clear()
+    j_fqd, c4["fused_quant_f64"] = fused_cell(fused_quant_f64, "FUSED4_quant_f64", all_kernels)
+    captured_f4q = on_card(seen)
+    keys_per_shard_equal(j_e4d, j_fqd, "k_x", "FUSED4_quant_f64")
+    c4["fused_quant_f64"]["per_key_err_over_bound"] = per_key_sums_close(
+        j_e4d, j_fqd, "k_x", ("v", "w"), 1e-2, "FUSED4_quant_f64")
+    if captured_f4q["move"][0].shape[1] <= 2:
+        fail("FUSED4_quant_f64: B3 moved no q8 scale lane")
+    for name in ("fused", "fused_slices2", "fused_quant_f64"):
+        if c4[name]["host_syncs"] != 1:
+            fail(f"FUSED4 {name}: {c4[name]['host_syncs']} host syncs, not 1")
+    del _j, j_f4, j_fqd, j_e4d, tr4d
+    # the q3 step at the reference benchmark's capacities, beside the eager
+    # join -> groupby-sum; groups against workload A's float64 reference
+    cap4 = round_cap(int(tl4.row_counts.max()))
+    q3_caps = {"bucket_cap": max(64, 4 * cap4 // WORLD), "join_cap": 4 * cap4,
+               "group_cap": 2 * cap4}
+    step = _pl.make_join_groupby_step(ctx4, (0,), (0,), 1, INNER, **q3_caps)
+    l_in = [tl4._flat_cols(s) for s in range(WORLD)]
+    r_in = [tr4._flat_cols(s) for s in range(WORLD)]
+
+    def q3_fused():
+        out = step(l_in, r_in)
+        total = float(out[3][0])  # the single fetch
+        return out, total
+
+    # the pushdown sums in the probe's merged sort: no join emit, no K2
+    q3_kernels = list(cuda_radix.LAUNCHES) + list(cuda_codec.LAUNCHES)
+    (q3_out, q3_total), c4["q3_fused"] = timed(q3_fused, "FUSED4_q3", q3_kernels)
+    print(json.dumps({"profile_q3_fused": profile(q3_fused)}))
+    (g_e4, _), c4["q3_eager"] = timed(
+        lambda: (tl4.distributed_join(tr4, on="k").distributed_groupby("k_x", {"v": "sum"}), 0),
+        "FUSED4_q3_eager", all_kernels)
+    sums, ngs = q3_out[0], q3_out[1]
+    got_keys, got_sums = [], []
+    for d in range(WORLD):
+        ng = int(ngs[d])
+        if ng != g_e4.row_counts[d]:
+            fail(f"FUSED4 q3: shard {d} groups {ng} != eager {g_e4.row_counts[d]}")
+        got_keys.append(g_e4._shards[d]["k_x"].data.to(dev).long())
+        got_sums.append(sums[d][:ng].to(dev).double())
+    gk, gs = torch.cat(got_keys), torch.cat(got_sums)
+    ref = (sv * cr)[gk]
+    err = (gs - ref).abs()
+    if not bool((err <= 1e-4 + 1e-5 * ref.abs()).all()):
+        fail(f"FUSED4 q3: group sums max abs err {float(err.max())}")
+    total_ref = float((sv * cr)[keys].sum())
+    total_tol = 1e-4 + 1e-5 * float(gs.abs().sum())
+    if abs(q3_total - total_ref) > total_tol:
+        fail(f"FUSED4 q3: total {q3_total} vs {total_ref} (tol {total_tol})")
+    c4["q3_fused"].update({"capacities": q3_caps, "total": q3_total, "total_ref": total_ref,
+                           "groups": int(sum(int(x) for x in ngs))})
+    del q3_out, g_e4, j_e4, step, l_in, r_in, tl4, tr4
+    _sh.build_slice_plan = orig_bsp
+    print(json.dumps({"smi": smi, **work_q4}))
+    print(json.dumps({"smi": smi, **work_fused}))
+    print(json.dumps({"smi": smi, **work_fused4}))
+
 
     cuda_radix.radix_sort_lane, cuda_gather.expand_rows = orig_lane, orig_expand
     cuda_codec.pack_hist, cuda_codec.pack_dest = orig_hist, orig_dest
@@ -1967,6 +2210,61 @@ def main(mp4_only: bool = False) -> None:
     err_pk = max_err(got_p, cuda_probe.probe_plain(p_lk, p_rk, p_rid, p_nb, p_B))
     if err_pk:
         fail(f"kernel mismatch: pk_probe {err_pk}")
+
+    # this slice's new paths, each kernel held exactly on that path's own
+    # inputs: B2b on Q4's quantized rounds, B3 on Q4's received buffers with
+    # their q8 scale lanes and on FUSED4_quant's concatenated rounds, K1 on
+    # FUSED4_slices2's combined (slice, pid) sort, K2 on FUSED4's emit
+    new_paths = {}
+    for tag, cap_ in (("q4", captured_q4), ("fused4_quant", captured_f4q)):
+        if "move" not in cap_:
+            fail(f"{tag}: B3 received no buffer")
+        mv = cap_["move"]
+        got_m = cuda_codec.compact_move(*mv)
+        torch.cuda.synchronize()
+        new_paths[f"compact_move_{tag}"] = {
+            "shape": [mv[2], mv[3], mv[0].shape[1]], "n_header": mv[4],
+            "max_abs_err": max_err(got_m, cuda_codec.compact_move_plain(*mv)),
+            "ms": cuda_ms(lambda mv=mv: cuda_codec.compact_move(*mv)),
+            "plain_ms": cuda_ms(lambda mv=mv: cuda_codec.compact_move_plain(*mv)),
+            "bound_ms": (4 * mv[0].numel() + 4 * mv[2] * mv[3] * mv[0].shape[1]) / bw * 1e3}
+    qd = captured_q4["dest"]
+    got_d = cuda_codec.pack_dest(*qd)
+    torch.cuda.synchronize()
+    new_paths["pack_dest_q4"] = {
+        "shape": [qd[0].shape[0], qd[3], qd[4]], "round": qd[2],
+        "max_abs_err": max_err(got_d, cuda_codec.pack_dest_plain(*qd)),
+        "ms": cuda_ms(lambda: cuda_codec.pack_dest(*qd)),
+        "plain_ms": cuda_ms(lambda: cuda_codec.pack_dest_plain(*qd)),
+        "bound_ms": (4 * qd[0].shape[0] * 2 + 4 * qd[3] * cuda_codec.n_tiles(qd[0].shape[0]))
+        / bw * 1e3}
+    _ks, e_hs, e_ss = hold_lane(slice_lane)
+    new_paths["radix_slice_plan"] = {
+        "shape": [slice_lane[0].shape[0], slice_lane[2], slice_lane[3]],
+        "max_abs_err": max(e_hs, e_ss),
+        "ms": cuda_ms(lambda: cuda_radix.radix_sort_lane(*slice_lane)),
+        "plain_ms": cuda_ms(lambda: cuda_radix.radix_sort_lane_plain(*slice_lane)),
+        "bound_ms": 8 * slice_lane[0].shape[0] / bw * 1e3}
+    f_src, f_li = captured_f4["expand"]
+    got_x = cuda_gather.expand_rows(f_src, f_li)
+    torch.cuda.synchronize()
+    # the padded emit reads the emitting left rows (the front of the
+    # source) and clamps its rows past the output to the last column: count
+    # the distinct source columns it reads (li never decreases)
+    f_touched = int(torch.unique_consecutive(f_li.clamp(0, f_src.shape[1] - 1)).numel())
+    new_paths["expand_rows_fused4"] = {
+        "shape": [f_src.shape[0], f_src.shape[1], f_li.numel()],
+        "max_abs_err": max_err(got_x, cuda_gather.expand_rows_plain(f_src, f_li)),
+        "ms": cuda_ms(lambda: cuda_gather.expand_rows(f_src, f_li)),
+        "plain_ms": cuda_ms(lambda: cuda_gather.expand_rows_plain(f_src, f_li)),
+        # the padded emit's positions past the output clamp, as in the kernel
+        "library_ms": cuda_ms(lambda: torch.index_select(
+            f_src, 1, f_li.clamp(0, f_src.shape[1] - 1))),
+        "bound_ms": 4 * (f_src.shape[0] * f_touched + f_li.numel()
+                         + f_src.shape[0] * f_li.numel()) / bw * 1e3}
+    bad = {k_: v_["max_abs_err"] for k_, v_ in new_paths.items() if v_["max_abs_err"]}
+    if bad:
+        fail(f"kernel mismatch on this slice's paths: {bad}")
 
     # K1 at the main path's largest 32-bit lane (A's merged kv-sort): the
     # histogram of all its digits, and one pass that carries a perm (the
@@ -2139,6 +2437,12 @@ def main(mp4_only: bool = False) -> None:
          "library_ms": None, "shape": [p_nb, p_B], "bytes": bytes_p,
          "launches_pk4": work_pk4["launches"]["pk_probe"]},
     ]
+    by_name = {k["name"]: k for k in kernels}
+    by_name["shuffle_pack_dest"]["q4"] = new_paths["pack_dest_q4"]
+    by_name["shuffle_compact_move"]["q4"] = new_paths["compact_move_q4"]
+    by_name["shuffle_compact_move"]["fused4_quant"] = new_paths["compact_move_fused4_quant"]
+    by_name["radix_onesweep"]["slice_plan"] = new_paths["radix_slice_plan"]
+    by_name["expand_rows"]["fused4"] = new_paths["expand_rows_fused4"]
     # ptxas's registers and spills of every kernel (the builds' -Xptxas -v)
     usage = {n: _build.resource_usage(n) for n in _build.SOURCES}
     kernel_fn = {"radix_lane_hist": ("radix_pass", "lane_hist_kernel"),
@@ -2154,7 +2458,8 @@ def main(mp4_only: bool = False) -> None:
         k["launches_l"] = {q: v["launches"][ck] for q, v in work_l["queries"].items()}
         k["launches_l4"] = {q: v["launches"][ck] for q, v in work_l4["queries"].items()}
         # this slice's workloads: each variant's first timed call
-        for tag, w in (("semi4", work_semi), ("pack", work_pack), ("pack4", work_pack4)):
+        for tag, w in (("semi4", work_semi), ("pack", work_pack), ("pack4", work_pack4),
+                       ("q4", work_q4), ("fused", work_fused), ("fused4", work_fused4)):
             cells = w["cells"].items()
             if tag == "semi4":
                 cells = [(f"{sel}_{mode}", m) for sel, c in w["cells"].items() for mode, m in c.items()]

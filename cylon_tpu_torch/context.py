@@ -281,15 +281,19 @@ class CylonContext:
         CYLON_TPU_TORCH_SKETCH_BITS > config.DEFAULT_SKETCH_BITS)."""
         return sketch_bits(self._config.get("sketch_bits"))
 
+    @property
+    def quant_tol(self) -> float:
+        """Effective lossy-wire tolerance of this context (config KV
+        ``quant_tol`` > CYLON_TPU_TORCH_QUANT_TOL > 0.0, the exact wire;
+        the CYLON_TPU_TORCH_NO_QUANT kill switch forces 0.0). See
+        ops/quant.py for the codecs the tolerance engages."""
+        from .ops.quant import tolerance
+
+        return tolerance(self._config.get("quant_tol"))
+
     def check_shuffle_tiers(self) -> None:
         """Raise for a config that asks for a shuffle tier the port has not
-        ported: a lossy-wire tolerance (``quant_tol`` above 0) or a 2-D
-        mesh (``mesh_shape``). Read by every shuffle."""
-        tol = self._config.get("quant_tol", "")
-        if tol and float(tol) > 0:
-            raise NotImplementedError(
-                "quant_tol: the quantized wire tier is not ported yet (ROADMAP.md: A6)"
-            )
+        ported: a 2-D mesh (``mesh_shape``). Read by every shuffle."""
         if self._config.get("mesh_shape"):
             raise NotImplementedError(
                 "mesh_shape: the two-hop topology exchange is not ported yet (ROADMAP.md: A6)"

@@ -10,9 +10,9 @@ against pycylon; with ``GPUConfig(coordinator_address=...,
 num_processes=W, process_id=r)`` every rank runs the same program on its
 own shard, as under ``mpirun``. Selection, the operators, null handling,
 ``set_index`` / ``loc`` / ``iloc``, ``concat`` and ``lazy`` are the JAX
-package's. Left out, each raising NotImplementedError naming its ROADMAP
-item: ``collect_async`` (A9), ``mode="fused"`` (A6), ``to_arrow`` and
-``to_csv`` (A8).
+package's, ``merge``/``join`` with ``mode="fused"`` under a distributed env
+too. Left out, each raising NotImplementedError naming its ROADMAP item:
+``collect_async`` (A9), ``to_arrow`` and ``to_csv`` (A8).
 """
 from __future__ import annotations
 
@@ -70,11 +70,15 @@ def _local_ctx() -> CylonContext:
     return _default_local_ctx
 
 
-def _check_mode(mode: str) -> None:
-    if mode == "fused":
-        raise _not_ported("mode='fused'", "A6, the fused shuffle->join program")
-    if mode != "eager":
+def _check_mode(mode: str, env: Optional[CylonEnv]) -> None:
+    """Reject an execution mode that would be ignored: 'fused' needs a
+    distributed env, and an unknown mode errors here."""
+    if mode == "eager":
+        return
+    if mode != "fused":
         raise ValueError(f"unknown join mode {mode!r}")
+    if env is None or not env.is_distributed:
+        raise ValueError("mode='fused' requires a distributed env= argument")
 
 
 class DataFrame:
@@ -356,13 +360,14 @@ class DataFrame:
         mode: str = "eager",
     ) -> "DataFrame":
         """pandas.DataFrame.join flavor: suffix-renames both sides'
-        overlapping columns (reference frame.py:1115-1226)."""
-        _check_mode(mode)
+        overlapping columns (reference frame.py:1115-1226). ``mode='fused'``
+        runs the distributed join as the fused step (Table.distributed_join)."""
+        _check_mode(mode, env)
         t = self._retarget(env)
         o = other._retarget(env)
         kwargs = dict(on=on, how=how, suffixes=(f"_{lsuffix}", f"_{rsuffix}"), algorithm=algorithm)
         if env is not None and env.is_distributed:
-            return DataFrame(t.distributed_join(o, **kwargs))
+            return DataFrame(t.distributed_join(o, mode=mode, **kwargs))
         return DataFrame(t.join(o, **kwargs))
 
     def merge(
@@ -378,11 +383,14 @@ class DataFrame:
         mode: str = "eager",
     ) -> "DataFrame":
         """pandas.merge semantics: with ``on=``, the output carries ONE key
-        column (coalesced for outer joins). Reference frame.py:1244+."""
-        _check_mode(mode)
+        column (coalesced for outer joins). Reference frame.py:1244+.
+        ``mode='fused'`` (a distributed env) runs the fused join."""
+        _check_mode(mode, env)
         t = self._retarget(env)
         o = right._retarget(env)
         kwargs = dict(how=how, suffixes=suffixes, algorithm=algorithm)
+        if env is not None and env.is_distributed and mode != "eager":
+            kwargs["mode"] = mode
         if on is not None:
             kwargs["on"] = on
         else:

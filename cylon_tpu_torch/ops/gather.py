@@ -130,8 +130,9 @@ def pack_gather(
 # validity mask 1 bit, a bool 1 bit, a float16 its 16 bits. Only
 # bit-lossless encodings narrow (int families, bools, dictionary codes);
 # float32 rides as a plain lane, float64 as two passthrough lanes behind
-# the packed words. The quantized fields of the lossy tier (kind 'q') are
-# ROADMAP.md A6's next slice: no plan holds one yet.
+# the packed words, unless the opt-in lossy tier (ops/quant.py) gives a
+# float payload column a quantized field (kind 'q'), whose q8 block scales
+# ride the exchange's header rows.
 # ----------------------------------------------------------------------
 
 class WireField(NamedTuple):
@@ -140,8 +141,10 @@ class WireField(NamedTuple):
     ``kind``: 'enc' (stats-rebased orderable encoding), 'lane' (one plain
     32-bit lane of an un-narrowed column), 'valid' (1-bit validity), 'h16'
     (the native 16 bits of a float16/bfloat16), 'q' (a lossy quantized
-    field, not ported). ``off``: a 'lane' field's lane within its column.
-    ``cls``: an 'enc' field's encoding class; an 'h16' field's dtype."""
+    field of ops/quant.py). ``off``: a 'lane' field's lane within its
+    column. ``cls``: an 'enc' field's encoding class; an 'h16' field's
+    dtype; a 'q' field's ``"<codec>:<dtype>"`` (q8/qb16/qf32 and the
+    column's dtype, which the decode restores)."""
 
     col: int
     kind: str
@@ -183,19 +186,24 @@ def wire_plan(cols_plan, stats_list, quant=None) -> Optional[WirePlan]:
     global range stats, or None. Lossless narrow encodings take 'enc'
     fields (bool needs no stats: 1 bit, base 0), float16/bfloat16 'h16'
     fields, everything else its plain 32-bit lanes; float64 stays outside;
-    every validity mask takes 1 bit. ``quant`` (the lossy tier's per-column
-    codecs) is not ported: it must be None."""
+    every validity mask takes 1 bit. ``quant``: per-column lossy codecs
+    (ops/quant.quant_spec, None entries exact); a quantized column, a
+    float64 one too (which so leaves the passthrough), ships a 'q' field
+    at its codec's width, and a quantized float64 counts as two plain
+    lanes in the engagement compare."""
+    from .quant import CODEC_BITS
     from .stats import wire_narrowable
 
-    if quant is not None and any(q is not None for q in quant):
-        raise NotImplementedError("quantized wire fields are not ported yet (ROADMAP.md: A6)")
     fields: List[WireField] = []
     n_plain = 0
     for ci, (tag, nl, has_valid) in enumerate(cols_plan):
+        qc = quant[ci] if quant is not None else None
         if tag is not None:
             n_plain += nl
             st = stats_list[ci]
-            if tag == "bool":
+            if qc is not None:
+                fields.append(WireField(ci, "q", 0, CODEC_BITS[qc], f"{qc}:{tag}"))
+            elif tag == "bool":
                 fields.append(WireField(ci, "enc", 0, 1, "bool"))
             elif tag in ("float16", "bfloat16"):
                 fields.append(WireField(ci, "h16", 0, 16, tag))
@@ -204,6 +212,9 @@ def wire_plan(cols_plan, stats_list, quant=None) -> Optional[WirePlan]:
             else:
                 for j in range(nl):
                     fields.append(WireField(ci, "lane", j, 32, ""))
+        elif qc is not None:
+            n_plain += 2
+            fields.append(WireField(ci, "q", 0, CODEC_BITS[qc], f"{qc}:float64"))
         if has_valid:
             n_plain += 1
             fields.append(WireField(ci, "valid", 0, 1, ""))
@@ -216,6 +227,19 @@ def wire_plan(cols_plan, stats_list, quant=None) -> Optional[WirePlan]:
     return WirePlan(tuple(cols_plan), tuple(fields), n_words, n_plain)
 
 
+def static_wire_plan(cols: Sequence[KeyCol], quant=None) -> Optional[WirePlan]:
+    """The stats-free wire plan: only the static narrowings (bool data and
+    validity masks to 1 bit, float16/bfloat16 to 16, and under ``quant``
+    the lossy fields, whose block scales ride the headers). The fused
+    pipeline takes it: it has no host stats step."""
+    from .stats import enabled
+
+    if not enabled():
+        return None
+    plan = wire_lane_plan(cols)
+    return wire_plan(plan, [None] * len(plan), quant=quant)
+
+
 def wire_row_bytes(wplan: WirePlan) -> int:
     """Bytes one row takes in a wire-narrowed exchange buffer: 4 per packed
     word + 8 per float64 column (two lanes behind the words)."""
@@ -225,8 +249,17 @@ def wire_row_bytes(wplan: WirePlan) -> int:
     return max(total, 1)
 
 
+def wire_q8_cols(wplan: Optional[WirePlan]) -> Tuple[Tuple[int, str], ...]:
+    """(col, dtype) of every block-scaled 'q8' field in field order: the
+    fields whose per-chunk scales ride the exchange header rows."""
+    if wplan is None:
+        return ()
+    return tuple((f.col, f.cls.split(":", 1)[1]) for f in wplan.fields
+                 if f.kind == "q" and f.cls.startswith("q8:"))
+
+
 def wire_has_quant(wplan: Optional[WirePlan]) -> bool:
-    """Whether the plan holds a lossy field: never, until the quant slice."""
+    """Whether the plan holds a lossy field."""
     return wplan is not None and any(f.kind == "q" for f in wplan.fields)
 
 
@@ -259,18 +292,24 @@ def _enc_base(bases: Optional[np.ndarray], ei: int) -> int:
     return b - (1 << 64) if b >= 1 << 63 else b
 
 
-def wire_pack_cols(cols: Sequence[KeyCol], wplan: WirePlan, bases: Optional[np.ndarray]):
+def wire_pack_cols(cols: Sequence[KeyCol], wplan: WirePlan, bases: Optional[np.ndarray],
+                   qscales: Optional[torch.Tensor] = None):
     """Encode every column into the plan's packed words.
 
     Returns (word lanes, each an int32 [n] tensor, passthrough {col ->
     float64 data}). 'enc' fields clamp to their width: the values fit
     whenever the stats were sound bounds (values under null were measured
-    too), so the clamp is a firewall, not a data path."""
+    too), so the clamp is a firewall, not a data path. ``qscales``: [n,
+    n_q8] float32 per-row block scales of the 'q8' fields in field order
+    (each row its destination chunk's, :func:`~cylon_tpu_torch.parallel
+    .shuffle.send_row_scales`)."""
+    from . import quant as _q
     from .stats import M32, assemble_words, clamp_field, encode_enc, layout_words
 
+    qcols = {f.col for f in wplan.fields if f.kind == "q"}
     field_vals: List[torch.Tensor] = []
     bits_list: List[int] = []
-    ei = 0
+    ei = qi = 0
     for f in wplan.fields:
         data, valid = cols[f.col]
         if f.kind == "enc":
@@ -286,30 +325,42 @@ def wire_pack_cols(cols: Sequence[KeyCol], wplan: WirePlan, bases: Optional[np.n
             v = _to_lanes(data)[f.off].to(torch.int64) & M32
         elif f.kind == "valid":
             v = valid.to(torch.int64)
-        else:
-            raise NotImplementedError("quantized wire fields are not ported yet (ROADMAP.md: A6)")
+        else:  # 'q'
+            codec = f.cls.split(":", 1)[0]
+            scale = None
+            if codec == "q8":
+                scale = qscales[:, qi]
+                qi += 1
+            v = _q.encode_field(codec, data, scale)
         field_vals.append(v)
         bits_list.append(f.bits)
-    passthrough = {ci: cols[ci][0] for ci, (tag, _nl, _hv) in enumerate(wplan.plan) if tag is None}
+    passthrough = {ci: cols[ci][0] for ci, (tag, _nl, _hv) in enumerate(wplan.plan)
+                   if tag is None and ci not in qcols}
     return assemble_words(field_vals, layout_words(bits_list, False), bits_list), passthrough
 
 
 def wire_unpack_cols(word_lanes, wplan: WirePlan, bases: Optional[np.ndarray],
-                     handle_passthrough, make_valid):
+                     handle_passthrough, make_valid, qscales: Optional[torch.Tensor] = None):
     """Decode :func:`wire_pack_cols` words back into columns: the wire
     counterpart of :func:`unpack_cols` (``handle_passthrough(ci)`` gives a
-    float64 column, ``make_valid(lane_or_None)`` shapes each validity)."""
+    float64 column, ``make_valid(lane_or_None)`` shapes each validity).
+    ``qscales``: [rows, n_q8] float32 per-row scales of the 'q8' fields,
+    each row its source chunk's."""
+    from . import quant as _q
     from .stats import decode_enc, extract_fields, layout_words
 
     bits_list = [f.bits for f in wplan.fields]
     vals = extract_fields(list(word_lanes), layout_words(bits_list, False), bits_list)
     per_col: dict = {}
-    ei = 0
+    ei = qi = 0
     for f, v in zip(wplan.fields, vals):
         slot = -1
         if f.kind == "enc":
             slot = ei
             ei += 1
+        elif f.kind == "q" and f.cls.startswith("q8:"):
+            slot = qi
+            qi += 1
         per_col.setdefault(f.col, []).append((f, v, slot))
     out: List[KeyCol] = []
     for ci, (tag, _nl, has_valid) in enumerate(wplan.plan):
@@ -320,6 +371,10 @@ def wire_unpack_cols(word_lanes, wplan: WirePlan, bases: Optional[np.ndarray],
                 data = decode_enc(v + _enc_base(bases, slot), f.cls, getattr(torch, tag))
             elif f.kind == "h16":
                 data = torch.where(v >= 2**15, v - 2**16, v).to(torch.int16).view(getattr(torch, f.cls))
+            elif f.kind == "q":
+                codec, out_dt = f.cls.split(":", 1)
+                scale = qscales[:, slot] if codec == "q8" else None
+                data = _q.decode_field(codec, v, scale, getattr(torch, out_dt))
             elif f.kind == "lane":
                 frags.append(torch.where(v >= 2**31, v - 2**32, v).to(torch.int32))
             else:

@@ -54,6 +54,29 @@ _JOIN_TYPES = {"inner": INNER, "left": LEFT, "right": RIGHT, "fullouter": FULL_O
 #: output rows addressable by the int32 row ids of the kernels
 MAX_ROWS = 2**31 - 1
 
+#: slots behind a padded segment sum that take its dead rows, spread so
+#: that their atomic adds do not serialize on one address
+DISCARD_SLOTS = 4096
+
+
+def discard_targets(tgt: torch.Tensor, drop: Optional[torch.Tensor], cap: int) -> torch.Tensor:
+    """Segment-sum slots for :func:`padded_seg_add`: ``tgt`` where it is
+    below ``cap`` and the row is not dropped; else one of the
+    DISCARD_SLOTS slots behind the ``cap`` live ones, spread by row.
+    Without ``drop`` (an unpadded input, whose targets stay below an exact
+    ``cap``) a target past ``cap`` clamps to the first discard slot."""
+    if drop is None:
+        return tgt.clamp(max=cap)
+    spill = cap + torch.arange(tgt.shape[0], device=tgt.device) % DISCARD_SLOTS
+    return torch.where(drop | (tgt >= cap), spill, tgt)
+
+
+def padded_seg_add(x: torch.Tensor, tgt: torch.Tensor, cap: int) -> torch.Tensor:
+    """Segment sum of ``x`` into ``cap`` slots at ``tgt`` (from
+    :func:`discard_targets`); the discard slots are cut off."""
+    out = torch.zeros(cap + DISCARD_SLOTS, dtype=x.dtype, device=x.device)
+    return out.index_add_(0, tgt, x)[:cap]
+
 
 def join_type_id(how: str) -> int:
     try:
@@ -96,7 +119,7 @@ def _canonical_ids(
 
 
 def _merged_counts(
-    l_ids: torch.Tensor, r_ids: torch.Tensor, hint, need_rcnt: bool
+    l_ids: torch.Tensor, r_ids: torch.Tensor, hint, need_rcnt: bool, n_live=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(lo, cnt, r_cnt) of the equi-join probe from ONE merged kv-sort.
 
@@ -106,13 +129,15 @@ def _merged_counts(
       cnt[p] = rights inside the run (rights in the run up to p).
     Both return to row order by one scatter through the sort's payload.
     r_cnt mirrors it: counting lefts at/after a right position sees the
-    run's lefts."""
+    run's lefts. ``n_live``: (left, right) live row counts of padded
+    inputs (device scalars), whose dead rows hold the largest id: only
+    live rows count (a live row with that id sorts before them)."""
     nl, nr = l_ids.shape[0], r_ids.shape[0]
     device = l_ids.device
     keys = torch.cat([r_ids, l_ids])
     pay = torch.arange(nr + nl, dtype=torch.int32, device=device)
     skey, spay = _radix.kv_sort(keys, pay, hint)
-    is_r = spay < nr
+    is_r = spay < (nr if n_live is None else n_live[1])
     rl = is_r.to(torch.int64)
     r_excl = torch.cumsum(rl, 0) - rl
     new_run = torch.ones(nr + nl, dtype=torch.bool, device=device)
@@ -123,17 +148,21 @@ def _merged_counts(
     lo, cnt = (x[nr:] for x in sentinel_compact(spay, [lo_run, cnt_p]))
     if not need_rcnt:
         return lo, cnt, None
-    (r_cnt,) = sentinel_compact(spay, [run_count_from(new_run, ~is_r)])
+    is_l = spay >= nr if n_live is None else (spay >= nr) & (spay - nr < n_live[0])
+    (r_cnt,) = sentinel_compact(spay, [run_count_from(new_run, is_l)])
     return lo, cnt, r_cnt[:nr]
 
 
-def count_from_probe(cnt, r_cnt, how: int) -> torch.Tensor:
-    """Exact output row count (device int64 scalar)."""
+def count_from_probe(cnt, r_cnt, how: int, l_live=None, r_live=None) -> torch.Tensor:
+    """Exact output row count (device int64 scalar); ``l_live``/``r_live``
+    mask the live rows of padded inputs."""
     total = cnt.sum()
     if how in (LEFT, FULL_OUTER):
-        total = total + (cnt == 0).sum()
+        un = cnt == 0
+        total = total + (un if l_live is None else un & l_live).sum()
     if how in (RIGHT, FULL_OUTER):
-        total = total + (r_cnt == 0).sum()
+        un = r_cnt == 0
+        total = total + (un if r_live is None else un & r_live).sum()
     return total
 
 
@@ -156,12 +185,15 @@ def _repeat_ss(ends: torch.Tensor, cap_out: int) -> torch.Tensor:
     return torch.searchsorted(ends, pos, right=True, out_int32=True)
 
 
-def emit_from_probe(lo, cnt, r_order, r_cnt, how: int, total: int):
+def emit_from_probe(lo, cnt, r_order, r_cnt, how: int, total: int, l_live=None, r_live=None):
     """(left idx, right idx) int64 pairs of every output row, -1 on the
-    null side of an outer join."""
+    null side of an outer join. ``total`` sizes the output; with padded
+    inputs (``l_live``/``r_live``) it is a static capacity, and rows past
+    the real count hold -1 on both sides."""
     device = lo.device
     nl, nr = lo.shape[0], r_order.shape[0]
-    cnt_adj = torch.where(cnt == 0, torch.ones_like(cnt), cnt) if how in (LEFT, FULL_OUTER) else cnt
+    un_l = cnt == 0 if l_live is None else (cnt == 0) & l_live
+    cnt_adj = torch.where(un_l, torch.ones_like(cnt), cnt) if how in (LEFT, FULL_OUTER) else cnt
     ends = torch.cumsum(cnt_adj, 0)
     offs = ends - cnt_adj
     total_l = ends[-1] if nl else torch.zeros((), dtype=torch.int64, device=device)
@@ -177,10 +209,11 @@ def emit_from_probe(lo, cnt, r_order, r_cnt, how: int, total: int):
     if how in (RIGHT, FULL_OUTER):
         # unmatched right rows append after the left part; the others land
         # in distinct slots past the output, sliced off
-        r_un = r_cnt == 0
+        r_un = r_cnt == 0 if r_live is None else (r_cnt == 0) & r_live
         rank = torch.cumsum(r_un.to(torch.int64), 0) - 1
         idx_r = torch.arange(nr, dtype=torch.int64, device=device)
-        dest = torch.where(r_un, total_l + rank, total + idx_r)
+        # past the output (a capacity the real count overflows): own slots
+        dest = torch.where(r_un & (total_l + rank < total), total_l + rank, total + idx_r)
         li = torch.cat([li, li.new_full((nr,), -1)])
         ri = torch.cat([ri, ri.new_full((nr,), -1)])
         ri.scatter_(0, dest, idx_r)
@@ -189,15 +222,16 @@ def emit_from_probe(lo, cnt, r_order, r_cnt, how: int, total: int):
     return li, ri
 
 
-def emit_gather(lo, cnt, r_order, r_cnt, l_cols, r_cols, how: int, total: int):
+def emit_gather(lo, cnt, r_order, r_cnt, l_cols, r_cols, how: int, total: int,
+                l_live=None, r_live=None):
     """RIGHT / FULL OUTER emit: index pairs, then one packed gather a side."""
-    li, ri = emit_from_probe(lo, cnt, r_order, r_cnt, how, total)
+    li, ri = emit_from_probe(lo, cnt, r_order, r_cnt, how, total, l_live, r_live)
     return pack_gather(l_cols, li) + pack_gather(r_cols, ri)
 
 
 def _emit_inner_left(
     lo, cnt, l_cols: Sequence[KeyCol], r_sorted_cols: Sequence[KeyCol],
-    how: int, total: int,
+    how: int, total: int, l_live=None,
 ) -> List[KeyCol]:
     """INNER / LEFT emit against the key-sorted right payload.
 
@@ -206,10 +240,13 @@ def _emit_inner_left(
     ``repeat(arange(m), counts)`` step by at most one, and the left columns
     plus the bookkeeping lanes (lo, cnt, output offset) are
     expanded in one launch of K2. The right columns are gathered at
-    ``lo - offset + output position`` (not monotone: a plain gather)."""
+    ``lo - offset + output position`` (not monotone: a plain gather).
+    With padded inputs (``l_live``) ``total`` is a static capacity: the
+    rows past the real count are garbage the caller's count leaves out."""
     device = lo.device
     nl = lo.shape[0]
-    cnt_adj = torch.where(cnt == 0, torch.ones_like(cnt), cnt) if how == LEFT else cnt
+    un_l = cnt == 0 if l_live is None else (cnt == 0) & l_live
+    cnt_adj = torch.where(un_l, torch.ones_like(cnt), cnt) if how == LEFT else cnt
     emitting = cnt_adj > 0
     em = emitting.to(torch.int64)
     slot = torch.cumsum(em, 0) - em  # emitting rows before me
@@ -343,6 +380,56 @@ def spec_emit(
                        l_cols, r_cols, how, total)
 
 
+def spec_join(
+    l_key_cols: Sequence[KeyCol],
+    r_key_cols: Sequence[KeyCol],
+    l_cols: Sequence[KeyCol],
+    r_cols: Sequence[KeyCol],
+    nl,
+    nr,
+    how: int,
+    join_cap: int,
+) -> Tuple[List[KeyCol], torch.Tensor, torch.Tensor]:
+    """The static-capacity join of the fused mode (the JAX package's
+    ``spec_join``): probe, count, emit and gather of padded inputs (their
+    first ``nl`` / ``nr`` rows live, device scalars) into ``join_cap``
+    output rows, with no host read. INNER / LEFT emit in left-row order
+    through the windowed expand (K2) against the key-sorted right rows;
+    RIGHT / FULL OUTER through index pairs. Every sort is K1's.
+
+    Dead rows take the largest id (all ones of the uint32 fast path, or
+    one past the factorized ids), so that they sort after every live row
+    of an equal key, and only live rows count.
+
+    Returns (columns of ``join_cap`` rows, the exact output count wrapped
+    to int32 as the JAX package's int32 count wraps, the float32 shadow of
+    the inner count that exposes such a wrap)."""
+    device = l_key_cols[0][0].device
+    cap_l, cap_r = l_key_cols[0][0].shape[0], r_key_cols[0][0].shape[0]
+    l_live = torch.arange(cap_l, device=device) < nl
+    r_live = torch.arange(cap_r, device=device) < nr
+    l_ids, r_ids, hint = _canonical_ids(l_key_cols, r_key_cols)
+    if hint is None:
+        sent = -1  # the uint32 pattern 0xFFFFFFFF
+    else:
+        sent = cap_l + cap_r
+        hint = _radix.bound_hint(cap_l + cap_r + 1)
+    l_ids = torch.where(l_live, l_ids, torch.full_like(l_ids, sent))
+    r_ids = torch.where(r_live, r_ids, torch.full_like(r_ids, sent))
+    n_live = (nl, nr)
+    lo, cnt, r_cnt = _merged_counts(l_ids, r_ids, hint, how in (RIGHT, FULL_OUTER), n_live)
+    cnt = torch.where(l_live, cnt, torch.zeros_like(cnt))
+    total = count_from_probe(cnt, r_cnt, how, l_live, r_live)
+    shadow = cnt.to(torch.float32).sum()
+    if how in (INNER, LEFT):
+        r_sorted = pack_gather(r_cols, _radix.argsort_perm(r_ids, hint), all_valid=True)
+        out = _emit_inner_left(lo, cnt, l_cols, r_sorted, how, join_cap, l_live)
+    else:
+        r_order = _radix.argsort_perm(r_ids, hint)
+        out = emit_gather(lo, cnt, r_order, r_cnt, l_cols, r_cols, how, join_cap, l_live, r_live)
+    return out, _wrap_i32(total).to(torch.int32), shadow
+
+
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 -> the int32 two's-complement wrap of its value (int64)."""
     return ((x + 2**31) % 2**32) - 2**31
@@ -352,6 +439,8 @@ def join_sum_by_key_pushdown(
     l_key_cols: Sequence[KeyCol],
     r_key_cols: Sequence[KeyCol],
     l_val: KeyCol,
+    n_live=None,
+    group_cap: Optional[int] = None,
 ):
     """INNER join + groupby-SUM(a left column) BY the join key, fused into
     the probe's merged sort (the JAX package's function with
@@ -372,13 +461,26 @@ def join_sum_by_key_pushdown(
     float type, the join-row count ``n_join`` (saturating at 2^31 - 1
     where its int32 count wraps, as the JAX package computes it), the
     first left row of each group and its count of valid left values (an
-    all-null group sums to null). Null values add 0."""
+    all-null group sums to null). Null values add 0.
+
+    ``n_live``: (left, right) live row counts of padded inputs (device
+    scalars; the fused q3 step's shuffled shards), whose dead rows take
+    the largest id and count on neither side. ``group_cap``: the group
+    slots (default the exact bound); groups past it are dropped, as the
+    JAX package's fixed-capacity segment sums drop them."""
     nl = l_key_cols[0][0].shape[0]
     nr = r_key_cols[0][0].shape[0]
     n = nl + nr
     device = l_key_cols[0][0].device
-    cap = min(nl, nr)
+    cap = min(nl, nr) if group_cap is None else group_cap
     l_ids, r_ids, hint = _canonical_ids(l_key_cols, r_key_cols)
+    if n_live is not None:
+        sent = -1 if hint is None else n
+        hint = hint if hint is None else _radix.bound_hint(n + 1)
+        l_ids = torch.where(torch.arange(nl, device=device) < n_live[0], l_ids,
+                            torch.full_like(l_ids, sent))
+        r_ids = torch.where(torch.arange(nr, device=device) < n_live[1], r_ids,
+                            torch.full_like(r_ids, sent))
     vd, vv = l_val
     acc = vd if vd.dtype.is_floating_point else vd.to(torch.float32)
     vsafe = acc if vv is None else torch.where(vv, acc, torch.zeros_like(acc))
@@ -390,11 +492,15 @@ def join_sum_by_key_pushdown(
         skey = keys.index_select(0, spay)
     sval = torch.cat([vsafe.new_zeros(nr), vsafe]).index_select(0, spay)
     is_l = spay >= nr
+    is_r = ~is_l
+    if n_live is not None:
+        is_l = is_l & (spay - nr < n_live[0])
+        is_r = spay < n_live[1]
     new_run = torch.ones(n, dtype=torch.bool, device=device)
     new_run[1:] = skey[1:] != skey[:-1]
 
     # run-start totals decide which runs are groups (rows of both sides)
-    c_r = run_count_from(new_run, ~is_l)
+    c_r = run_count_from(new_run, is_r)
     c_l = run_count_from(new_run, is_l)
     group_start = new_run & (c_l > 0) & (c_r > 0)
     in_l = run_start_broadcast(new_run, group_start) & is_l
@@ -403,19 +509,18 @@ def join_sum_by_key_pushdown(
     # gid never decreases over sorted space: a row of a run that is no group
     # adds zero to the group before it (the JAX package's "sorted" segment
     # sums), never to one shared discard slot, whose atomics would serialize
-    # on the card; rows ahead of the first group add zero to slot 0
-    tgt = gid.clamp(min=0)
-
-    def seg_add(x):
-        return torch.zeros(cap + 1, dtype=x.dtype, device=device).index_add_(0, tgt, x)[:cap]
-
-    sums = seg_add(torch.where(in_l, sval, torch.zeros_like(sval)))
+    # on the card; rows ahead of the first group add zero to slot 0. In
+    # padded inputs the dead rows (the tail of sorted space) and groups past
+    # ``cap`` spread over DISCARD_SLOTS slots behind the groups, for the
+    # same reason
+    tgt = discard_targets(gid.clamp(min=0), None if n_live is None else ~(is_l | is_r), cap)
+    sums = padded_seg_add(torch.where(in_l, sval, torch.zeros_like(sval)), tgt, cap)
     # each group's start position: starts to their slots, every other row
     # to a distinct slot past them (no two writes meet)
     pos = torch.arange(n, dtype=torch.int64, device=device)
     gpos = torch.empty(cap + n, dtype=torch.int64, device=device).scatter_(
-        0, torch.where(group_start, gid, cap + pos), pos)[:cap]
-    live = pos[:cap] < ng
+        0, torch.where(group_start & (gid < cap), gid, cap + pos), pos)[:cap]
+    live = torch.arange(cap, device=device) < ng
     gpos = torch.where(live, gpos, 0)
     cntr = torch.where(live, c_r.index_select(0, gpos), 0)
     cntl = torch.where(live, c_l.index_select(0, gpos), 0)
@@ -425,12 +530,15 @@ def join_sum_by_key_pushdown(
     nj_f = (cntl.to(torch.float32) * cntr.to(torch.float32)).sum()
     wrapped = (nj < 0) | (nj_f > 2.0**31)
     n_join = torch.where(wrapped, torch.full_like(nj, 2**31 - 1), nj).to(torch.int32)
-    # the group's first left row follows its rights in sorted space
-    reps = torch.where(live, spay.index_select(0, gpos + cntr) - nr, nl)
+    # the group's first left row follows its rights (dead ones too) in
+    # sorted space
+    c_rall = cntr if n_live is None else torch.where(
+        live, run_count_from(new_run, spay < nr).index_select(0, gpos), 0)
+    reps = torch.where(live, spay.index_select(0, gpos + c_rall) - nr, nl)
     if vv is None:
         vcnt = cntl.to(torch.int32)
     else:
         lrow = (spay - nr).clamp(0, max(nl - 1, 0))
         vok = in_l & vv.index_select(0, lrow) if nl else in_l
-        vcnt = seg_add(vok.to(torch.int32))
+        vcnt = padded_seg_add(vok.to(torch.int32), tgt, cap)
     return s, ng, n_join, reps, vcnt

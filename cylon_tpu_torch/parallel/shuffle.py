@@ -17,16 +17,30 @@ bucket lies in ``[r * bc, (r + 1) * bc)``. Each round:
 
 The buffers are row-major so that a chunk is contiguous for the exchange;
 the unpack after the compact is the one transpose back to columns.
+
+Under the quantized wire tier (ops/quant.py) each destination chunk of a
+round also carries one float32 max-abs scale per 'q8' field, bitcast into
+its header rows (:func:`wire_header_rows`); the receive side appends each
+row's source-chunk scales as extra lanes before the compact, so that B3
+moves them with the row (:func:`with_scale_lanes`).
+
+The fused mode (parallel/pipeline.py) composes the same pieces with
+static capacities: :func:`exchange_rounds_fused` runs a table's rounds and
+one B3 compact over every round's received buffers, and a hash-sliced
+join builds its send slots from one combined sort (:func:`build_slice_plan`).
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..engine import round_cap
-from ..ops.gather import KeyCol, lane_plan, unpack_cols
+from ..ops.gather import (
+    KeyCol, _from_lanes, _to_lanes, lane_plan, pack_cols, unpack_cols, wire_pack_cols,
+    wire_pt_order, wire_q8_cols, wire_unpack_cols,
+)
 
 #: header rows per (src, dst) chunk: lane 0 carries the round's send count
 HEADER_ROWS = 1
@@ -151,23 +165,44 @@ def header_slots(
     )
 
 
+def wire_header_rows(wplan) -> int:
+    """Header rows one chunk of a wire-narrowed exchange needs: the round
+    send count plus one float32 block scale per 'q8' field, wrapped over
+    the plan's word lanes. A plan with no q8 field keeps one header row."""
+    nq8 = len(wire_q8_cols(wplan))
+    if nq8 == 0:
+        return HEADER_ROWS
+    return max(1, -(-(1 + nq8) // wplan.n_words))
+
+
 def pack_lane_buffer(
     packed: torch.Tensor,
     dest: torch.Tensor,
     counts_round: torch.Tensor,
     num_partitions: int,
     bucket_cap: int,
+    header_extra: Optional[torch.Tensor] = None,
+    n_header: int = HEADER_ROWS,
 ) -> torch.Tensor:
     """Scatter the row-major lanes ``packed [n, L]`` into the send buffer
-    ``[P * (bucket_cap + 1), L]``; each chunk's header row carries this
-    round's send count for its destination in lane 0, the rest is zeros."""
+    ``[P * (bucket_cap + n_header), L]``. The header rows of each chunk
+    carry this round's send count for its destination in their first
+    lane, then ``header_extra`` ([P, E] int32 per chunk: the bitcast q8
+    block scales) wrapped over the ``n_header`` rows; the rest is zeros."""
     P = num_partitions
-    rows = bucket_cap + HEADER_ROWS
+    rows = bucket_cap + n_header
     n, L = packed.shape
     body = P * rows
     buf = torch.zeros((body + DROP_ROWS, L), dtype=torch.int32, device=packed.device)
-    buf[:body].view(P, rows, L)[:, 0, 0] = counts_round.to(torch.int32)
-    hs = header_slots(dest, P, bucket_cap)
+    if header_extra is None and n_header == 1:
+        buf[:body].view(P, rows, L)[:, 0, 0] = counts_round.to(torch.int32)
+    else:
+        hv = torch.zeros((P, n_header * L), dtype=torch.int32, device=packed.device)
+        hv[:, 0] = counts_round.to(torch.int32)
+        if header_extra is not None:
+            hv[:, 1:1 + header_extra.shape[1]] = header_extra
+        buf[:body].view(P, rows, L)[:, :n_header] = hv.view(P, n_header, L)
+    hs = header_slots(dest, P, bucket_cap, n_header)
     spare = body + torch.arange(n, device=packed.device) % DROP_ROWS
     buf.index_copy_(0, torch.where(hs >= body, spare, hs), packed)
     return buf[:body]
@@ -214,3 +249,211 @@ def compact_received_lanes(plan, live: torch.Tensor) -> List[KeyCol]:
         lambda lane: None if lane is None else lane.to(torch.bool),
     )
     return out
+
+
+# ----------------------------------------------------------------------
+# the quantized tier's block scales (ops/quant.py): one float32 max-abs
+# scale per (destination chunk, q8 field), computed at pack, shipped in
+# the header rows, carried per received row through the compact
+# ----------------------------------------------------------------------
+
+def quant_chunk_scales(cols: Sequence[KeyCol], wplan, dest: torch.Tensor, num_partitions: int,
+                       bucket_cap: int) -> torch.Tensor:
+    """[P, nq8] strictly positive float32 scales: the finite max-abs of
+    every q8 column over this round's rows bound for each destination
+    chunk (rows outside the round carry the sentinel and never count)."""
+    from ..ops import quant as _q
+
+    P = num_partitions
+    chunk = (dest.to(torch.int64) // bucket_cap).clamp(max=P)
+    scales = []
+    for ci, _dt in wire_q8_cols(wplan):
+        mag = _q.finite_magnitude(cols[ci][0])
+        bm = torch.zeros(P + 1, dtype=torch.float32, device=mag.device).scatter_reduce_(
+            0, chunk, mag, "amax")[:P]
+        scales.append(_q.safe_scale(bm))
+    return torch.stack(scales, 1)
+
+
+def send_row_scales(scales: torch.Tensor, dest: torch.Tensor, bucket_cap: int) -> torch.Tensor:
+    """[n, nq8] per-row scales for the pack: each row its destination
+    chunk's (a dropped row clamps to the last chunk; it never ships)."""
+    chunk = (dest.to(torch.int64) // bucket_cap).clamp(0, scales.shape[0] - 1)
+    return scales.index_select(0, chunk)
+
+
+def split_header_scales(got: torch.Tensor, num_partitions: int, n_header: int,
+                        nq8: int) -> torch.Tensor:
+    """[P, nq8] float32 per-source-chunk scales from a received buffer's
+    header rows (positions 1..nq8 of each chunk's flattened header)."""
+    rows = got.shape[0] // num_partitions
+    L = got.shape[1]
+    flat = got.view(num_partitions, rows, L)[:, :n_header].reshape(num_partitions, n_header * L)
+    return flat[:, 1:1 + nq8].contiguous().view(torch.float32)
+
+
+def recv_row_scales(scales_recv: torch.Tensor, num_partitions: int, rows: int) -> torch.Tensor:
+    """[P * rows, nq8] per-row scales of a received buffer of ``rows`` rows
+    a chunk: row i came from source chunk i // rows."""
+    return scales_recv.repeat_interleave(rows, 0)
+
+
+def with_scale_lanes(got: torch.Tensor, wplan, num_partitions: int, n_header: int) -> torch.Tensor:
+    """A received buffer with each row's source-chunk q8 scales appended as
+    bitcast int32 lanes (header rows too, which B3 skips), so that the
+    compact (B3) moves every row's scales with it. Unchanged without q8
+    fields."""
+    nq8 = len(wire_q8_cols(wplan))
+    if not nq8:
+        return got
+    sc = split_header_scales(got, num_partitions, n_header, nq8).view(torch.int32)
+    rows = got.shape[0] // num_partitions
+    return torch.cat([got, recv_row_scales(sc, num_partitions, rows)], 1)
+
+
+def send_lanes(cols: Sequence[KeyCol], wplan, bases, qscales=None) -> torch.Tensor:
+    """The row-major ``[n, L]`` send matrix of a column set: the plain
+    lanes, or the wire plan's packed words with each float64 passthrough
+    column as two lanes behind them."""
+    if wplan is None:
+        _plan, lanes = pack_cols(cols)
+    else:
+        words, passthrough = wire_pack_cols(cols, wplan, bases, qscales=qscales)
+        lanes = words + [x for ci in sorted(passthrough) for x in _to_lanes(passthrough[ci])]
+    return torch.stack(lanes, 1)
+
+
+def round_send(cols: Sequence[KeyCol], wplan, bases, dest: torch.Tensor, num_partitions: int,
+               bucket_cap: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(send matrix, header_extra) of one round whose plan holds q8
+    fields: the chunk scales of this round's destinations, the words
+    encoded under them, the scales bitcast for the header rows."""
+    scales = quant_chunk_scales(cols, wplan, dest, num_partitions, bucket_cap)
+    packed = send_lanes(cols, wplan, bases, send_row_scales(scales, dest, bucket_cap))
+    return packed, scales.view(torch.int32)
+
+
+def received_cols(ref: Sequence[KeyCol], wplan, bases, moved: torch.Tensor) -> List[KeyCol]:
+    """The columns of front-packed received rows ``moved [rows, LM]`` of
+    :func:`send_lanes`' layout (plus :func:`with_scale_lanes`' scale lanes
+    under a q8 plan); ``ref`` gives the plain layout's schema."""
+    def make_valid(lane):
+        return None if lane is None else lane.to(torch.bool)
+
+    if wplan is None:
+        return compact_received_lanes(lane_plan(ref), moved)
+    nw = wplan.n_words
+    lanes = list(moved.unbind(1))
+    pt_cols = wire_pt_order(wplan, [ci for ci, (tag, _nl, _hv) in enumerate(wplan.plan) if tag is None])
+    pos = {ci: nw + 2 * i for i, ci in enumerate(pt_cols)}
+    n_lanes = nw + 2 * len(pt_cols)
+    nq8 = len(wire_q8_cols(wplan))
+    qsc = moved[:, n_lanes:n_lanes + nq8].contiguous().view(torch.float32) if nq8 else None
+    return wire_unpack_cols(
+        lanes[:nw], wplan, bases,
+        lambda ci: _from_lanes(lanes[pos[ci]:pos[ci] + 2], torch.float64), make_valid,
+        qscales=qsc,
+    )
+
+
+# ----------------------------------------------------------------------
+# hash-sliced send slots (the fused mode's num_slices): ONE stable sort by
+# the combined (slice, pid) id serves every slice and round
+# ----------------------------------------------------------------------
+
+class SlicePlan(NamedTuple):
+    order: torch.Tensor   # [n] stable argsort of comb
+    scomb: torch.Tensor   # [n] comb[order]
+    bounds: torch.Tensor  # [K * (world + 1) + 1] per-(slice, pid) starts
+    world: int
+    num_slices: int
+
+
+def build_slice_plan(pid: torch.Tensor, sid: torch.Tensor, world: int, num_slices: int) -> SlicePlan:
+    """pid: [n] target shard (dead rows: world); sid: [n] hash slice (dead
+    rows: num_slices). comb = sid * (world + 1) + pid sorts dead rows last;
+    its stable argsort is kernel K1's (bounded by the comb's range)."""
+    from ..ops import radix as _radix
+
+    comb = (sid.to(torch.int32) * (world + 1) + pid.to(torch.int32)).to(torch.int32)
+    order = _radix.argsort_perm(comb, _radix.bound_hint(num_slices * (world + 1) + world + 1))
+    scomb = comb.index_select(0, order.to(torch.int64))
+    qs = torch.arange(num_slices * (world + 1) + 1, dtype=torch.int32, device=pid.device)
+    bounds = torch.searchsorted(scomb, qs, out_int32=True)
+    return SlicePlan(order.to(torch.int64), scomb, bounds, world, num_slices)
+
+
+def slice_counts(plan: SlicePlan, slice_idx: int) -> torch.Tensor:
+    """Per-target counts [world] of slice ``slice_idx``."""
+    base = slice_idx * (plan.world + 1)
+    return plan.bounds[base + 1:base + 1 + plan.world] - plan.bounds[base:base + plan.world]
+
+
+def slice_round_dest(plan: SlicePlan, slice_idx: int, bucket_cap: int,
+                     round_idx: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dest [n] int32, leftover) of one slice and round: the
+    :func:`build_send_slots_round` formula inside the slice's contiguous
+    span of the sorted space; other slices' rows and dead rows get the
+    sentinel ``world * bucket_cap``."""
+    world = plan.world
+    n = plan.order.shape[0]
+    base = slice_idx * (world + 1)
+    starts = plan.bounds[base:base + world].to(torch.int64)
+    idx = torch.arange(n, dtype=torch.int64, device=plan.order.device)
+    in_slice = (idx >= starts[0]) & (idx < plan.bounds[base + world].to(torch.int64))
+    spid = (plan.scomb.to(torch.int64) - base).clamp(0, world - 1)
+    pos = idx - starts.index_select(0, spid)
+    slot = pos - round_idx * bucket_cap
+    ok = in_slice & (slot >= 0) & (slot < bucket_cap)
+    dest_sorted = torch.where(ok, spid * bucket_cap + slot, world * bucket_cap).to(torch.int32)
+    dest = torch.empty(n, dtype=torch.int32, device=plan.order.device)
+    dest[plan.order] = dest_sorted
+    leftover = (in_slice & (pos >= (round_idx + 1) * bucket_cap)).sum().to(torch.int32)
+    return dest, leftover
+
+
+def exchange_rounds_fused(
+    comm,
+    shard_cols: Sequence[Sequence[KeyCol]],
+    dest_fns,
+    counts: Sequence[torch.Tensor],
+    num_partitions: int,
+    bucket_cap: int,
+    n_rounds: int,
+    wplan=None,
+) -> Tuple[List[List[KeyCol]], List[torch.Tensor], List[torch.Tensor]]:
+    """A table's static-capacity shuffle rounds over every local shard,
+    with no host read: per round, each shard's send slots
+    (``dest_fns[i](r) -> (dest, leftover)``), its pack into the
+    header-fused buffer (the round's counts, and the q8 scales of a
+    quantized ``wplan``, ride the header rows), one all_to_all; then ONE
+    B3 compact per shard over the concatenated round buffers (R x P
+    chunks), the JAX package's compact_received over the concatenated
+    round masks. Returns per local shard (columns of ``n_rounds * P *
+    bucket_cap`` rows, live rows first; received rows, a device scalar;
+    the last round's leftover)."""
+    from ..ops import cuda_codec as _codec
+
+    P, bc = num_partitions, bucket_cap
+    nh = wire_header_rows(wplan) if wplan is not None else HEADER_ROWS
+    q8 = bool(wire_q8_cols(wplan))
+    plain = [None if q8 else send_lanes(cols, wplan, None) for cols in shard_cols]
+    got_rounds: List[List[torch.Tensor]] = [[] for _ in shard_cols]
+    leftovers = [None] * len(shard_cols)
+    for r in range(n_rounds):
+        bufs = []
+        for i, cols in enumerate(shard_cols):
+            dest, leftovers[i] = dest_fns[i](r)
+            packed, hx = round_send(cols, wplan, None, dest, P, bc) if q8 else (plain[i], None)
+            bufs.append(pack_lane_buffer(packed, dest, round_counts(counts[i], bc, r), P, bc,
+                                         header_extra=hx, n_header=nh))
+        for i, g in enumerate(comm.all_to_all(bufs)):
+            got_rounds[i].append(with_scale_lanes(g, wplan, P, nh))
+    out, totals = [], []
+    for i, cols in enumerate(shard_cols):
+        move = got_rounds[i][0] if n_rounds == 1 else torch.cat(got_rounds[i])
+        recv = header_counts(move, n_rounds * P)
+        moved = _codec.compact_move(move, recv, n_rounds * P, bc, n_header=nh)
+        totals.append(recv.sum())
+        out.append(received_cols(cols, wplan, None, moved))
+    return out, totals, leftovers

@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union as TUnion
 from .. import ordering as _ord
 from ..engine import PlanEntry, plan_executable
 from ..ops import sketch as _sketch
+from ..ops import quant as _quant
 from ..ops import stats as _stats
 from ..table import _not_ported
 from ..utils.tracing import bump, report
@@ -50,12 +51,13 @@ def gate_report() -> Dict[str, Dict[str, float]]:
 
 def gated_fingerprint(plan: Node) -> tuple:
     """The executable identity of a plan: its structural fingerprint and
-    the ordering, semi-filter and lane-packing gates, which decide which
-    rewrites fire and which paths the lowered ops take, so a gate flip
-    re-optimizes instead of reusing an executor built under the other
-    state. The JAX package adds the gates of tiers the port has not ported
-    (quant, topo, spill: A6, A7) and a feedback component (A9)."""
-    return (plan.fingerprint(), _ord.enabled(), _sketch.enabled(), _stats.enabled())
+    the ordering, semi-filter, lane-packing and quantized-wire gates,
+    which decide which rewrites fire and which paths the lowered ops take,
+    so a gate flip re-optimizes instead of reusing an executor built under
+    the other state. The JAX package adds the gates of tiers the port has
+    not ported (topo, spill: A6, A7) and a feedback component (A9)."""
+    return (plan.fingerprint(), _ord.enabled(), _sketch.enabled(), _stats.enabled(),
+            _quant.gate_state())
 
 
 def _normalize_aggs(agg: Dict[str, TUnion[str, Sequence[str]]]) -> List[Tuple[str, str]]:

@@ -56,13 +56,14 @@ from .ops import groupby as _g
 from .ops import join as _j
 from .ops import partition as _p
 from .ops import pk_join as _pk
+from .ops import quant as _quant
 from .ops import setops as _s
 from .ops import sketch as _sketch
 from .ops import sort as _sort_mod
 from .ops import stats as _st
 from .ops.gather import (
-    KeyCol, _from_lanes, _to_lanes, lane_plan, pack_cols, pack_gather, wire_bases,
-    wire_lane_plan, wire_pack_cols, wire_plan, wire_pt_order, wire_row_bytes, wire_unpack_cols,
+    KeyCol, pack_gather, wire_bases, wire_has_quant, wire_lane_plan, wire_plan,
+    wire_q8_cols, wire_row_bytes,
 )
 from .ops.hash import hash_dictionary_host
 from .ops.sort import lexsort_rows_payload, orderable_key, prefix_run_lane
@@ -657,8 +658,11 @@ class Table:
         all) of this table."""
         out_names = self.column_names if out_names is None else out_names
         counts = self._gather_counts([parts[s][2] for s in self.ctx.local_shards])
+        # every column gets a validity mask, all-true where it had none, as
+        # the JAX package's pack_gather gives it: a later shuffle, sort or
+        # groupby then plans the same lanes
         return self._with_shards(self._per_shard(lambda s: self._shard_like(
-            s, out_names, pack_gather(parts[s][0], parts[s][1][: int(counts[s])], all_valid=True)
+            s, out_names, pack_gather(parts[s][0], parts[s][1][: int(counts[s])])
         )), counts)
 
     def _gather_counts(self, local: Sequence[Any]) -> np.ndarray:
@@ -983,6 +987,7 @@ class Table:
             left._flat_cols(s, l_names), right._flat_cols(s, r_names), right._flat_cols(s), howi,
             r_presorted=r_presorted, emit_key_order=emit_key, key_fuse=join_fuse,
         ))
+        bump("host_sync")  # the join's one count read
         counts = self._gather_counts([probes[s]["total"] for s in self.ctx.local_shards])
         # every rank checks every shard's count, so all raise alike
         _j.count_overflow_check(int(counts.max()))
@@ -1032,6 +1037,7 @@ class Table:
             left._shards[s][l_names[0]].data, right._shards[s][r_names[0]].data,
             caps=caps, shift=shift,
         ))
+        bump("host_sync")
         stats = self._gather_counts([
             torch.stack([parts[s][2], parts[s][3].to(parts[s][2].dtype)])
             for s in self.ctx.local_shards
@@ -1064,14 +1070,30 @@ class Table:
         **kwargs,
     ) -> "Table":
         """The flagship op: hash-shuffle both tables on the join keys, then
-        the local join per shard. One device: the local join."""
-        if mode == "fused":
-            raise _not_ported("mode='fused'", "A6, the fused shuffle->join program")
-        if mode != "eager":
-            raise ValueError(f"unknown join mode {mode!r}")
+        the local join per shard. One device: the local join.
+
+        ``mode='fused'`` runs the shuffle -> join chain as one step at
+        static capacities with one host read per attempt
+        (:meth:`_fused_join`, parallel/pipeline.py); its join is built in,
+        so it takes ``algorithm`` 'sort' or 'hash' and the left-order
+        emit only."""
         if on is not None:
             kwargs["on"] = on
         kwargs.setdefault("how", how)
+        if mode == "fused":
+            if kwargs.get("algorithm", "sort") not in ("sort", "hash"):
+                raise ValueError(
+                    "mode='fused' builds the sort join into the fused step; "
+                    f"algorithm={kwargs['algorithm']!r} needs mode='eager'"
+                )
+            if kwargs.get("emit_order", "left") != "left":
+                raise ValueError(
+                    "mode='fused' builds the left-order emit into the fused step; "
+                    "emit_order='key' needs mode='eager'"
+                )
+            return self._fused_join(other, **kwargs)
+        if mode != "eager":
+            raise ValueError(f"unknown join mode {mode!r}")
         if self.world_size == 1:
             return self.join(other, **kwargs)
         _check_join_args(kwargs.get("algorithm", "sort"), kwargs.get("emit_order", "left"))
@@ -1090,6 +1112,122 @@ class Table:
         ls, rs = _shuffle_pair(left, l_names, right, r_names,
                                semi=_sketch.join_filter_sides(kwargs["how"]))
         return ls.join(rs, **kwargs)
+
+    def _fused_join(
+        self,
+        other: "Table",
+        on=None,
+        how: str = "inner",
+        left_on=None,
+        right_on=None,
+        suffixes: Tuple[str, str] = ("_x", "_y"),
+        capacity_factor: float = 2.0,
+        max_retries: int = 3,
+        respill: int = 1,
+        num_slices: int = 1,
+        **_ignored,
+    ) -> "Table":
+        """shuffle -> join as one fused step (parallel/pipeline.py), with
+        ONE host read per attempt: every shard's (output count, overflow).
+
+        ``respill``: extra exchange rounds per shuffle, so a bucket up to
+        ``(1 + respill) * bucket_cap`` rows drains with no host read; past
+        it the overflow doubles the capacities and retries.
+        ``num_slices`` = K > 1 runs K hash-slice rounds, each join over
+        about n/K rows (forced to 1 at world 1).
+
+        Capacities are the JAX package's, from the port's ``round_cap(max
+        shard rows)`` where it has ``shard_cap``: ``bucket_cap =
+        round_cap(capacity_factor * cap / (W * K))`` clamped by the byte
+        budget, ``join_cap = round_cap(2 * (1 + respill) * W *
+        bucket_cap)`` (at world 1 the sum of both sides' caps). The
+        outputs are trimmed to exact length after the read."""
+        from .parallel import pipeline as _pl
+
+        if other.ctx.devices != self.ctx.devices:
+            raise ValueError("join of tables on different devices")
+        ctx = self.ctx
+        world = self.world_size
+        l_names, r_names = self._resolve_join_keys(other, on, left_on, right_on)
+        howi = _j.join_type_id(how)
+        left, right = _unify_dict_pair(self, other, l_names, r_names)
+        left, right = _promote_key_pair(left, right, l_names, r_names)
+        lk_idx = tuple(left.column_names.index(n) for n in l_names)
+        rk_idx = tuple(right.column_names.index(n) for n in r_names)
+        cap_l, cap_r = round_cap(int(left._counts.max())), round_cap(int(right._counts.max()))
+        respill = int(respill)
+        if respill < 0:
+            raise ValueError("respill must be >= 0")
+        num_slices = int(num_slices)
+        if num_slices < 1:
+            raise ValueError("num_slices must be >= 1")
+        local = ctx.local_shards
+        lref, rref = left._flat_cols(local[0]), right._flat_cols(local[0])
+        if world <= 1:
+            num_slices = 1  # no shuffle for the slice filter to ride
+        bucket_cap = round_cap(int(capacity_factor * max(cap_l, cap_r) / max(world * num_slices, 1)))
+        if world > 1:
+            ctx.check_shuffle_tiers()
+            # the eager engine's byte budget caps the per-round buffer; an
+            # undersized first attempt is recovered by the retry
+            row_bytes = max(_sh.exchange_row_bytes(lref), _sh.exchange_row_bytes(rref))
+            bucket_cap = min(bucket_cap, _sh.budget_bucket_cap(
+                row_bytes, world, ctx.shuffle_byte_budget, bucket_cap))
+            join_cap = round_cap(2 * (1 + respill) * world * bucket_cap)
+        else:
+            join_cap = round_cap(cap_l + cap_r)
+        # the lossy wire tier rides both fused shuffles; keys never quantize
+        quant_l = _quant.quant_spec([d.dtype for d, _v in lref], lk_idx, ctx.quant_tol)
+        quant_r = _quant.quant_spec([d.dtype for d, _v in rref], rk_idx, ctx.quant_tol)
+        l_in = [left._flat_cols(s) for s in local]
+        r_in = [right._flat_cols(s) for s in local]
+        dev0 = ctx.device
+        for _attempt in range(max_retries):
+            if world > 1:
+                bump("shuffle.exchanged_bytes", rows=_pl.fused_exchange_bytes(
+                    world, bucket_cap, respill, _sh.exchange_row_bytes(lref),
+                    _sh.exchange_row_bytes(rref), num_slices))
+            step = _pl.make_distributed_join_step(
+                ctx, lk_idx, rk_idx, howi, bucket_cap, join_cap, respill, num_slices,
+                quant_l=quant_l, quant_r=quant_r,
+            )
+            with span("join.fused", rows=int(left._counts.sum() + right._counts.sum())):
+                out, nout, ov = step(l_in, r_in)
+                mine = torch.stack([
+                    torch.cat([n.reshape(1).to(torch.int64), o.to(torch.int64)]).to(dev0)
+                    for n, o in zip(nout, ov)
+                ])
+                bump("host_sync")
+                stats = ctx.comm.all_gather_counts(mine.cpu().numpy())  # THE host read
+            nout_h = stats[:, 0]
+            ov_shuffle, ov_join = int(stats[:, 1].sum()), int(stats[:, 2].max())
+            if ov_shuffle == 0 and ov_join == 0:
+                out_names = _suffix_names(left.column_names, right.column_names, suffixes)
+                by_shard = dict(zip(local, out))
+
+                def emit(s):
+                    n = int(nout_h[s])
+                    cols = [(d[:n], None if v is None else v[:n]) for d, v in by_shard[s]]
+                    return _out_shard(out_names, left, right, s, cols)
+
+                return self._with_shards(self._per_shard(emit), nout_h)
+            if ov_join >= 2**31 - 1:
+                # the step's saturated int32-wrap sentinel: resizing would
+                # overflow the int32 row ids downstream
+                raise RuntimeError(
+                    "fused join per-shard output count exceeds int32 (extreme skew); "
+                    "use mode='eager'"
+                )
+            if ov_shuffle > 0:
+                bucket_cap *= 2
+                join_cap = max(join_cap, round_cap(2 * (1 + respill) * world * bucket_cap))
+            if ov_join > 0:
+                # the join lane reports the exact shortfall: one step converges
+                join_cap = round_cap(join_cap + ov_join)
+        raise RuntimeError(
+            f"fused join overflowed after {max_retries} capacity retries (extreme skew); "
+            "use mode='eager'"
+        )
 
     # ------------------------------------------------------------------
     # groupby
@@ -1144,7 +1282,9 @@ class Table:
             keys = self._flat_cols(s, key_names)
             ids, ng = ids_fn(keys)
             rep = _g.group_representatives(ids, ng)
-            key_out = pack_gather(keys, rep, all_valid=True)
+            # the key columns get all-true masks where they had none, as the
+            # JAX package's gather_column gives them
+            key_out = pack_gather(keys, rep)
             cols: Shard = OrderedDict()
             for n, (d, v) in zip(key_names, key_out):
                 cols[n] = Column(d, sh[n].dtype, v, sh[n].dictionary)
@@ -1357,7 +1497,7 @@ class Table:
             n = int(counts[s])
             cols: Shard = OrderedDict()
             for name, src, (d, v) in zip(out_key_names, left_on,
-                                          pack_gather(lk, reps[:n], all_valid=True)):
+                                          pack_gather(lk, reps[:n])):  # all-true masks
                 c = self._shards[s][src]
                 cols[name] = Column(d, c.dtype, v, c.dictionary)
             cols[out_val] = Column(sums[:n], DataType.from_numpy_dtype(numpy_dtype(sums.dtype)),
@@ -2314,6 +2454,14 @@ def _shuffle_state(spec: _ShuffleSpec) -> dict:
     stat_cols = tuple(
         ci for ci, (d, _v) in enumerate(ref) if _st.enabled() and _st.enc_class(d.dtype) is not None
     )
+    # the lossy wire tier (ops/quant.py): float payload columns may ride
+    # quantized fields; key columns never do. It rides the wire codec, so
+    # CYLON_TPU_TORCH_NO_LANE_PACK turns it off too
+    names = t.column_names
+    quant_sig = _quant.quant_spec(
+        [d.dtype for d, _v in ref], [names.index(n) for n in spec.key_names],
+        t.ctx.quant_tol if _st.enabled() else 0.0,
+    )
     shards = {}
     for s, (lane, hist) in packs.items():
         sh = {"lane": lane, "hist": hist}
@@ -2331,7 +2479,7 @@ def _shuffle_state(spec: _ShuffleSpec) -> dict:
     return {
         "spec": spec, "t": t, "ctx": t.ctx, "world": world, "local": local, "flat": flat,
         "ref": ref, "row_bytes": _sh.exchange_row_bytes(ref), "stat_cols": stat_cols,
-        "shards": shards,
+        "quant_sig": quant_sig, "shards": shards,
     }
 
 
@@ -2343,6 +2491,7 @@ def _count_phase(st: dict) -> None:
     stats pass) and for the wire plan and the output."""
     w, local = st["world"], st["local"]
     dev0 = st["ctx"].device
+    bump("host_sync")
     mine = torch.stack([st["shards"][s]["meas"].to(dev0) for s in local]).cpu().numpy()
     got = st["ctx"].comm.all_gather_counts(mine)  # [src, per]
     semi = st["spec"].sketch is not None
@@ -2389,11 +2538,11 @@ def _plan_state(st: dict) -> None:
         st["send_counts"] = st["counts_u"]
         cap, k = _sh.plan_rounds(st["send_counts"], row_bytes, w, budget)
     st["wire"] = st["bases"] = None
-    if st["col_stats"]:
+    if st["col_stats"] or any(c is not None for c in st["quant_sig"]):
         stats_list: List[Optional[Tuple[str, int]]] = [None] * len(st["ref"])
         for ci, stat in st["col_stats"].items():
             stats_list[ci] = (stat.cls, _st.field_bits(stat))
-        wplan = wire_plan(wire_lane_plan(st["ref"]), stats_list)
+        wplan = wire_plan(wire_lane_plan(st["ref"]), stats_list, quant=st["quant_sig"])
         if wplan is not None:
             rb_w = wire_row_bytes(wplan)
             cap_w, k_w = _sh.plan_rounds(st["send_counts"], rb_w, w, budget)
@@ -2406,45 +2555,42 @@ def _plan_state(st: dict) -> None:
                 bump("lane_pack.wire.applied")
                 bump("lane_pack.wire.bytes_saved", rows=int(total_plain - total_wire))
                 gauge("lane_pack.wire.row_bytes_ratio", rb_w / max(row_bytes, 1))
+                if wire_has_quant(wplan):
+                    bump("shuffle.quant.applied")
+                    bump("shuffle.quant.cols", rows=sum(1 for f in wplan.fields if f.kind == "q"))
+                    bump("shuffle.quant.bytes_saved", rows=int(total_plain - total_wire))
+                    gauge("shuffle.quant.row_bytes_ratio", rb_w / max(row_bytes, 1))
             else:
                 bump("lane_pack.wire.gate_skipped")
+                if wire_has_quant(wplan):
+                    bump("shuffle.quant.gate_skipped")
     st["bucket_cap"], st["n_rounds"] = cap, k
+    # shipped bytes: K rounds x W^2 bucket blocks x the (narrowed) row bytes
+    rb_eff = row_bytes if st["wire"] is None else wire_row_bytes(st["wire"])
+    bump("shuffle.exchanged_bytes", rows=k * w * w * cap * int(rb_eff))
+    bump("shuffle.rounds", rows=k)
 
 
 def _send_rows(st: dict, s: int) -> dict:
     """Shard ``s``'s send state under the decided plan: its row-major lane
     matrix (the wire-narrowed words, float64 columns as two lanes behind
-    them, or the plain lanes) and the pid lane, tile bases and bucket
-    totals B2b and the rounds read."""
+    them, or the plain lanes; None under a q8 plan, whose words are
+    encoded per round under that round's chunk scales) and the pid lane,
+    tile bases and bucket totals B2b and the rounds read."""
     sh = st["shards"][s]
-    cols = st["flat"][s]
-    if st["wire"] is not None:
-        words, passthrough = wire_pack_cols(cols, st["wire"], st["bases"])
-        lanes = words + [x for ci in sorted(passthrough) for x in _to_lanes(passthrough[ci])]
-    else:
-        _plan, lanes = pack_cols(cols)
+    packed = None
+    if not wire_q8_cols(st["wire"]):
+        packed = _sh.send_lanes(st["flat"][s], st["wire"], st["bases"])
     lane, hist = (sh["lane_f"], sh["hist_f"]) if st["use_filter"] else (sh["lane"], sh["hist"])
-    return {"packed": torch.stack(lanes, 1), "lane": lane, "base": _codec.scan_tiles(hist),
+    return {"packed": packed, "lane": lane, "base": _codec.scan_tiles(hist),
             "cnt": hist.sum(1, dtype=torch.int32)}
 
 
 def _received_cols(st: dict, moved: torch.Tensor) -> List[KeyCol]:
-    """The columns of the received rows, a front-packed ``[rows, L]`` lane
-    matrix of :func:`_send_rows`' layout."""
-    def make_valid(lane):
-        return None if lane is None else lane.to(torch.bool)
-
-    wplan = st["wire"]
-    if wplan is None:
-        return _sh.compact_received_lanes(lane_plan(st["ref"]), moved)
-    nw = wplan.n_words
-    lanes = list(moved.unbind(1))
-    pt_cols = wire_pt_order(wplan, [ci for ci, (tag, _nl, _hv) in enumerate(wplan.plan) if tag is None])
-    pos = {ci: nw + 2 * i for i, ci in enumerate(pt_cols)}
-    return wire_unpack_cols(
-        lanes[:nw], wplan, st["bases"],
-        lambda ci: _from_lanes(lanes[pos[ci]:pos[ci] + 2], torch.float64), make_valid,
-    )
+    """The columns of the received rows, a front-packed ``[rows, LM]``
+    lane matrix of :func:`_send_rows`' layout (plus each row's q8 scale
+    lanes under a quantized plan)."""
+    return _sh.received_cols(st["ref"], st["wire"], st["bases"], moved)
 
 
 def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
@@ -2480,24 +2626,31 @@ def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
         for st in states:
             if r >= st["n_rounds"]:
                 continue
-            w, bc = st["world"], st["bucket_cap"]
+            w, bc, wplan = st["world"], st["bucket_cap"], st["wire"]
+            nh = _sh.wire_header_rows(wplan) if wplan is not None else _sh.HEADER_ROWS
             bufs = []
             for s in st["local"]:
                 sh = st["send"][s]
                 dest = _codec.pack_dest(sh["lane"], sh["base"], r, w, bc)
                 rc = _sh.round_counts(sh["cnt"], bc, r)
-                bufs.append(_sh.pack_lane_buffer(sh["packed"], dest, rc, w, bc))
+                packed, hx = sh["packed"], None
+                if packed is None:  # q8 fields: this round's chunk scales
+                    packed, hx = _sh.round_send(st["flat"][s], wplan, st["bases"], dest, w, bc)
+                bufs.append(_sh.pack_lane_buffer(packed, dest, rc, w, bc, header_extra=hx,
+                                                 n_header=nh))
             got = _sh.exchange_buffer(st["ctx"].comm, bufs)
             expect = _expected_received(st["send_counts"], bc, r)
             for d, g in zip(st["local"], got):
                 recv = _sh.header_counts(g, w)
-                moved = _codec.compact_move(g, recv, w, bc, n_header=_sh.HEADER_ROWS)
+                moved = _codec.compact_move(_sh.with_scale_lanes(g, wplan, w, nh), recv, w, bc,
+                                            n_header=nh)
                 st["rounds_out"][d].append(moved[: int(expect[d])])
                 st["recv"].append(recv.to(st["ctx"].device, copy=True))
 
     results = []
     for st in states:
         w, bc, k, local = st["world"], st["bucket_cap"], st["n_rounds"], st["local"]
+        bump("host_sync")
         mine = torch.stack(st["recv"]).cpu().numpy().reshape(k, len(local), w)  # the deferred sync
         got_all = st["ctx"].comm.all_gather_counts(mine.transpose(1, 0, 2))  # [dst, round, src]
         expect_all = [_expected_received(st["send_counts"], bc, r) for r in range(k)]

@@ -26,6 +26,9 @@ KINDS = {
     "kill-switch": "optimization escape hatch; gate decision must be keyed",
     # host-resolved sizing; reaches the device only through shapes
     "tuning": "host-resolved sizing knob; reaches kernels via shapes only",
+    # host-resolved value that decides a plan per call (which wire fields a
+    # shuffle ships); it reaches the device through that plan
+    "dispatch": "host-resolved plan choice; rides the per-call plan and the fingerprint",
 }
 
 REGISTRY: Dict[str, "EnvKnob"] = {}
@@ -98,7 +101,8 @@ def env_gate(var: str, keyed_via: str = "", note: str = ""):
 # ----------------------------------------------------------------------
 # knob declarations (the kill switches are declared at their consumers:
 # CYLON_TPU_TORCH_NO_ORDERING in ordering.py, CYLON_TPU_TORCH_NO_SEMI_FILTER
-# in ops/sketch.py, CYLON_TPU_TORCH_NO_LANE_PACK in ops/stats.py)
+# in ops/sketch.py, CYLON_TPU_TORCH_NO_LANE_PACK in ops/stats.py,
+# CYLON_TPU_TORCH_NO_QUANT in ops/quant.py)
 # ----------------------------------------------------------------------
 SHUFFLE_BUDGET = EnvKnob(
     "CYLON_TPU_TORCH_SHUFFLE_BUDGET", "", kind="tuning",
@@ -109,4 +113,10 @@ SKETCH_BITS = EnvKnob(
     "CYLON_TPU_TORCH_SKETCH_BITS", "", kind="tuning",
     note="semi-join sketch bit cap (config.py); the context's sketch_bits "
     "config wins",
+)
+QUANT_TOL = EnvKnob(
+    "CYLON_TPU_TORCH_QUANT_TOL", "", kind="dispatch",
+    note="lossy-wire tolerance (ops/quant.py): float payload columns ride "
+    "q8/qb16/qf32 wire fields at or above their thresholds; the context's "
+    "quant_tol config wins, an explicit 0 included",
 )

@@ -332,9 +332,26 @@ def case_lazy(env):
             "multi": j.groupby("k", {"v": ["sum", "mean"]}).collect()}
 
 
+def case_fused(env):
+    """distributed_join(mode="fused"): the inner join in one attempt (one
+    host read, counted), and the outer join in two hash slices. Inside the
+    step every rank issues the same all_to_alls and overflow all_reduces,
+    with no host count exchange."""
+    from cylon_tpu_torch.utils import tracing
+
+    left, right = _sides(np.random.default_rng(SEED + 12), 600, 500, 300)
+    a = ctt.Table.from_encoded(env.context, port_encode(left))
+    b = ctt.Table.from_encoded(env.context, port_encode(right))
+    before = tracing.get_count("host_sync")
+    j = a.distributed_join(b, on="k", mode="fused")
+    syncs = tracing.get_count("host_sync") - before
+    o = a.distributed_join(b, on="k", how="outer", mode="fused", num_slices=2)
+    return {"inner": j, "outer_sliced": o, "host_syncs": syncs}
+
+
 PORT = OrderedDict([("pk", case_pk), ("ingest", case_ingest), ("env", case_env),
                     ("frame", case_frame), ("surface", case_surface), ("lazy", case_lazy),
-                    ("semi", case_semi)])
+                    ("semi", case_semi), ("fused", case_fused)])
 CASES = list(SHARED) + list(PORT)
 
 

@@ -76,7 +76,7 @@ def _tables():
 @pytest.mark.parametrize(
     "call",
     [
-        lambda t: t.distributed_join(t, on="k", mode="fused"),
+        lambda t: ctt.Table.from_arrow(t.ctx, None),
         lambda t: t.lazy().explain(analyze=True),
         lambda t: t.lazy().collect_async(),
         lambda t: t.to_arrow(),

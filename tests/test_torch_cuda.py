@@ -671,3 +671,69 @@ def test_shuffle_tiers_on_card_match_cpu(dev, world):
     assert gates[0] == gates[1] and gates[0]["lane_pack.sort_fused"] == 1
     if world > 1:
         assert gates[0]["shuffle.semi_filter.applied"] == 2 and gates[0]["lane_pack.wire.applied"] >= 1
+
+
+@pytest.mark.parametrize("P,bc", [(4, 64), (4, 4096), (3, 4097)])
+def test_codec_kernels_on_a_quantized_plan_match_plain(dev, P, bc):
+    """B2b's slots and B3's compact on a quantized plan's round buffers
+    (q8 scale rows in the headers, each row's scales as extra lanes)."""
+    from cylon_tpu_torch.ops import gather, quant
+    from cylon_tpu_torch.parallel import shuffle as sh
+
+    rng = np.random.default_rng(5)
+    n = 3 * bc + 17
+    cols = [(torch.from_numpy(rng.integers(0, 1 << 20, n).astype(np.int32)), None),
+            (torch.from_numpy(rng.normal(size=n).astype(np.float32)), None),
+            (torch.from_numpy(rng.normal(size=n)), None)]
+    spec = quant.quant_spec([d.dtype for d, _v in cols], (0,), 1e-2)
+    wplan = gather.static_wire_plan(cols, quant=spec)
+    assert gather.wire_q8_cols(wplan) and sh.wire_header_rows(wplan) >= 1
+    nh = sh.wire_header_rows(wplan)
+    outs = []
+    for device in (dev, "cpu"):
+        c = [(d.to(device), v) for d, v in cols]
+        lane, hist = cuda_codec.pack_hist(*cuda_codec.key_words(c[:1]), n, P)
+        base, cnt = cuda_codec.scan_tiles(hist), hist.sum(1, dtype=torch.int32)
+        per_round = []
+        for r in range(2):
+            dest = cuda_codec.pack_dest(lane, base, r, P, bc)
+            packed, hx = sh.round_send(c, wplan, None, dest, P, bc)
+            buf = sh.pack_lane_buffer(packed, dest, sh.round_counts(cnt, bc, r), P, bc,
+                                      header_extra=hx, n_header=nh)
+            move = sh.with_scale_lanes(buf, wplan, P, nh)
+            recv = sh.header_counts(move, P)
+            moved = cuda_codec.compact_move(move, recv, P, bc, n_header=nh)
+            per_round.append([x.cpu() for x in (dest, buf, moved)])
+        outs.append(per_round)
+    for ra, rb in zip(*outs):
+        for a, b in zip(ra, rb):
+            assert torch.equal(a, b)
+    # and the card's compact against its own plain version on the card
+    assert torch.equal(cuda_codec.compact_move(move.to(dev), recv.to(dev), P, bc, nh).cpu(),
+                       cuda_codec.compact_move_plain(move.to(dev), recv.to(dev), P, bc, nh).cpu())
+
+
+@pytest.mark.parametrize("how", ["inner", "outer"])
+@pytest.mark.parametrize("quant_tol", ["", "0.01"])
+def test_fused_join_world4_on_card_matches_cpu(dev, how, quant_tol):
+    """distributed_join(mode="fused") at world 4 on the card against the
+    CPU, shard by shard, exact and under the quantized wire, in two hash
+    slices; one host read each."""
+    from cylon_tpu_torch.utils import tracing
+
+    rng = np.random.default_rng(9)
+    n = 60_000
+    left = {"k": rng.integers(0, n, n).astype(np.int32), "v": rng.normal(size=n).astype(np.float32)}
+    right = {"k": rng.integers(0, n, n).astype(np.int32), "w": rng.normal(size=n)}
+    outs = []
+    for device in (dev, "cpu"):
+        ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=device, world_size=4))
+        ctx.add_config("quant_tol", quant_tol)
+        tl, tr = ctt.Table.from_pydict(ctx, left), ctt.Table.from_pydict(ctx, right)
+        tracing.reset_trace()
+        res = [tl.distributed_join(tr, on="k", how=how, mode="fused"),
+               tl.distributed_join(tr, on="k", how=how, mode="fused", num_slices=2)]
+        assert tracing.get_count("host_sync") == 2
+        outs.append([_shard_dump(t) for t in res])
+    for a, b in zip(*outs):
+        _dumps_equal(a, b)

@@ -116,8 +116,14 @@ def test_groupby_view_shortcuts_match_reference(rng):
 def test_unported_and_device_rules(monkeypatch):
     _jd, td = _frames({"k": np.arange(6), "v": np.ones(6)})
     env = ctt.CylonEnv(config=ctt.GPUConfig(device="cpu", world_size=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        td.merge(td, on="k", env=env, mode="fused")
+    # the fused mode needs a distributed env, as in the JAX package, and
+    # under one gives the eager merge's rows
+    with pytest.raises(ValueError, match="distributed env"):
+        td.merge(td, on="k", mode="fused")
+    fused = td.merge(td, on="k", env=env, mode="fused").to_pandas()
+    eager = td.merge(td, on="k", env=env).to_pandas()
+    assert fused.sort_values(list(fused.columns)).reset_index(drop=True).equals(
+        eager.sort_values(list(eager.columns)).reset_index(drop=True))
     with pytest.raises(ValueError, match="unknown join mode"):
         td.join(td, on="k", mode="lazy")
     for op in ("collect_async", "to_arrow"):  # std/var/nunique: test_torch_groupby_aggs

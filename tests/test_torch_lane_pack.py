@@ -49,10 +49,11 @@ def test_registry_holds_the_ports_knobs_and_only_those():
     assert set(envgate.REGISTRY) == {
         "CYLON_TPU_TORCH_NO_ORDERING", "CYLON_TPU_TORCH_NO_SEMI_FILTER",
         "CYLON_TPU_TORCH_NO_LANE_PACK", "CYLON_TPU_TORCH_SHUFFLE_BUDGET",
-        "CYLON_TPU_TORCH_SKETCH_BITS",
+        "CYLON_TPU_TORCH_SKETCH_BITS", "CYLON_TPU_TORCH_NO_QUANT", "CYLON_TPU_TORCH_QUANT_TOL",
     }
     kinds = {k: v.kind for k, v in envgate.REGISTRY.items()}
     assert kinds["CYLON_TPU_TORCH_SHUFFLE_BUDGET"] == kinds["CYLON_TPU_TORCH_SKETCH_BITS"] == "tuning"
+    assert kinds["CYLON_TPU_TORCH_QUANT_TOL"] == "dispatch"
     assert all(v.note or v.keyed_via for v in envgate.REGISTRY.values())
     with pytest.raises(ValueError):
         envgate.EnvKnob("CYLON_TPU_NO_RADIX")  # not the port's prefix
@@ -301,3 +302,40 @@ def test_wire_gate_applies_and_skips_on_matching_shapes(defaults, budget, applie
     assert got[took][0] == 1, got
     if applied:
         assert got["lane_pack.wire.bytes_saved"][1] > 0
+
+
+def test_masked_outputs_plan_like_reference(defaults):
+    """ROADMAP.md C1: ``filter``, groupby keys, ``unique`` and the set ops
+    give every column (the groupby its keys) the JAX package's all-true
+    validity mask, so the shuffles after them plan alike. At world 4:
+    ``filter`` -> ``shuffle(["k"], byte_budget=2048)`` (K > 1 rounds: the
+    rows of a shard in the same order), and ``distributed_unique`` ->
+    ``distributed_groupby``; the same shards, the same tier counters, and
+    the same ``shuffle.rounds`` and ``shuffle.exchanged_bytes``."""
+    rng = np.random.default_rng(4)
+    n = 3000
+    cols = {"k": rng.integers(np.iinfo(np.int32).min, np.iinfo(np.int32).max, n, dtype=np.int32),
+            "v": rng.normal(size=n).astype(np.float32),
+            "g": rng.integers(0, 60, n).astype(np.int32)}
+    enc = _encode(cols)
+    jctx, tctx = _contexts(4)
+    jt, tt = ct.Table.from_encoded(jctx, enc), ctt.Table.from_encoded(tctx, enc)
+    keep = cols["v"] > 0
+    flows = [
+        lambda t: t.filter(keep).shuffle(["k"], byte_budget=2048),
+        lambda t: t.distributed_unique(["g"]).distributed_groupby(["g"], {"v": "sum"}),
+    ]
+    for i, flow in enumerate(flows):
+        jtr.reset_trace()
+        ttr.reset_trace()
+        want, got = flow(jt), flow(tt)
+        _shards_equal(want, got, agg=i == 1)
+        counters_equal()
+        shipped = {}
+        for name, rep in (("port", ttr.report), ("jax", jtr.report)):
+            r = rep("shuffle.")
+            shipped[name] = {k: int(r[k].get("rows", 0))
+                             for k in ("shuffle.rounds", "shuffle.exchanged_bytes")}
+        assert shipped["port"] == shipped["jax"], shipped
+        if i == 0:
+            assert shipped["port"]["shuffle.rounds"] > 1

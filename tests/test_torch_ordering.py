@@ -229,6 +229,27 @@ def test_join_presorted_probe(ref):
     _consumer(lambda x, y: x.join(y, on="k"), [a, rs])
 
 
+def test_filtered_keys_decline_like_reference(ref4):
+    """A ``filter`` gives every column the JAX package's all-true mask
+    (ROADMAP.md C1), so ``sort(["k", "v"])`` over a filtered ``sort("k")``
+    declines the run-id prefix (``ordering.sort_suffix``) as the JAX
+    package declines on a masked key, and a join probing a filtered sorted
+    right side counts what the JAX package counts: the ``ordering.*``
+    counters agree, and so do the rows."""
+    (a, b) = _both(1, *_sides())
+    keep_a = np.asarray(a[1].sort("k").to_pandas()["x"] > 0)
+    keep_b = np.asarray(b[1].sort("k").to_pandas()["w"] > 0)
+    for flow in (lambda t, u: t.sort("k").filter(keep_a).sort(["k", "v"]),
+                 lambda t, u: t.join(u.sort("k").filter(keep_b), on="k")):
+        jtr.reset_trace()
+        ttr.reset_trace()
+        want = flow(a[0], b[0])
+        got = flow(a[1], b[1])
+        assert _counts(ttr) == _counts(jtr)
+        assert "ordering.sort_suffix" not in _counts(ttr)
+        _shards_equal(want, got)
+
+
 # ----------------------------------------------------------------------
 # the key-order emit and the fused pushdown
 # ----------------------------------------------------------------------
