@@ -107,6 +107,27 @@
             rounds, ms;
    every world-4 workload line says which gates fired (``tiers``: the
    semi filter, the wire narrowing, the fusions, the sketch bytes);
+   then the skew split and the spill tiers (ROADMAP A7's first slice),
+   each beside the same call with the split off or at tier 0:
+     SKEW8_shuffle: benchmarks/spill_bench.py's bench_skew at 8M rows (k
+            int32 all zero, v float32 = arange) shuffled on k at world 8
+            (at W = 4 a bucket can reach at most 4x the mean, and the
+            static 4x trigger never fires), beside
+            ``spill.skew_disabled()``: shipped bytes (rounds plus the
+            relay's rows), rounds, relay rows, ms; the shipped bytes must
+            fall by at least 40% and every shard hold the same rows;
+     SKEW8_join: an inner join at world 8 of 8M left rows, half of them on
+            the key of A's right row 0 and the rest uniform, with A's
+            right side: the same numbers, the rows of the reference count,
+            equal as row multisets a shard;
+     SPILL4: spill_bench.py's bench_tier1_join at A4_K4's scale: A4's join
+            at the 4 MiB budget forced through tiers 1 and 2
+            (``CYLON_TPU_TORCH_SPILL_TIER``, the spill dir under a
+            temporary directory) beside tier 0: ms, staged rounds and
+            bytes, the peak gauge, ``torch.cuda.max_memory_allocated`` of
+            the join and of its left side's shuffle; equal shard for
+            shard, and tier 1's gauge and measured shuffle peak below tier
+            0's;
    then the torch.distributed backend, one process per shard:
      MP4: four processes of this script (``--mp4-worker``), each one rank
           of ``GPUConfig(coordinator_address=..., num_processes=4)``: gloo
@@ -128,6 +149,7 @@
    also on B4's largest received buffer whose rows are not a multiple of
    16 bytes; B2a in pid mode, B2b and B3 also on S4's range shuffle; B2a
    in pid mode also on SEMI4's filtered pid lane with its pruned rows at P;
+   B2b and B3 also on SKEW8_shuffle's cold-bucket round;
    K1 also on PACK's fused uint64 word), and
    times kernel, plain version and the one PyTorch call that computes the
    same function where there is one, beside each kernel's ptxas registers
@@ -182,6 +204,8 @@ REPS_T = 3  # timed calls of each SEMI4, PACK and PACK4 variant, after a warm-up
 #: the counter families of the shuffle tiers (the semi filter, lane packing)
 TIER_PREFIXES = ("shuffle.semi_filter.", "semi_filter.", "lane_pack.", "shuffle.quant.")
 REPS_MP4 = 3  # barrier-synchronised timed calls of each MP4 op
+N_SKEW = 8_000_000  # rows of SKEW8_shuffle (spill_bench.py's bench_skew)
+SKEW_WORLD = 8  # at W = 4 a hot bucket can reach only 4x the mean: the 4x trigger never fires
 
 # peak memory bandwidth by card (NVIDIA data sheets); SXM5 H100 otherwise
 _PEAK_BW = {"PCIe": 2.0e12, "NVL": 3.9e12, "H200": 4.8e12}
@@ -2092,6 +2116,176 @@ def main(mp4_only: bool = False) -> None:
     print(json.dumps({"smi": smi, **work_fused}))
     print(json.dumps({"smi": smi, **work_fused4}))
 
+    # ------------------------------------------------------------------
+    # workloads SKEW8_shuffle, SKEW8_join and SPILL4: the skew split and
+    # the spill tiers (ROADMAP A7's first slice), each beside the same
+    # call with the split off or at tier 0
+    # ------------------------------------------------------------------
+    from cylon_tpu_torch.parallel import spill as _spill
+
+    def counter_rows(names):
+        rep = _tr.report("shuffle.")
+        return {k: [int(rep[k]["count"]), int(rep[k]["rows"])] if k in rep else [0, 0]
+                for k in names}
+
+    def with_counters(fn, names, got):
+        """``fn()``, with the counters ``names`` it moved left in ``got``."""
+        before = counter_rows(names)
+        out = fn()
+        torch.cuda.synchronize()
+        after = counter_rows(names)
+        got.clear()
+        got.update({k: [after[k][0] - before[k][0], after[k][1] - before[k][1]] for k in names})
+        return out
+
+    def split_if(off):
+        return _spill.skew_disabled() if off else contextlib.nullcontext()
+
+    def _in(cm, fn):
+        with cm:
+            return fn()
+
+    skew_names = ("shuffle.exchanged_bytes", "shuffle.spill.relay_bytes", "shuffle.skew_split",
+                  "shuffle.rounds")
+    codec_kernels = list(cuda_codec.LAUNCHES)
+    ctx8 = ctt.CylonContext.init_distributed(ctt.GPUConfig(world_size=SKEW_WORLD))
+
+    def skew_cells(what, fn, kernels):
+        """The split call beside the padded one; the codec inputs of the
+        split call are left in ``seen``."""
+        cells, outs = {}, {}
+        for mode in ("split", "padded"):
+            got = {}
+            if mode == "split":
+                seen.clear()
+            out, cell = timed(lambda off=mode == "padded": with_counters(
+                lambda: _in(split_if(off), fn), skew_names, got), f"{what}_{mode}", kernels)
+            cell.update({"counters": dict(got),
+                         "shipped_bytes": got["shuffle.exchanged_bytes"][1]
+                         + got["shuffle.spill.relay_bytes"][1],
+                         "relay_rows": got["shuffle.skew_split"][1],
+                         "rounds": [k_ for _b, k_ in cell["shuffle_plans"]],
+                         "bucket_cap": [b_ for b_, _k in cell["shuffle_plans"]]})
+            cells[mode], outs[mode] = cell, out
+            if mode == "split":
+                captured = on_card(seen)
+        seen.clear()
+        seen.update(captured)
+        if not cells["split"]["relay_rows"] or cells["padded"]["relay_rows"]:
+            fail(f"{what}: the skew split did not engage (or engaged when off): {cells}")
+        return cells, outs
+
+    # SKEW8_shuffle: spill_bench.py's bench_skew at 8M rows, world 8
+    t8 = ctt.Table.from_pydict(ctx8, {"k": np.zeros(N_SKEW, np.int32),
+                                      "v": np.arange(N_SKEW, dtype=np.float32)})
+    cells, outs = skew_cells("SKEW8_shuffle", lambda: t8.shuffle(["k"]), codec_kernels)
+    captured_skew = dict(seen)
+    print(json.dumps({"profile_skew8": profile(lambda: t8.shuffle(["k"]))}))
+    v_ref = torch.arange(N_SKEW, dtype=torch.float32, device=dev)
+    for mode, out in outs.items():
+        if out.row_counts.tolist() != outs["split"].row_counts.tolist() or out.row_count != N_SKEW:
+            fail(f"SKEW8_shuffle {mode}: shard rows {out.row_counts.tolist()}")
+        for d in range(SKEW_WORLD):
+            vs = torch.sort(outs["split"]._shards[d]["v"].data).values
+            if not torch.equal(vs, torch.sort(out._shards[d]["v"].data).values):
+                fail(f"SKEW8_shuffle: shard {d} rows differ between split and padded")
+        if not torch.equal(torch.sort(cat_col(out, "v")).values, v_ref):
+            fail(f"SKEW8_shuffle {mode}: the rows are not the input's")
+    shipped = {m: c["shipped_bytes"] for m, c in cells.items()}
+    if shipped["split"] > 0.6 * shipped["padded"]:
+        fail(f"SKEW8_shuffle: shipped {shipped}: under 40% fewer bytes")
+    work_skew = {"workload": "SKEW8_shuffle", "world": SKEW_WORLD, "rows": N_SKEW,
+                 "budget_bytes": ctx8.shuffle_byte_budget, "cells": cells,
+                 "bytes_reduction": 1.0 - shipped["split"] / shipped["padded"]}
+    del t8, outs, v_ref
+    print(json.dumps({"smi": smi, **work_skew}))
+
+    # SKEW8_join: half the left rows on the key of A's right row 0
+    rng_j = np.random.default_rng(SEED)
+    k_skew = rng_j.integers(0, N_A, N_A).astype(np.int32)
+    k_skew[: N_A // 2] = right["k"][0]
+    tj8_l = ctt.Table.from_pydict(ctx8, {"k": k_skew, "v": rng_j.normal(size=N_A).astype(np.float32)})
+    tj8_r = ctt.Table.from_pydict(ctx8, right)
+    cl_j = torch.bincount(torch.from_numpy(k_skew).to(dev).long(), minlength=N_A)
+    n_join_j = int((cl_j * cr).sum())
+    del cl_j, k_skew
+    cells, outs = skew_cells("SKEW8_join", lambda: tj8_l.distributed_join(tj8_r, on="k"),
+                             all_kernels)
+    for mode, out in outs.items():
+        if out.row_count != n_join_j:
+            fail(f"SKEW8_join {mode}: join rows {out.row_count} != {n_join_j}")
+    multisets_equal(outs["split"], outs["padded"], "SKEW8_join")
+    work_skew_j = {"workload": "SKEW8_join", "world": SKEW_WORLD, "rows_per_side": N_A,
+                   "join_rows": n_join_j, "budget_bytes": ctx8.shuffle_byte_budget,
+                   "cells": cells, "bytes_reduction": 1.0 - cells["split"]["shipped_bytes"]
+                   / cells["padded"]["shipped_bytes"]}
+    del tj8_l, tj8_r, outs
+    print(json.dumps({"smi": smi, **work_skew_j}))
+
+    # SPILL4: spill_bench.py's bench_tier1_join at A4_K4's scale: A4's join
+    # at the 4 MiB budget, forced through tiers 1 and 2, beside tier 0
+    spill_names = ("shuffle.spill.staged_rounds", "shuffle.spill.staged_bytes",
+                   "shuffle.spill.shuffles", "shuffle.rounds")
+    ctx4.add_config("shuffle_byte_budget", BUDGET_SMALL)
+    sp_l, sp_r = ctt.Table.from_pydict(ctx4, left), ctt.Table.from_pydict(ctx4, right)
+    spill_dir = tempfile.TemporaryDirectory(prefix="spill4_")
+    os.environ["CYLON_TPU_TORCH_SPILL_DIR"] = spill_dir.name
+    work_spill = {"workload": "SPILL4", "world": WORLD, "rows_per_side": N_A,
+                  "budget_bytes": BUDGET_SMALL, "cells": {}}
+    spill_out = {}
+    try:
+        for tier in ("0", "1", "2"):
+            os.environ["CYLON_TPU_TORCH_SPILL_TIER"] = tier
+            got = {}
+            out, cell = timed(lambda: with_counters(
+                lambda: sp_l.distributed_join(sp_r, on="k", how="inner"), spill_names, got),
+                f"SPILL4_tier{tier}", all_kernels)
+            gauge_b = _tr.report("shuffle.spill.peak_device_bytes")[
+                "shuffle.spill.peak_device_bytes"]["last"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_b = torch.cuda.memory_allocated()
+            j_peak = sp_l.distributed_join(sp_r, on="k", how="inner")
+            torch.cuda.synchronize()
+            peak_join = torch.cuda.max_memory_allocated() - base_b
+            del j_peak
+            torch.cuda.reset_peak_memory_stats()
+            base_b = torch.cuda.memory_allocated()
+            s_peak = sp_l.shuffle(["k"])
+            torch.cuda.synchronize()
+            peak_shuffle = torch.cuda.max_memory_allocated() - base_b
+            del s_peak
+            if tier == "1":
+                print(json.dumps({"profile_spill4_tier1": profile(
+                    lambda: sp_l.distributed_join(sp_r, on="k", how="inner"))}))
+            cell.update({"counters": dict(got), "peak_device_bytes_gauge": gauge_b,
+                         "max_memory_allocated_join": peak_join,
+                         "max_memory_allocated_shuffle": peak_shuffle,
+                         "rounds": [k_ for _b, k_ in cell["shuffle_plans"]]})
+            if tier != "0" and got["shuffle.spill.staged_rounds"][0] != sum(cell["rounds"]):
+                fail(f"SPILL4 tier {tier}: staged rounds {got} against rounds {cell['rounds']}")
+            work_spill["cells"][f"tier{tier}"] = cell
+            spill_out[tier] = out
+    finally:
+        os.environ.pop("CYLON_TPU_TORCH_SPILL_TIER", None)
+        os.environ.pop("CYLON_TPU_TORCH_SPILL_DIR", None)
+        ctx4.add_config("shuffle_byte_budget", "")
+    print(json.dumps({"smi": smi, **work_spill}))
+    if os.listdir(spill_dir.name):
+        fail(f"SPILL4: tier 2 left files in its spill dir: {os.listdir(spill_dir.name)}")
+    spill_dir.cleanup()
+    if _spill.arena_bytes()[0]:
+        fail(f"SPILL4: {_spill.arena_bytes()[0]} arena bytes left open")
+    for tier in ("1", "2"):
+        shards_equal(spill_out["0"], spill_out[tier], f"SPILL4 tier {tier}")
+    if spill_out["0"].row_count != n_join:
+        fail(f"SPILL4: join rows {spill_out['0'].row_count} != {n_join}")
+    sp = work_spill["cells"]
+    for key in ("max_memory_allocated_shuffle", "peak_device_bytes_gauge"):
+        if not sp["tier1"][key] < sp["tier0"][key]:
+            fail(f"SPILL4: tier 1's {key} {sp['tier1'][key]} is not below tier 0's {sp['tier0'][key]}")
+    del spill_out, sp_l, sp_r
+
 
     cuda_radix.radix_sort_lane, cuda_gather.expand_rows = orig_lane, orig_expand
     cuda_codec.pack_hist, cuda_codec.pack_dest = orig_hist, orig_dest
@@ -2216,7 +2410,8 @@ def main(mp4_only: bool = False) -> None:
     # their q8 scale lanes and on FUSED4_quant's concatenated rounds, K1 on
     # FUSED4_slices2's combined (slice, pid) sort, K2 on FUSED4's emit
     new_paths = {}
-    for tag, cap_ in (("q4", captured_q4), ("fused4_quant", captured_f4q)):
+    for tag, cap_ in (("q4", captured_q4), ("fused4_quant", captured_f4q),
+                      ("skew8", captured_skew)):
         if "move" not in cap_:
             fail(f"{tag}: B3 received no buffer")
         mv = cap_["move"]
@@ -2228,16 +2423,17 @@ def main(mp4_only: bool = False) -> None:
             "ms": cuda_ms(lambda mv=mv: cuda_codec.compact_move(*mv)),
             "plain_ms": cuda_ms(lambda mv=mv: cuda_codec.compact_move_plain(*mv)),
             "bound_ms": (4 * mv[0].numel() + 4 * mv[2] * mv[3] * mv[0].shape[1]) / bw * 1e3}
-    qd = captured_q4["dest"]
-    got_d = cuda_codec.pack_dest(*qd)
-    torch.cuda.synchronize()
-    new_paths["pack_dest_q4"] = {
-        "shape": [qd[0].shape[0], qd[3], qd[4]], "round": qd[2],
-        "max_abs_err": max_err(got_d, cuda_codec.pack_dest_plain(*qd)),
-        "ms": cuda_ms(lambda: cuda_codec.pack_dest(*qd)),
-        "plain_ms": cuda_ms(lambda: cuda_codec.pack_dest_plain(*qd)),
-        "bound_ms": (4 * qd[0].shape[0] * 2 + 4 * qd[3] * cuda_codec.n_tiles(qd[0].shape[0]))
-        / bw * 1e3}
+    for tag, cap_ in (("q4", captured_q4), ("skew8", captured_skew)):
+        qd = cap_["dest"]
+        got_d = cuda_codec.pack_dest(*qd)
+        torch.cuda.synchronize()
+        new_paths[f"pack_dest_{tag}"] = {
+            "shape": [qd[0].shape[0], qd[3], qd[4]], "round": qd[2],
+            "max_abs_err": max_err(got_d, cuda_codec.pack_dest_plain(*qd)),
+            "ms": cuda_ms(lambda qd=qd: cuda_codec.pack_dest(*qd)),
+            "plain_ms": cuda_ms(lambda qd=qd: cuda_codec.pack_dest_plain(*qd)),
+            "bound_ms": (4 * qd[0].shape[0] * 2 + 4 * qd[3] * cuda_codec.n_tiles(qd[0].shape[0]))
+            / bw * 1e3}
     _ks, e_hs, e_ss = hold_lane(slice_lane)
     new_paths["radix_slice_plan"] = {
         "shape": [slice_lane[0].shape[0], slice_lane[2], slice_lane[3]],
@@ -2439,6 +2635,8 @@ def main(mp4_only: bool = False) -> None:
     ]
     by_name = {k["name"]: k for k in kernels}
     by_name["shuffle_pack_dest"]["q4"] = new_paths["pack_dest_q4"]
+    by_name["shuffle_pack_dest"]["skew8"] = new_paths["pack_dest_skew8"]
+    by_name["shuffle_compact_move"]["skew8"] = new_paths["compact_move_skew8"]
     by_name["shuffle_compact_move"]["q4"] = new_paths["compact_move_q4"]
     by_name["shuffle_compact_move"]["fused4_quant"] = new_paths["compact_move_fused4_quant"]
     by_name["radix_onesweep"]["slice_plan"] = new_paths["radix_slice_plan"]
@@ -2459,7 +2657,8 @@ def main(mp4_only: bool = False) -> None:
         k["launches_l4"] = {q: v["launches"][ck] for q, v in work_l4["queries"].items()}
         # this slice's workloads: each variant's first timed call
         for tag, w in (("semi4", work_semi), ("pack", work_pack), ("pack4", work_pack4),
-                       ("q4", work_q4), ("fused", work_fused), ("fused4", work_fused4)):
+                       ("q4", work_q4), ("fused", work_fused), ("fused4", work_fused4),
+                       ("skew8", work_skew), ("skew8_join", work_skew_j), ("spill4", work_spill)):
             cells = w["cells"].items()
             if tag == "semi4":
                 cells = [(f"{sel}_{mode}", m) for sel, c in w["cells"].items() for mode, m in c.items()]

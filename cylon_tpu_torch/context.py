@@ -19,7 +19,9 @@ stacked on every shard: the semi-join sketches, which NCCL cannot
 OR-reduce, so each rank ORs the gathered words itself, as the JAX package
 does), ``all_gather_counts(local_counts)`` (host
 integers that decide control flow, so that every rank takes the same
-branch), ``gather_host(obj)`` (host output) and ``barrier()``.
+branch), ``relay_exchange(mats, relay)`` (the skew split's host relay,
+parallel/spill.py: host rows regrouped by destination), ``gather_host(obj)``
+(host output) and ``barrier()``.
 """
 from __future__ import annotations
 
@@ -100,6 +102,18 @@ class LocalCommunicator:
         if out.shape[:1] != (self.world_size,):
             raise ValueError(f"all_gather_counts needs {self.world_size} entries")
         return out
+
+    def relay_exchange(self, mats: Dict[int, np.ndarray], relay: np.ndarray) -> Dict[int, np.ndarray]:
+        """The skew relay's host regroup: ``mats[s]`` is source s's relay
+        rows, destination-major (``relay[s, d]`` rows for shard d); returns
+        for every shard d the ``[relay[:, d].sum(), L]`` rows bound for it,
+        in source order. Slicing here, as the JAX package's ``fetch_relay``."""
+        w = self.world_size
+        offs = np.concatenate([np.zeros((w, 1), np.int64), np.cumsum(relay, 1)], 1)
+        return {
+            d: np.concatenate([mats[s][offs[s, d]:offs[s, d + 1]] for s in range(w)])
+            for d in range(w)
+        }
 
     def gather_host(self, obj: Any) -> List[Any]:
         """Every process's ``obj``, in rank order: here only this one's."""
@@ -184,6 +198,20 @@ class DistCommunicator:
         dist.all_gather(parts, mine, group=self._host_group)
         return torch.cat(parts).numpy()
 
+    def relay_exchange(self, mats: Dict[int, np.ndarray], relay: np.ndarray) -> Dict[int, np.ndarray]:
+        """This rank's relay rows (destination-major, ``relay[rank, d]``
+        rows for shard d) -> the rows every source relays to this rank, in
+        source order: one host ``all_to_all_single`` over gloo (the group
+        itself, or the side group under NCCL), the relay matrix giving the
+        split sizes."""
+        send = torch.from_numpy(np.ascontiguousarray(mats[self.rank]))
+        out = torch.empty((int(relay[:, self.rank].sum()), send.shape[1]), dtype=send.dtype)
+        dist.all_to_all_single(
+            out, send, output_split_sizes=[int(x) for x in relay[:, self.rank]],
+            input_split_sizes=[int(x) for x in relay[self.rank]], group=self._host_group,
+        )
+        return {self.rank: out.numpy()}
+
     def gather_host(self, obj: Any) -> List[Any]:
         out: List[Any] = [None] * self.world_size
         dist.all_gather_object(out, obj, group=self._host_group)
@@ -212,6 +240,11 @@ class CylonContext:
         self.local_shards: List[int] = [s for s, d in enumerate(self.devices) if d is not None]
         self._config: Dict[str, str] = {}
         self._finalized = False
+        # reclaim tier-2 spill directories orphaned by dead processes of
+        # this host (pid-stamped, age-guarded; never raises)
+        from .parallel.spill import reap_stale_spill
+
+        reap_stale_spill()
 
     @classmethod
     def init_distributed(cls, config: GPUConfig) -> "CylonContext":

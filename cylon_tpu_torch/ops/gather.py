@@ -385,3 +385,146 @@ def wire_unpack_cols(word_lanes, wplan: WirePlan, bases: Optional[np.ndarray],
             data = _from_lanes(frags, getattr(torch, tag))
         out.append((data, make_valid(vlane) if has_valid else make_valid(None)))
     return out
+
+
+# ----------------------------------------------------------------------
+# the HOST lane codec of the spill tiers and the skew relay
+# (parallel/spill.py)
+#
+# Staged shuffle rounds and relay tails leave the device as one packed
+# [rows, L] int32 lane matrix (plus a uint8 code matrix under the
+# quantized tier) and are decoded on the host with these numpy mirrors of
+# the device codec, bit for bit, instead of one device read per column.
+# ----------------------------------------------------------------------
+
+def _np_name(dt: torch.dtype) -> str:
+    from ..dtypes import numpy_dtype
+
+    return numpy_dtype(dt).name
+
+
+def np_from_lanes(lanes: List[np.ndarray], dt: torch.dtype) -> np.ndarray:
+    """numpy mirror of :func:`_from_lanes`: int32 host lanes -> the physical
+    values of a column of torch dtype ``dt``."""
+    from ..dtypes import numpy_dtype
+
+    nd = numpy_dtype(dt)
+    if dt == torch.bool:
+        return lanes[0].astype(np.bool_)
+    if dt == torch.float16:
+        return lanes[0].astype(np.int16).view(np.float16)
+    if dt in _WIDEN:
+        return lanes[0].astype(nd)
+    if len(lanes) == 1:
+        return np.ascontiguousarray(lanes[0]).view(nd)
+    return np.stack(lanes, 1).view(nd).reshape(-1)
+
+
+def np_to_lanes(data: np.ndarray) -> List[np.ndarray]:
+    """numpy mirror of :func:`_to_lanes` over a host column."""
+    data = np.ascontiguousarray(data)
+    if data.dtype == np.float16:
+        return [data.view(np.int16).astype(np.int32)]
+    if data.dtype.itemsize < 4 or data.dtype == np.bool_:
+        return [data.astype(np.int32)]
+    if data.dtype.itemsize == 4:
+        return [data.view(np.int32)]
+    pair = data.view(np.int32).reshape(-1, 2)
+    return [pair[:, 0], pair[:, 1]]
+
+
+def host_pack_cols(cols) -> np.ndarray:
+    """int32 ``[n, L]`` plain lane matrix of host physical columns (data
+    lanes, then the validity lane where a column has one): the layout
+    :func:`host_unpack_cols` reads."""
+    lanes: List[np.ndarray] = []
+    n = len(cols[0][0]) if cols else 0
+    for data, valid in cols:
+        lanes.extend(np_to_lanes(data))
+        if valid is not None:
+            lanes.append(np.asarray(valid).astype(np.int32))
+    return np.stack(lanes, 1) if lanes else np.zeros((n, 0), np.int32)
+
+
+def host_unpack_cols(plan, lane_cols: Sequence[np.ndarray]):
+    """Host twin of :func:`unpack_cols` over fetched numpy lanes in plan
+    order. Returns [(data, valid or None)] in the physical encoding."""
+    out = []
+    pos = 0
+    for dt, n_lanes, has_valid in plan:
+        data = np_from_lanes(list(lane_cols[pos:pos + n_lanes]), dt)
+        pos += n_lanes
+        valid = None
+        if has_valid:
+            valid = lane_cols[pos].astype(np.bool_)
+            pos += 1
+        out.append((data, valid))
+    return out
+
+
+def quant_lane_parts(plan, qspec):
+    """The quantized host-crossing layout of a column set: the plan entry of
+    each 'q8' column becomes ``("q8:<dtype>", 0, has_valid)``: its data
+    leaves the int32 lane matrix for a uint8 code matrix (1 byte a row
+    over PCIe and in the spill arenas instead of 4-8), while its validity
+    lane stays in the matrix. Only q8 stages through host crossings
+    (qb16 and qf32 are wire-only). Returns (qplan, q_cols) with q_cols =
+    ((col, dtype name), ...) in plan order."""
+    qplan = []
+    q_cols = []
+    for ci, (dt, nl, has_valid) in enumerate(plan):
+        if qspec is not None and qspec[ci] == "q8":
+            name = _np_name(dt)
+            qplan.append((f"q8:{name}", 0, has_valid))
+            q_cols.append((ci, name))
+        else:
+            qplan.append((dt, nl, has_valid))
+    return tuple(qplan), tuple(q_cols)
+
+
+def pack_cols_quant(cols: Sequence[KeyCol], q_cols, live: Optional[torch.Tensor] = None):
+    """Device twin of :func:`pack_cols` under a :func:`quant_lane_parts`
+    layout: each quantized column's data becomes uint8 q8 codes under ONE
+    block scale (the finite max-abs over the ``live`` rows). Returns
+    (int32 lanes, codes [n, nq] uint8, scales [nq] float32)."""
+    from . import quant as _q
+
+    qset = {ci for ci, _dt in q_cols}
+    lanes: List[torch.Tensor] = []
+    codes, scales = [], []
+    for ci, (data, valid) in enumerate(cols):
+        if ci in qset:
+            s = _q.safe_scale(_q.block_maxabs(data, live))
+            codes.append(_q.encode_q8(data, s).to(torch.uint8))
+            scales.append(s)
+        else:
+            lanes.extend(_to_lanes(data))
+        if valid is not None:
+            lanes.append(valid.to(torch.int32))
+    n = cols[0][0].shape[0] if cols else 0
+    device = cols[0][0].device if cols else None
+    if codes:
+        return lanes, torch.stack(codes, 1), torch.stack(scales)
+    return (lanes, torch.zeros((n, 0), dtype=torch.uint8, device=device),
+            torch.zeros(0, dtype=torch.float32, device=device))
+
+
+def host_unpack_cols_quant(qplan, lane_cols: Sequence[np.ndarray], handle_quant):
+    """Host twin of :func:`host_unpack_cols` for a quantized layout:
+    ``handle_quant(ci, dtype name)`` supplies a quantized column (still
+    encoded for an arena, or decoded for the relay). Validity lanes of
+    quantized columns still ride ``lane_cols``."""
+    out = []
+    pos = 0
+    for ci, (dt, nl, has_valid) in enumerate(qplan):
+        if isinstance(dt, str):
+            data = handle_quant(ci, dt.split(":", 1)[1])
+        else:
+            data = np_from_lanes(list(lane_cols[pos:pos + nl]), dt)
+            pos += nl
+        valid = None
+        if has_valid:
+            valid = lane_cols[pos].astype(np.bool_)
+            pos += 1
+        out.append((data, valid))
+    return out

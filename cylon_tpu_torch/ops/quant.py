@@ -34,8 +34,12 @@ fields, and :func:`gate_state` rides the lazy plan fingerprint.
 The codes are those of the JAX package's XLA forms, bit for bit:
 ``x / s * 126``, round half to even, clip, offset 128. The encode, the
 decode and the chunk max-abs are torch ops (XLA ops in the JAX package);
-the pack and compact kernels (B2, B3) move the codes. The JAX package's
-numpy mirrors serve its spill arena (ROADMAP.md A7) and are not here.
+the pack and compact kernels (B2, B3) move the codes. The numpy mirrors
+(:func:`np_encode_q8`, :func:`np_decode_q8`, :func:`np_maxabs`) serve the
+host crossings of parallel/spill.py: the skew relay decodes its q8 codes
+with them, and the spill arenas keep q8 codes and decode them at rebuild.
+They are the JAX package's numpy forms, bit for bit (the host decode
+divides by 126 where the device decode multiplies by the reciprocal).
 """
 from __future__ import annotations
 
@@ -238,3 +242,42 @@ def block_maxabs(data: torch.Tensor, live: Optional[torch.Tensor] = None) -> tor
     one column: a single block's scale."""
     mag = finite_magnitude(data, live)
     return mag.max() if mag.numel() else torch.zeros((), dtype=torch.float32, device=mag.device)
+
+
+# ----------------------------------------------------------------------
+# host (numpy) mirrors: the skew relay and the spill arenas of
+# parallel/spill.py decode staged q8 bytes with these, bit for bit the
+# JAX package's numpy forms
+# ----------------------------------------------------------------------
+
+def np_encode_q8(x: np.ndarray, scale: float) -> np.ndarray:
+    """uint8 q8 codes of a host column under one scalar scale."""
+    x32 = np.asarray(x, np.float32)
+    s = np.float32(scale if scale > 0 else 1.0)
+    with np.errstate(invalid="ignore", over="ignore"):
+        q = np.clip(np.round(x32 / s * np.float32(126.0)), -126.0, 126.0)
+        code = (q + np.float32(128.0)).astype(np.uint8)
+    code[np.isnan(x32)] = Q8_NAN
+    code[x32 == -np.inf] = Q8_NEG_INF
+    code[x32 == np.inf] = Q8_POS_INF
+    return code
+
+
+def np_decode_q8(code: np.ndarray, scale: float, np_dtype) -> np.ndarray:
+    """Inverse of :func:`np_encode_q8` in the numpy form ``(code - 128) /
+    126 * s``."""
+    s = np.float32(scale if scale > 0 else 1.0)
+    x = (code.astype(np.float32) - np.float32(128.0)) / np.float32(126.0) * s
+    x[code == Q8_NAN] = np.nan
+    x[code == Q8_NEG_INF] = -np.inf
+    x[code == Q8_POS_INF] = np.inf
+    return x.astype(np.dtype(np_dtype))
+
+
+def np_maxabs(x: np.ndarray) -> float:
+    """Finite max-abs of a host column (a re-encoded arena batch's scale),
+    by :func:`finite_magnitude`'s rule."""
+    x32 = np.asarray(x, np.float32)
+    if not x32.size:
+        return 0.0
+    return float(finite_magnitude(torch.from_numpy(np.ascontiguousarray(x32))).max())

@@ -92,6 +92,41 @@ def round_counts(counts: torch.Tensor, bucket_cap: int, round_idx: int) -> torch
     return (counts - round_idx * bucket_cap).clamp(0, bucket_cap)
 
 
+def relay_send_slots(
+    lane: torch.Tensor,
+    base: torch.Tensor,
+    relay_row: np.ndarray,
+    quota: int,
+    relay_cap: int,
+) -> torch.Tensor:
+    """int32 slot in the relay buffer of every row whose stable position
+    within its bucket is at or past the collective quota (the skew split's
+    tail, parallel/spill.plan_schedule); other rows (and dead rows, pid ==
+    P) get ``relay_cap``. Slots are destination-major, each bucket's rows
+    in their stable order, so the host splits a source's buffer into
+    per-destination runs with the planner's own relay counts.
+
+    ``lane`` is kernel B2a's pid lane and ``base`` ``[P, n_tiles]`` the
+    per-tile bucket starts of kernel B2b (``cuda_codec.scan_tiles``): a
+    row's position is its tile's start in its bucket plus its rank among
+    the tile's rows of that bucket. Only the buckets with relay rows
+    (``relay_row``: this source's [P] relay counts) are ranked."""
+    from ..ops.cuda_codec import TILE
+
+    n = lane.shape[0]
+    nt = base.shape[1]
+    dest = torch.full((n,), relay_cap, dtype=torch.int32, device=lane.device)
+    offs = np.concatenate([[0], np.cumsum(relay_row)])
+    for d in np.flatnonzero(relay_row):
+        hit = (lane == int(d)).to(torch.int32)
+        tiles = torch.nn.functional.pad(hit, (0, nt * TILE - n)).view(nt, TILE)
+        rank = torch.cumsum(tiles, 1, dtype=torch.int32) - tiles
+        pos = (rank + base[int(d)].view(nt, 1)).view(-1)[:n]
+        ok = (hit != 0) & (pos >= quota)
+        dest = torch.where(ok, pos - quota + int(offs[d]), dest)
+    return dest
+
+
 # ----------------------------------------------------------------------
 # round planning (the byte budget, config.py)
 # ----------------------------------------------------------------------

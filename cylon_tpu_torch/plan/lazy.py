@@ -22,6 +22,7 @@ from ..engine import PlanEntry, plan_executable
 from ..ops import sketch as _sketch
 from ..ops import quant as _quant
 from ..ops import stats as _stats
+from ..parallel import spill as _spill
 from ..table import _not_ported
 from ..utils.tracing import bump, report
 from . import lower as _lower
@@ -38,7 +39,10 @@ def _as_list(x) -> List[str]:
 
 #: counter families of the engine's adaptive decisions, attributable to the
 #: plan node whose execution made them
-GATE_PREFIXES = ("ordering.", "shuffle.semi_filter.", "lane_pack.", "plan.cache.")
+GATE_PREFIXES = ("ordering.", "shuffle.semi_filter.", "lane_pack.", "plan.cache.",
+                 # the spill planner's decisions: skew-split relays, spilled
+                 # shuffles and their staged rounds
+                 "shuffle.skew_split", "shuffle.spill.shuffles", "shuffle.spill.staged_rounds")
 
 
 def gate_report() -> Dict[str, Dict[str, float]]:
@@ -51,13 +55,14 @@ def gate_report() -> Dict[str, Dict[str, float]]:
 
 def gated_fingerprint(plan: Node) -> tuple:
     """The executable identity of a plan: its structural fingerprint and
-    the ordering, semi-filter, lane-packing and quantized-wire gates,
+    the ordering, semi-filter, lane-packing, quantized-wire and spill gates
+    (the forced spill tier and the skew split, ``spill.gate_state``),
     which decide which rewrites fire and which paths the lowered ops take,
     so a gate flip re-optimizes instead of reusing an executor built under
-    the other state. The JAX package adds the gates of tiers the port has
-    not ported (topo, spill: A6, A7) and a feedback component (A9)."""
+    the other state. The JAX package adds the gate of the topology tier
+    (A6) and a feedback component (A9)."""
     return (plan.fingerprint(), _ord.enabled(), _sketch.enabled(), _stats.enabled(),
-            _quant.gate_state())
+            _quant.gate_state(), _spill.gate_state())
 
 
 def _normalize_aggs(agg: Dict[str, TUnion[str, Sequence[str]]]) -> List[Tuple[str, str]]:

@@ -51,6 +51,7 @@ from .dtypes import (
     DataType, Type, numpy_dtype, promote_concat_dtypes, promote_key_dtypes, torch_dtype,
 )
 from .engine import round_cap, shard_caps
+from .fault.errors import CylonError, SpillIOError
 from .ops import cuda_codec as _codec
 from .ops import groupby as _g
 from .ops import join as _j
@@ -62,7 +63,7 @@ from .ops import sketch as _sketch
 from .ops import sort as _sort_mod
 from .ops import stats as _st
 from .ops.gather import (
-    KeyCol, pack_gather, wire_bases, wire_has_quant, wire_lane_plan, wire_plan,
+    KeyCol, lane_plan, pack_gather, wire_bases, wire_has_quant, wire_lane_plan, wire_plan,
     wire_q8_cols, wire_row_bytes,
 )
 from .ops.hash import hash_dictionary_host
@@ -70,6 +71,7 @@ from .ops.sort import lexsort_rows_payload, orderable_key, prefix_run_lane
 from .ops.partition import _saturating_int
 from .ordering import Ordering
 from .parallel import shuffle as _sh
+from .parallel import spill as _spill
 from .utils.tracing import bump, gauge, span
 
 Encoded = Tuple[np.ndarray, Optional[np.ndarray], Any, Optional[np.ndarray]]
@@ -2476,10 +2478,14 @@ def _shuffle_state(spec: _ShuffleSpec) -> dict:
         meas += [_st.stat_words(flat[s][ci]) for ci in stat_cols]
         sh["meas"] = torch.cat(meas)
         shards[s] = sh
+    # the relay and the spill arenas cross the host with the 'q8' columns
+    # of the signature only (qb16 and qf32 are wire-only)
+    relay_qsig = tuple(c if c == "q8" else None for c in quant_sig)
     return {
         "spec": spec, "t": t, "ctx": t.ctx, "world": world, "local": local, "flat": flat,
         "ref": ref, "row_bytes": _sh.exchange_row_bytes(ref), "stat_cols": stat_cols,
-        "quant_sig": quant_sig, "shards": shards,
+        "quant_sig": quant_sig, "shards": shards, "plan": lane_plan(ref),
+        "relay_qsig": relay_qsig if any(relay_qsig) else None,
     }
 
 
@@ -2508,14 +2514,30 @@ def _count_phase(st: dict) -> None:
 
 
 def _plan_state(st: dict) -> None:
-    """The round plan of one table, and the two plan-aware gates.
+    """The schedule of one table, in the JAX package's order:
 
-    Semi filter: shipped bytes are rounds x W x bucket_cap x row bytes
-    however full the buffers are, so the filter applies only where the
-    filtered counts give a strictly cheaper plan (``cap_f * k_f < cap_u *
-    k_u``). Wire narrowing: the narrowed rows apply only where their plan
-    ships strictly fewer bytes. The JAX package's skew split (A7) would
-    re-plan through ``plan_schedule``; without it that is ``plan_rounds``."""
+    1. the semi filter's plan-aware gate: shipped bytes are rounds x W x
+       bucket_cap x row bytes however full the buffers are, so the filter
+       applies only where the filtered counts give a strictly cheaper
+       ``plan_rounds`` plan (``cap_f * k_f < cap_u * k_u``);
+    2. the skew split (``spill.plan_schedule``): a non-skewed matrix keeps
+       ``plan_rounds``' plan; where a bucket is over 4x the mean, the rounds
+       are sized for the cold buckets and each heavy bucket's rows past
+       the quota ``K * bucket_cap`` go through the host relay;
+    3. the wire gate: the narrowed rows are re-planned through
+       ``plan_schedule`` at their row bytes and apply only where their
+       schedule ships strictly fewer bytes, a relayed row costing
+       ``RELAY_COST_FACTOR`` x its plain row bytes either way;
+    4. the spill tier (``spill.choose_tier``, from the staged bytes of the
+       fullest shard) and, past tier 0, the engine's arena sink, with the
+       q8 columns of the quantized tier held as codes;
+    5. the analytic peak device bytes of a shard (the
+       ``shuffle.spill.peak_device_bytes`` gauge): its input rows, a
+       round's send and receive buffers, the compacted round outputs held
+       on the device (every round at tier 0, at most two when spilled) and
+       its relay extraction, at the plain row bytes. The port's buffers are
+       exact-length, so the value departs from the JAX package's, which
+       counts padded capacities."""
     w = st["world"]
     budget = int(st["spec"].byte_budget or st["ctx"].shuffle_byte_budget)
     row_bytes = st["row_bytes"]
@@ -2530,13 +2552,13 @@ def _plan_state(st: dict) -> None:
         if st["use_filter"]:
             bump("shuffle.semi_filter.applied")
             bump("shuffle.semi_filter.pruned_rows", rows=tot_u - tot_f)
-            st["send_counts"], (cap, k) = filt, (cap_f, k_f)
+            st["send_counts"] = filt
         else:
             bump("shuffle.semi_filter.gate_skipped")
-            st["send_counts"], (cap, k) = unf, (cap_u, k_u)
+            st["send_counts"] = unf
     else:
         st["send_counts"] = st["counts_u"]
-        cap, k = _sh.plan_rounds(st["send_counts"], row_bytes, w, budget)
+    sched = _spill.plan_schedule(st["send_counts"], row_bytes, w, budget)
     st["wire"] = st["bases"] = None
     if st["col_stats"] or any(c is not None for c in st["quant_sig"]):
         stats_list: List[Optional[Tuple[str, int]]] = [None] * len(st["ref"])
@@ -2545,13 +2567,14 @@ def _plan_state(st: dict) -> None:
         wplan = wire_plan(wire_lane_plan(st["ref"]), stats_list, quant=st["quant_sig"])
         if wplan is not None:
             rb_w = wire_row_bytes(wplan)
-            cap_w, k_w = _sh.plan_rounds(st["send_counts"], rb_w, w, budget)
-            total_wire = k_w * w * w * cap_w * rb_w
-            total_plain = k * w * w * cap * row_bytes
+            sched_w = _spill.plan_schedule(st["send_counts"], rb_w, w, budget)
+            relay_rb = _spill.RELAY_COST_FACTOR * row_bytes
+            total_wire = sched_w.coll_row_slots(w) * rb_w + sched_w.relay_rows() * relay_rb
+            total_plain = sched.coll_row_slots(w) * row_bytes + sched.relay_rows() * relay_rb
             if total_wire < total_plain:
                 st["wire"] = wplan
                 st["bases"] = wire_bases(wplan, st["col_stats"])
-                cap, k = cap_w, k_w
+                sched = sched_w
                 bump("lane_pack.wire.applied")
                 bump("lane_pack.wire.bytes_saved", rows=int(total_plain - total_wire))
                 gauge("lane_pack.wire.row_bytes_ratio", rb_w / max(row_bytes, 1))
@@ -2564,11 +2587,38 @@ def _plan_state(st: dict) -> None:
                 bump("lane_pack.wire.gate_skipped")
                 if wire_has_quant(wplan):
                     bump("shuffle.quant.gate_skipped")
-    st["bucket_cap"], st["n_rounds"] = cap, k
-    # shipped bytes: K rounds x W^2 bucket blocks x the (narrowed) row bytes
+    st["sched"] = sched
+    st["bucket_cap"], st["n_rounds"] = bc, k = sched.bucket_cap, sched.n_rounds
+    # shipped bytes: K rounds x W^2 bucket blocks x the (narrowed) row
+    # bytes, and the relay's rows at their plain row bytes
     rb_eff = row_bytes if st["wire"] is None else wire_row_bytes(st["wire"])
-    bump("shuffle.exchanged_bytes", rows=k * w * w * cap * int(rb_eff))
+    bump("shuffle.exchanged_bytes", rows=sched.coll_row_slots(w) * int(rb_eff))
+    if sched.adaptive:
+        bump("shuffle.spill.relay_bytes", rows=sched.relay_rows() * int(row_bytes))
+    st["new_counts"] = st["send_counts"].sum(axis=0).astype(np.int64)
     bump("shuffle.rounds", rows=k)
+
+    tier = _spill.choose_tier(int(st["new_counts"].max()) * row_bytes)
+    st["sink"] = None
+    if tier != _spill.TIER_HBM:
+        bump("shuffle.spill.shuffles")
+        gauge("shuffle.spill.tier", tier)
+        qsig, names = st["relay_qsig"], st["t"].column_names
+        quant_map, schema = {}, []
+        for ci, (dt, _nl, has_valid) in enumerate(st["plan"]):
+            ndt = numpy_dtype(dt)
+            if qsig is not None and qsig[ci] == "q8":
+                quant_map[ci], ndt = ndt, np.dtype(np.uint8)
+            schema.append((names[ci], ndt, has_valid))
+        st["sink"] = _spill.ShardArenaSink(
+            w, schema, _spill.TIER_DISK if tier == _spill.TIER_DISK else _spill.TIER_HOST,
+            quant=quant_map or None)
+    nh = _sh.wire_header_rows(st["wire"]) if st["wire"] is not None else _sh.HEADER_ROWS
+    staged_rounds = k if tier == _spill.TIER_HBM else min(k, 2)
+    relay_out = int(sched.relay.sum(axis=1).max()) if sched.adaptive else 0
+    peak_rows = (int(st["t"]._counts.max()) + 2 * w * (bc + nh) + _sh.DROP_ROWS
+                 + staged_rounds * w * bc + relay_out)
+    st["dev_peak_bytes"] = peak_rows * row_bytes
 
 
 def _send_rows(st: dict, s: int) -> dict:
@@ -2595,24 +2645,37 @@ def _received_cols(st: dict, moved: torch.Tensor) -> List[KeyCol]:
 
 def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
     """The chunked shuffle engine (every Distributed* op funnels through
-    here), the JAX package's round structure with its two host syncs:
+    here), the JAX package's phases with its two host syncs:
 
     1. COUNT: kernel B2a per source shard (twice for a semi-filtered one:
        hash mode, then pid mode with the pruned rows at P), and the stat
        words of every statable column; ONE fetch per table of this
        process's rows of the [W, W] send-count matrices and the words,
        gathered from every rank, so that every rank plans alike;
-    2. PLAN: ``plan_rounds`` turns the counts, the row bytes and the byte
-       budget into ``bucket_cap`` and K rounds, with the semi-filter and
-       wire-narrowing gates (:func:`_plan_state`);
-    3. K ROUNDS of PACK (kernel B2b + the header-fused lane scatter),
-       COLLECTIVE (one all_to_all), COMPACT (kernel B3), with no host sync;
-       each round keeps its live rows, whose count the plan already knows;
-    4. ONE deferred fetch per table of every round's received counts,
+    2. PLAN (:func:`_plan_state`): the semi-filter gate, the schedule
+       (``spill.plan_schedule``: ``bucket_cap``, K rounds and, for skewed
+       counts, the relay matrix), the wire gate, the spill tier and the
+       analytic peak device bytes;
+    3. RELAY (a skewed schedule only): each source's rows past the quota
+       of a heavy bucket are extracted once (``spill.relay_extract``) and
+       start for the host before round 0, so the copy overlaps the rounds;
+    4. K ROUNDS of PACK (kernel B2b + the header-fused lane scatter),
+       COLLECTIVE (one all_to_all), COMPACT (kernel B3), with no host
+       sync; each round keeps its live rows, whose count the plan already
+       knows. Under tier 1 or 2 round r's output is decoded, packed and
+       copied to the host once round r+1 is dispatched, and lands in the
+       arenas before round r+2 is, so at most two staged outputs are ever
+       on the device;
+    5. ONE deferred fetch per table of every round's received counts,
        gathered from every rank and checked against the plan on every
-       rank (a mismatch is an internal routing bug, raised everywhere),
-       then each shard's rounds concatenated round-major and unpacked
-       (the wire-narrowed words decoded after B3).
+       rank (a mismatch is an internal routing bug, raised everywhere);
+       then the result: each shard's rounds in round order, then the rows
+       relayed to it in source order (``spill.fetch_relay``: regrouped on
+       the host by the communicator), or the arenas rebuilt on the device
+       (``spill.arena_result``) when spilled.
+
+    Failure domain: any exception of phases 3-5 closes every arena the
+    engine owns, and a raw ``OSError`` leaves as ``SpillIOError``.
     """
     states = [_shuffle_state(s) for s in specs]
     for st in states:
@@ -2621,11 +2684,55 @@ def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
         st["send"] = {s: _send_rows(st, s) for s in st["local"]}
         st["rounds_out"] = {s: [] for s in st["local"]}
         st["recv"] = []
+        st["prev"] = st["pending"] = None
+    gauge("shuffle.spill.peak_device_bytes", sum(st["dev_peak_bytes"] for st in states))
+    try:
+        return _shuffle_many_rounds(states)
+    except BaseException as e:
+        for st in states:
+            if st["sink"] is not None:
+                st["sink"].close()
+        if isinstance(e, OSError) and not isinstance(e, CylonError):
+            raise SpillIOError("spilled shuffle failed", e) from e
+        raise
+
+
+def _stage_round(st: dict) -> None:
+    """Tier 1/2: land the round whose copy is in flight, then start the copy
+    of the round kept in ``st["prev"]`` (its received lane matrices)."""
+    if st["pending"] is not None:
+        st["pending"].land()
+        st["pending"] = None
+    if st["prev"] is not None:
+        moved, expect = st["prev"]
+        st["prev"] = None
+        cols = {d: _received_cols(st, m) for d, m in moved.items()}
+        st["pending"] = _spill.stage_table(st["sink"], st["plan"], cols, expect, st["row_bytes"],
+                                           qspec=st["relay_qsig"])
+
+
+def _shuffle_many_rounds(states: List[dict]) -> List[Table]:
+    """Phases 3-5 of :func:`_shuffle_many`: the relay extraction, the round
+    loop, the deferred fetch and the result."""
+    for st in states:
+        sched = st["sched"]
+        if sched.adaptive:
+            with span("shuffle.round.relay", rows=sched.relay_rows()):
+                st["relay_copies"] = {
+                    s: _spill.relay_extract(st["flat"][s], st["send"][s]["lane"],
+                                            st["send"][s]["base"], sched.relay[s], sched.quota,
+                                            qspec=st["relay_qsig"])
+                    for s in st["local"]
+                }
 
     for r in range(max(st["n_rounds"] for st in states)):
         for st in states:
             if r >= st["n_rounds"]:
                 continue
+            spilled = st["sink"] is not None
+            if spilled and st["pending"] is not None:
+                st["pending"].land()  # round r-2 leaves the device
+                st["pending"] = None
             w, bc, wplan = st["world"], st["bucket_cap"], st["wire"]
             nh = _sh.wire_header_rows(wplan) if wplan is not None else _sh.HEADER_ROWS
             bufs = []
@@ -2640,12 +2747,24 @@ def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
                                                  n_header=nh))
             got = _sh.exchange_buffer(st["ctx"].comm, bufs)
             expect = _expected_received(st["send_counts"], bc, r)
+            fresh = {}
             for d, g in zip(st["local"], got):
                 recv = _sh.header_counts(g, w)
                 moved = _codec.compact_move(_sh.with_scale_lanes(g, wplan, w, nh), recv, w, bc,
                                             n_header=nh)
-                st["rounds_out"][d].append(moved[: int(expect[d])])
+                fresh[d] = moved[: int(expect[d])]
                 st["recv"].append(recv.to(st["ctx"].device, copy=True))
+            if spilled:
+                st["fresh"] = (fresh, expect)
+            else:
+                for d, m in fresh.items():
+                    st["rounds_out"][d].append(m)
+        # after every table's round-r dispatch: round r-1 starts for the host
+        for st in states:
+            fresh = st.pop("fresh", None)
+            if fresh is not None:
+                _stage_round(st)
+                st["prev"] = fresh
 
     results = []
     for st in states:
@@ -2662,16 +2781,34 @@ def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
                     f"expected {expect}: internal routing bug"
                 )
         t = st["t"]
+        spilled = st["sink"] is not None
+        if spilled:  # flush the staging window
+            _stage_round(st)
+            _stage_round(st)
+        per_dst = None
+        if st["sched"].adaptive:
+            per_dst, rcounts = _spill.fetch_relay(
+                st["ctx"].comm, st["plan"], st["relay_copies"], st["sched"].relay, local,
+                qspec=st["relay_qsig"])
+            st["relay_copies"] = None
+            if spilled:
+                st["sink"].accept(per_dst, rcounts)
+        if spilled:
+            res = _spill.arena_result(st["sink"], t, counts=st["new_counts"])
+            st["sink"] = None
+            res = t._with_shards(res._shards, res._counts)
+        else:
+            def received(d, st=st, t=t):
+                parts = st["rounds_out"][d]
+                moved = parts[0] if len(parts) == 1 else torch.cat(parts)
+                cols: Shard = OrderedDict()
+                for (name, c), (data, valid) in zip(t._shards[d].items(), _received_cols(st, moved)):
+                    cols[name] = Column(data, c.dtype, valid, c.dictionary)
+                return cols
 
-        def received(d, st=st, t=t):
-            parts = st["rounds_out"][d]
-            moved = parts[0] if len(parts) == 1 else torch.cat(parts)
-            cols: Shard = OrderedDict()
-            for (name, c), (data, valid) in zip(t._shards[d].items(), _received_cols(st, moved)):
-                cols[name] = Column(data, c.dtype, valid, c.dictionary)
-            return cols
-
-        res = t._with_shards(_per_shard(st["ctx"], received), sum(expect_all))
+            res = t._with_shards(_per_shard(st["ctx"], received), sum(expect_all))
+            if per_dst is not None:
+                res = _concat_tables([res, _spill.shards_to_table(t, per_dst, rcounts)])
         # the shuffle moves rows, not values: the measured bounds hold
         names = t.column_names
         results.append(res._attach_stats({names[ci]: v for ci, v in st["col_stats"].items()}))

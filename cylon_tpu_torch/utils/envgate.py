@@ -9,8 +9,10 @@ of the port reads ``os.environ`` outside this file, except the
 ``torchrun`` variables of ``config.py`` (WORLD_SIZE, RANK, LOCAL_RANK),
 which belong to torch's launcher, not to the port.
 
-The port registers only the knobs of features it has. Knobs of tiers it has
-not ported join with their items (ROADMAP.md A6, A7, A9); the JAX package's
+The port registers only the knobs of features it has: the shuffle tiers,
+the skew split and the spill tiers (parallel/spill.py), the spill fault
+seams (fault/inject.py). Knobs of layers it has not ported join with their
+items (ROADMAP.md A6 topo, A7's out-of-core layers, A9); the JAX package's
 knobs that choose between its XLA and Pallas tiers or configure XLA have no
 counterpart (ROADMAP.md A5).
 """
@@ -29,6 +31,9 @@ KINDS = {
     # host-resolved value that decides a plan per call (which wire fields a
     # shuffle ships); it reaches the device through that plan
     "dispatch": "host-resolved plan choice; rides the per-call plan and the fingerprint",
+    # alters which host code paths raise (fault injection), never a plan
+    # or a result where it does not fire
+    "observability": "host-only reads; never a plan, a cache key or a result",
 }
 
 REGISTRY: Dict[str, "EnvKnob"] = {}
@@ -102,7 +107,8 @@ def env_gate(var: str, keyed_via: str = "", note: str = ""):
 # knob declarations (the kill switches are declared at their consumers:
 # CYLON_TPU_TORCH_NO_ORDERING in ordering.py, CYLON_TPU_TORCH_NO_SEMI_FILTER
 # in ops/sketch.py, CYLON_TPU_TORCH_NO_LANE_PACK in ops/stats.py,
-# CYLON_TPU_TORCH_NO_QUANT in ops/quant.py)
+# CYLON_TPU_TORCH_NO_QUANT in ops/quant.py, CYLON_TPU_TORCH_NO_SKEW_SPLIT in
+# parallel/spill.py)
 # ----------------------------------------------------------------------
 SHUFFLE_BUDGET = EnvKnob(
     "CYLON_TPU_TORCH_SHUFFLE_BUDGET", "", kind="tuning",
@@ -119,4 +125,41 @@ QUANT_TOL = EnvKnob(
     note="lossy-wire tolerance (ops/quant.py): float payload columns ride "
     "q8/qb16/qf32 wire fields at or above their thresholds; the context's "
     "quant_tol config wins, an explicit 0 included",
+)
+
+# -- spill tiers (parallel/spill.py; the JAX package's CYLON_TPU_SPILL_*) --
+SPILL_TIER = EnvKnob(
+    "CYLON_TPU_TORCH_SPILL_TIER", "", kind="dispatch",
+    keyed_via="host-side tier selection between the in-device round path and "
+    "the arena staging path; the forced tier rides the plan fingerprint "
+    "(spill.gate_state in plan/lazy.gated_fingerprint)",
+    note="force the spill tier: 0=device rounds, 1=host-RAM arenas, "
+    "2=disk-backed arenas; empty = decide from the measured counts",
+)
+SPILL_DEVICE_BUDGET = EnvKnob(
+    "CYLON_TPU_TORCH_SPILL_DEVICE_BUDGET", "", kind="tuning",
+    note="per-shard staged-output bytes above which shuffle rounds spill "
+    "off-device (unset = never, tier 0 unless forced)",
+)
+SPILL_HOST_BUDGET = EnvKnob(
+    "CYLON_TPU_TORCH_SPILL_HOST_BUDGET", "", kind="tuning",
+    note="total live host-arena bytes above which arena growth promotes to "
+    "disk-backed buffers (tier 1 -> tier 2)",
+)
+SPILL_DIR = EnvKnob(
+    "CYLON_TPU_TORCH_SPILL_DIR", "", kind="tuning",
+    note="directory for tier-2 disk-spill arenas (default: a tempdir)",
+)
+SPILL_RETRIES = EnvKnob(
+    "CYLON_TPU_TORCH_SPILL_RETRIES", "2", kind="tuning",
+    note="bounded-backoff retries for a failed spill arena write or read "
+    "before the degradation ladder re-plans onto the host-RAM tier (or fails "
+    "the one query with SpillIOError)",
+)
+FAULTS = EnvKnob(
+    "CYLON_TPU_TORCH_FAULTS", "", kind="observability",
+    note="deterministic fault-injection spec (fault/inject.py): "
+    "comma-separated 'seam[:p=0.05][:kind=ENOSPC][:n=3][:seed=7]' clauses "
+    "arming spill.write/spill.read/arena.alloc; read at import and at "
+    "fault.inject.refresh()",
 )

@@ -32,7 +32,7 @@ if os.path.dirname(HERE) not in sys.path:
 import cylon_tpu_torch as ctt  # noqa: E402
 from cylon_tpu_torch.column import Column  # noqa: E402
 from cylon_tpu_torch.ops import pk_join  # noqa: E402
-from cylon_tpu_torch.parallel import shuffle as _sh  # noqa: E402
+from cylon_tpu_torch.parallel import spill as _spill  # noqa: E402
 
 SEED = 7
 AGG_COMBINE = {"v": "sum", "a": "min", "w": "max"}          # pre-combined per shard
@@ -349,10 +349,38 @@ def case_fused(env):
     return {"inner": j, "outer_sliced": o, "host_syncs": syncs}
 
 
+def case_skew8(env):
+    """A one-hot shuffle and a skewed join at world 8, where the skew split
+    engages: each rank's hot-bucket tail crosses the host relay, one host
+    all_to_all over gloo, and lands on its owner rank; the join again
+    under tier 1, each rank's rounds and relayed rows into its arena."""
+    from cylon_tpu_torch.utils import tracing
+
+    n = 4096
+    t = ctt.Table.from_encoded(env.context, port_encode(
+        {"k": np.zeros(n, np.int32), "v": np.arange(n, dtype=np.float32)}))
+    rng = np.random.default_rng(SEED + 13)
+    k = np.where(rng.random(n) < 0.5, 3, rng.integers(0, 500, n)).astype(np.int32)
+    a = ctt.Table.from_encoded(env.context, port_encode({"k": k, "v": rng.normal(size=n)}))
+    b = ctt.Table.from_encoded(env.context, port_encode(
+        {"k": rng.integers(0, 500, 300).astype(np.int32), "w": rng.normal(size=300)}))
+    before = tracing.get_count("shuffle.skew_split")
+    out = {"shuffle": t.shuffle(["k"]), "join": a.distributed_join(b, on="k")}
+    os.environ["CYLON_TPU_TORCH_SPILL_TIER"] = "1"  # each rank stages its shard in host arenas
+    try:
+        out["join_tier1"] = a.distributed_join(b, on="k")
+    finally:
+        del os.environ["CYLON_TPU_TORCH_SPILL_TIER"]
+    out["relays"] = tracing.get_count("shuffle.skew_split") - before
+    return out
+
+
 PORT = OrderedDict([("pk", case_pk), ("ingest", case_ingest), ("env", case_env),
                     ("frame", case_frame), ("surface", case_surface), ("lazy", case_lazy),
                     ("semi", case_semi), ("fused", case_fused)])
 CASES = list(SHARED) + list(PORT)
+#: cases run only where a test names them (their own world)
+EXTRA = OrderedDict([("skew8", case_skew8)])
 
 
 # ----------------------------------------------------------------------
@@ -379,25 +407,28 @@ def record(value, shards):
 
 def run_cases(env, names=CASES):
     """{case: {output: record}} on this process's shards, with each case's
-    shuffle plans."""
+    shuffle plans: the (bucket_cap, rounds) of every schedule the planner
+    makes (``spill.plan_schedule``; the skew split's cold-bucket plan is
+    one ``plan_rounds`` call more inside it)."""
     ctx = env.context
     out = OrderedDict()
-    orig = _sh.plan_rounds
+    orig = _spill.plan_schedule
     for name in names:
         plans = []
 
         def rec(*args, **kw):
-            plans.append(orig(*args, **kw))
-            return plans[-1]
+            sched = orig(*args, **kw)
+            plans.append((sched.bucket_cap, sched.n_rounds))
+            return sched
 
-        _sh.plan_rounds = rec
+        _spill.plan_schedule = rec
         try:
             if name in SHARED:
                 got = SHARED[name](ctt.Table, ctx, port_encode)
             else:
-                got = PORT[name](env)
+                got = (PORT.get(name) or EXTRA[name])(env)
         finally:
-            _sh.plan_rounds = orig
+            _spill.plan_schedule = orig
         out[name] = {k: record(v, ctx.local_shards) for k, v in got.items()}
         out[name]["__plans__"] = plans
     return out

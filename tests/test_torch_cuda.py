@@ -737,3 +737,61 @@ def test_fused_join_world4_on_card_matches_cpu(dev, how, quant_tol):
         outs.append([_shard_dump(t) for t in res])
     for a, b in zip(*outs):
         _dumps_equal(a, b)
+
+
+@pytest.mark.parametrize("tier", ["0", "1", "2"])
+@pytest.mark.parametrize("quant_tol", ["", "0.01"])
+def test_skew_relay_and_spill_tiers_on_card_match_cpu(dev, tmp_path, monkeypatch, tier, quant_tol):
+    """A one-hot shuffle and a skewed join at world 8 (the skew split
+    relays each hot tail through the host: pinned buffers on a side
+    stream), at several rounds, staged through each spill tier, on the
+    card against the CPU, shard by shard, with the same counters; a
+    quantized relay (float64 payload, q8) too."""
+    from cylon_tpu_torch.parallel import spill
+    from cylon_tpu_torch.utils import tracing
+
+    monkeypatch.setenv("CYLON_TPU_TORCH_SPILL_TIER", tier)
+    monkeypatch.setenv("CYLON_TPU_TORCH_SPILL_DIR", str(tmp_path))
+    rng = np.random.default_rng(12)
+    n = 200_000
+    one_hot = {"k": np.zeros(n, np.int32), "v": np.arange(n, dtype=np.float32)}
+    k = np.where(rng.random(n) < 0.5, 3, rng.integers(0, 5000, n)).astype(np.int32)
+    left = {"k": k, "v": rng.normal(size=n)}
+    right = {"k": rng.integers(0, 5000, 3000).astype(np.int32), "w": rng.normal(size=3000)}
+    outs, counts = [], []
+    for device in (dev, "cpu"):
+        ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=device, world_size=8))
+        ctx.add_config("quant_tol", quant_tol)
+        ctx.add_config("shuffle_byte_budget", str(8 * 4096 * 8))
+        tracing.reset_trace()
+        t = ctt.Table.from_pydict(ctx, one_hot)
+        tl, tr = ctt.Table.from_pydict(ctx, left), ctt.Table.from_pydict(ctx, right)
+        res = [t.shuffle(["k"]), tl.distributed_join(tr, on="k")]
+        outs.append([_shard_dump(x) for x in res])
+        counts.append({k: (v["count"], v["rows"]) for k, v in tracing.report("shuffle.").items()
+                       if k in ("shuffle.skew_split", "shuffle.spill.relay_bytes", "shuffle.rounds",
+                                "shuffle.spill.staged_rounds", "shuffle.quant.relay_bytes_saved")})
+    for a, b in zip(*outs):
+        _dumps_equal(a, b)
+    assert counts[0] == counts[1] and counts[0]["shuffle.skew_split"][0] == 2
+    assert ("shuffle.spill.staged_rounds" in counts[0]) == (tier != "0")
+    assert ("shuffle.quant.relay_bytes_saved" in counts[0]) == (quant_tol != "")
+    assert spill.arena_bytes()[0] == 0
+
+
+def test_relay_send_slots_on_card_match_cpu(dev):
+    """The relay slots over B2a's lane and B2b's bases on the card equal
+    the CPU's, past several tiles."""
+    from cylon_tpu_torch.parallel import shuffle as sh
+
+    rng = np.random.default_rng(4)
+    n, P = 300_001, 8
+    pid = torch.from_numpy(np.where(rng.random(n) < 0.6, 2, rng.integers(0, P, n)).astype(np.int32))
+    got = []
+    for device in (dev, "cpu"):
+        lane, hist = cuda_codec.pack_hist(None, None, (), n, P, pid=pid.to(device))
+        cnt = hist.sum(1).cpu().numpy()
+        relay = np.maximum(cnt - 1000, 0)
+        got.append(sh.relay_send_slots(lane, cuda_codec.scan_tiles(hist), relay, 1000,
+                                       int(relay.sum())).cpu())
+    assert torch.equal(got[0], got[1])

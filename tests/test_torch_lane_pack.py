@@ -1,9 +1,9 @@
 """The port's knob registry (utils/envgate.py) and lane packing (ops/stats.py,
 the sort-word and canonical-lane fusion of ops/sort.py, the wire codec of
 ops/gather.py) against the JAX package's, on the CPU, both packages at
-their defaults for lane packing and the semi filter; the JAX side keeps
-``CYLON_TPU_NO_QUANT``, ``NO_TOPO``, ``NO_SKEW_SPLIT`` and
-``NO_AUTOTUNE`` at 1 (tests/test_torch_semi_filter.py).
+their defaults for lane packing, the semi filter and the skew split; the
+JAX side keeps ``CYLON_TPU_NO_QUANT``, ``NO_TOPO`` and ``NO_AUTOTUNE`` at 1
+(tests/test_torch_semi_filter.py).
 
 Bit layouts round-trip and equal the JAX package's words; ``FusePlan`` and
 ``WirePlan`` equal its plans on the same schemas and stats; sort, groupby,
@@ -50,10 +50,20 @@ def test_registry_holds_the_ports_knobs_and_only_those():
         "CYLON_TPU_TORCH_NO_ORDERING", "CYLON_TPU_TORCH_NO_SEMI_FILTER",
         "CYLON_TPU_TORCH_NO_LANE_PACK", "CYLON_TPU_TORCH_SHUFFLE_BUDGET",
         "CYLON_TPU_TORCH_SKETCH_BITS", "CYLON_TPU_TORCH_NO_QUANT", "CYLON_TPU_TORCH_QUANT_TOL",
+        "CYLON_TPU_TORCH_NO_SKEW_SPLIT", "CYLON_TPU_TORCH_SPILL_TIER",
+        "CYLON_TPU_TORCH_SPILL_DEVICE_BUDGET", "CYLON_TPU_TORCH_SPILL_HOST_BUDGET",
+        "CYLON_TPU_TORCH_SPILL_DIR", "CYLON_TPU_TORCH_SPILL_RETRIES", "CYLON_TPU_TORCH_FAULTS",
     }
     kinds = {k: v.kind for k, v in envgate.REGISTRY.items()}
     assert kinds["CYLON_TPU_TORCH_SHUFFLE_BUDGET"] == kinds["CYLON_TPU_TORCH_SKETCH_BITS"] == "tuning"
     assert kinds["CYLON_TPU_TORCH_QUANT_TOL"] == "dispatch"
+    # the spill knobs take their JAX counterparts' kinds and defaults
+    from cylon_tpu.utils import envgate as jenv
+
+    for name in ("SPILL_TIER", "SPILL_DEVICE_BUDGET", "SPILL_HOST_BUDGET", "SPILL_DIR",
+                 "SPILL_RETRIES", "FAULTS", "NO_SKEW_SPLIT"):
+        mine, ref = envgate.REGISTRY["CYLON_TPU_TORCH_" + name], jenv.REGISTRY["CYLON_TPU_" + name]
+        assert (mine.kind, mine.default) == (ref.kind, ref.default), name
     assert all(v.note or v.keyed_via for v in envgate.REGISTRY.values())
     with pytest.raises(ValueError):
         envgate.EnvKnob("CYLON_TPU_NO_RADIX")  # not the port's prefix

@@ -166,6 +166,27 @@ def test_rank_shard_equals_jax_mesh_shard(runs, ref_env, world, case):
                                                    check_exact=True, obj=f"{key}.{c}")
 
 
+def test_world8_skew_relay_rank_equals_local_shard(tmp_path, monkeypatch):
+    """Eight gloo ranks, a one-hot shuffle and a skewed join (again under
+    tier 1): the skew split engages on every rank, the relayed tails cross
+    one host all_to_all, and rank d's shard equals shard d of one process
+    bit for bit, in row order."""
+    for k in W.PORT_NO_TIERS:
+        monkeypatch.setenv(k, "1")
+    codes, logs, _s = W.run_ranks(tmp_path, 8, cases=["skew8"], limit=LIMIT_S)
+    assert codes == [0] * 8, "\n".join(log[-2000:] for log in logs)
+    ranks = W.load_ranks(tmp_path, 8)
+    local = W.run_cases(ctt.CylonEnv(config=ctt.GPUConfig(device="cpu", world_size=8)),
+                        ["skew8"])["skew8"]
+    assert local["relays"] == 3
+    for r, res in enumerate(ranks):
+        got = res["skew8"]
+        assert got["__plans__"] == local["__plans__"] and got["relays"] == 3, r
+        for key in ("shuffle", "join", "join_tier1"):
+            W.record_equal(got[key], local[key], key, r)
+        W.record_equal(got["join_tier1"], local["join"], "tier 1 against tier 0", r)
+
+
 def test_a_failing_rank_fails_the_run_without_a_hang(tmp_path):
     """Rank 1 dies before the first collective: the run ends as soon as it
     exits, well inside the limit, and rank 0, blocked in that collective,
@@ -231,6 +252,13 @@ def test_dist_all_to_all_and_counts_match_local(dist_ctx):
     dist_ctx.barrier()
     with pytest.raises(ValueError, match="one shard"):
         comm.all_to_all([buf, buf])
+    # the skew relay's host regroup: one host all_to_all over gloo
+    rows = np.arange(21, dtype=np.int32).reshape(7, 3)
+    for relay in (np.array([[7]]), np.array([[0]])):
+        mats = {0: rows[: int(relay.sum())]}
+        got, want = comm.relay_exchange(mats, relay), local.relay_exchange(mats, relay)
+        assert list(got) == list(want) == [0]
+        W.same_bits(got[0], want[0], "relay_exchange")
 
 
 @pytest.mark.parametrize("kw,err,match", [

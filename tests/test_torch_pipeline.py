@@ -2,7 +2,7 @@
 ``DataFrame.merge(mode="fused")``) against the JAX package's, on the CPU.
 
 Both packages run their tiers at the defaults with the JAX side's
-unported ones off (``NO_TOPO``, ``NO_SKEW_SPLIT``, ``NO_AUTOTUNE``), on
+unported ones off (``NO_TOPO``, ``NO_AUTOTUNE``), the skew split on, on
 tables loaded from one host encoding, where the port's ``round_cap(max
 shard rows)`` equals the JAX package's ``shard_cap``: both pick the same
 ``bucket_cap`` and ``join_cap``. The fused joins are compared shard by
@@ -46,7 +46,7 @@ from test_torch_shuffle_slice import _contexts, _encode, _shard_frame, _shards_e
 
 torch.set_num_threads(1)
 
-UNPORTED = ("CYLON_TPU_NO_TOPO", "CYLON_TPU_NO_SKEW_SPLIT", "CYLON_TPU_NO_AUTOTUNE")
+UNPORTED = ("CYLON_TPU_NO_TOPO", "CYLON_TPU_NO_AUTOTUNE")
 TOL = 1e-2
 
 

@@ -39,7 +39,7 @@ from test_torch_shuffle_slice import _contexts, _shard_frame, _shards_equal
 torch.set_num_threads(1)
 
 REF_ENV = ("CYLON_TPU_NO_SEMI_FILTER", "CYLON_TPU_NO_LANE_PACK", "CYLON_TPU_NO_QUANT",
-           "CYLON_TPU_NO_TOPO", "CYLON_TPU_NO_SKEW_SPLIT", "CYLON_TPU_NO_AUTOTUNE",
+           "CYLON_TPU_NO_TOPO", "CYLON_TPU_NO_AUTOTUNE",
            "CYLON_TPU_TORCH_NO_SEMI_FILTER", "CYLON_TPU_TORCH_NO_LANE_PACK")
 
 

@@ -11,8 +11,8 @@ forms differ by at most one float32 rounding, far inside one q8 step
 
 At worlds 1 and 4 both packages run with ``CYLON_TPU_QUANT_TOL=1e-2`` and
 ``CYLON_TPU_TORCH_QUANT_TOL=1e-2``, lane packing at the default, the semi
-filter off, and the JAX side's unported tiers off (``NO_TOPO``,
-``NO_SKEW_SPLIT``, ``NO_AUTOTUNE``): the quantized ``distributed_join``,
+filter off, the skew split on in both packages, and the JAX side's
+unported tiers off (``NO_TOPO``, ``NO_AUTOTUNE``): the quantized ``distributed_join``,
 ``distributed_groupby`` sum and ``distributed_sort`` equal the JAX
 package's shard for shard and bit for bit, with the same
 ``shuffle.quant.*`` counters, and sit inside the reference's differential
@@ -44,7 +44,7 @@ TOL = 1e-2
 #: the JAX side's unported tiers, and both packages' semi filter, off
 #: (the filter prunes no row of these key ranges; off, the JAX side
 #: compiles no sketch programs)
-OFF = ("CYLON_TPU_NO_TOPO", "CYLON_TPU_NO_SKEW_SPLIT", "CYLON_TPU_NO_AUTOTUNE",
+OFF = ("CYLON_TPU_NO_TOPO", "CYLON_TPU_NO_AUTOTUNE",
        "CYLON_TPU_NO_SEMI_FILTER", "CYLON_TPU_TORCH_NO_SEMI_FILTER")
 CLEAR = ("CYLON_TPU_NO_QUANT", "CYLON_TPU_TORCH_NO_QUANT", "CYLON_TPU_NO_LANE_PACK",
          "CYLON_TPU_TORCH_NO_LANE_PACK", "CYLON_TPU_QUANT_TOL", "CYLON_TPU_TORCH_QUANT_TOL")

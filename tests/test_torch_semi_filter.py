@@ -1,9 +1,9 @@
 """The port's semi-join sketch filter (ops/sketch.py, table._pair_sketches,
 the shuffle's semi gate, the planner's ``semi_filter`` rule) against the
 JAX package's, on the CPU, both packages at their defaults for the semi
-filter and lane packing. The JAX side keeps the tiers the port has not
-ported off (``CYLON_TPU_NO_QUANT``, ``NO_TOPO``, ``NO_SKEW_SPLIT``,
-``NO_AUTOTUNE``).
+filter and lane packing, and the skew split on in both (its default). The
+JAX side keeps the tiers the port has not ported off (``CYLON_TPU_NO_TOPO``,
+``NO_AUTOTUNE``), and ``CYLON_TPU_NO_QUANT``.
 
 The sketch words are compared bit for bit: each side's local sketch
 (``build_local``), the combined sketch of a world (``combine_pair``; the
@@ -35,8 +35,7 @@ from test_torch_shuffle_slice import _contexts, _encode, _shards_equal
 torch.set_num_threads(1)
 
 #: the JAX package's tiers the port has not ported, off on its side
-UNPORTED = ("CYLON_TPU_NO_QUANT", "CYLON_TPU_NO_TOPO", "CYLON_TPU_NO_SKEW_SPLIT",
-            "CYLON_TPU_NO_AUTOTUNE")
+UNPORTED = ("CYLON_TPU_NO_QUANT", "CYLON_TPU_NO_TOPO", "CYLON_TPU_NO_AUTOTUNE")
 #: the two default-on tiers of both packages, left at their defaults
 TIERS = ("CYLON_TPU_NO_SEMI_FILTER", "CYLON_TPU_NO_LANE_PACK",
          "CYLON_TPU_TORCH_NO_SEMI_FILTER", "CYLON_TPU_TORCH_NO_LANE_PACK")

@@ -9,13 +9,12 @@ The murmur3 hash is the same in both packages, so every row lands on the
 same shard: outputs are compared shard by shard, the same rows in the same
 order, and so are ``row_counts``. The JAX side runs with its shuffle tiers
 switched off: ``CYLON_TPU_NO_SEMI_FILTER``, ``CYLON_TPU_NO_LANE_PACK``,
-``CYLON_TPU_NO_QUANT``, ``CYLON_TPU_NO_TOPO`` and
-``CYLON_TPU_NO_SKEW_SPLIT`` (the skew split would relay hot-key tails
-through the host and change the row order on a shard), and the port with
+``CYLON_TPU_NO_QUANT`` and ``CYLON_TPU_NO_TOPO``, and the port with
 its two, ``CYLON_TPU_TORCH_NO_SEMI_FILTER`` and
 ``CYLON_TPU_TORCH_NO_LANE_PACK``, so the comparison stays like for like
 (tests/test_torch_semi_filter.py and test_torch_lane_pack.py hold both
-packages with these tiers on). Its sort and emit
+packages with these tiers on); both run the skew split at its default
+(tests/test_torch_skew.py). Its sort and emit
 are the defaults, not the forced Pallas radix pass and windowed expand of
 tests/test_torch_slice.py: at world > 1 the forced configuration trips the
 reference fault recorded in ROADMAP.md C (an outer or null-key join whose
@@ -44,7 +43,7 @@ torch.set_num_threads(1)
 #: the port's kill switches of the same two tiers
 PORT_NO_TIERS = ("CYLON_TPU_TORCH_NO_SEMI_FILTER", "CYLON_TPU_TORCH_NO_LANE_PACK")
 NO_TIERS = ("CYLON_TPU_NO_SEMI_FILTER", "CYLON_TPU_NO_LANE_PACK", "CYLON_TPU_NO_QUANT",
-            "CYLON_TPU_NO_TOPO", "CYLON_TPU_NO_SKEW_SPLIT") + PORT_NO_TIERS
+            "CYLON_TPU_NO_TOPO") + PORT_NO_TIERS
 
 _CTX = {}
 
