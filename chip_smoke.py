@@ -128,6 +128,25 @@
             the join and of its left side's shuffle; equal shard for
             shard, and tier 1's gauge and measured shuffle peak below tier
             0's;
+   then the two-hop topology exchange (ROADMAP A6 topo), each call
+   beside the same call under ``topo.disabled()`` on the same context:
+     TOPO8_loc: tools/topo_smoke.py's locality shards at 8M rows a side
+            (80% of each shard's int32 keys hash to its own outer group,
+            by the port's murmur3 partition ids over arange(8M); float32
+            payloads; seeds 0 and 1) at world 8, declared 4x2 and 2x4:
+            shuffle(["k"]), distributed_join on k and the q3 join ->
+            groupby sum: ms, the per-axis bytes
+            (``shuffle.coll_bytes.{intra,inter,inter_alt}``), exchanged
+            bytes, rounds and cap_o; the rows equal the flat call's as
+            multisets a shard (the q3 sums within A's tolerance), and the
+            cross-outer bytes at most 0.75 of the flat exchange's;
+     TOPO8_ring: SKEW8_shuffle's one-hot table at 4x2 and 2x4: the
+            same-group relay tail on the device ring (``ring_rows``), the
+            rest through the host relay, beside the flat split plan; the
+            ring must engage and the rows equal the flat split's;
+     FUSED4_2x2: A4's join with mode="fused" on a 2x2 mesh (the
+            structured two-hop), equal shard for shard to the flat fused
+            join;
    then the torch.distributed backend, one process per shard:
      MP4: four processes of this script (``--mp4-worker``), each one rank
           of ``GPUConfig(coordinator_address=..., num_processes=4)``: gloo
@@ -138,7 +157,8 @@
           distributed_join -> distributed_groupby, distributed_sort("k"),
           distributed_union and distributed_unique(["k"]), the pallas_pk
           join -> groupby, and L4's lazy q3 (every rank optimizes the same
-          plan); it reports a sha256 of each output
+          plan), then A4 and S4 again on the same ranks declared as a
+          2x2 mesh (the inner and outer process groups); it reports a sha256 of each output
           column of its shard, its kernel launches and the median of 3
           barrier-synchronised calls on rank 0's clock. Rank d's digests
           must equal those of shard d of the same calls at world_size=4
@@ -149,7 +169,9 @@
    also on B4's largest received buffer whose rows are not a multiple of
    16 bytes; B2a in pid mode, B2b and B3 also on S4's range shuffle; B2a
    in pid mode also on SEMI4's filtered pid lane with its pruned rows at P;
-   B2b and B3 also on SKEW8_shuffle's cold-bucket round;
+   B2b and B3 also on SKEW8_shuffle's cold-bucket round; B3 on both parts
+   of TOPO8_loc's and TOPO8_ring's two-hop rounds, the same-group rows
+   [inner x bucket_cap] and the combined chunks [outer x (cap_o + 1)];
    K1 also on PACK's fused uint64 word), and
    times kernel, plain version and the one PyTorch call that computes the
    same function where there is one, beside each kernel's ptxas registers
@@ -322,23 +344,29 @@ def make_f():
     }
 
 
-def mp4_calls(ctt, ctx):
+def mp4_calls(ctt, ctx, ctx22):
     """Phase MP4's calls on a world-4 context, each returning its output
     tables: A4 (join -> groupby), S4 (distributed_sort), U4 (union and
     unique on k) and PK4 (the PK join -> groupby), on the data of those
-    workloads; every rank passes the same host data and stages its own
-    block."""
+    workloads; then A4 and S4 again on ``ctx22``, the same shards
+    declared as a 2x2 mesh (the two-hop exchange: the inner and outer
+    process groups, the ring's ``batch_isend_irecv``). Every rank passes
+    the same host data and stages its own block."""
     left, right, _rng = make_a()
     tl, tr = ctt.Table.from_pydict(ctx, left), ctt.Table.from_pydict(ctx, right)
+    t22_l, t22_r = ctt.Table.from_pydict(ctx22, left), ctt.Table.from_pydict(ctx22, right)
     tl2 = ctt.Table.from_pydict(ctx, make_left2())
     pk_left, pk_right = make_pk()
     pl, pr = ctt.Table.from_pydict(ctx, pk_left), ctt.Table.from_pydict(ctx, pk_right)
     sums = {"v": "sum", "w": "sum"}
     q3 = tl.lazy().join(tr.rename({"k": "rk"}).lazy(), left_on="k", right_on="rk")
 
-    def a4():
-        j = tl.distributed_join(tr, on="k", how="inner")
+    def a4_on(left_t, right_t):
+        j = left_t.distributed_join(right_t, on="k", how="inner")
         return {"join": j, "groupby": j.distributed_groupby("k_x", sums)}
+
+    def a4():
+        return a4_on(tl, tr)
 
     def pk4():
         j = pl.distributed_join(pr, on="k", how="inner", algorithm="pallas_pk")
@@ -351,6 +379,8 @@ def mp4_calls(ctt, ctx):
         "PK4": pk4,
         # workload L4's lazy q3: every rank optimizes the same plan
         "L4": lambda: {"q3_lazy": q3.groupby("k", {"v": "sum"}).collect()},
+        "A4_2x2": lambda: a4_on(t22_l, t22_r),
+        "S4_2x2": lambda: {"sort": t22_l.distributed_sort("k")},
     }
 
 
@@ -363,6 +393,9 @@ MP4_KERNELS = {
     "PK4": ("radix_lane_hist", "radix_onesweep", "pk_probe", "pack_hist", "pack_dest",
             "compact_move"),
     "L4": ("radix_lane_hist", "radix_onesweep", "pack_hist", "pack_dest", "compact_move"),
+    "A4_2x2": ("radix_lane_hist", "radix_onesweep", "expand_rows", "pack_hist", "pack_dest",
+               "compact_move"),
+    "S4_2x2": ("radix_lane_hist", "radix_onesweep", "pack_hist", "pack_dest", "compact_move"),
 }
 
 
@@ -468,9 +501,14 @@ def mp4_worker(rank: int, world: int, address: str, backend: str, out_dir: str) 
         backend=backend,
     ))
     ctx = env.context
+    # the same ranks as a 2x2 mesh, on the same process group
+    ctx22 = ctt.CylonContext.init_distributed(ctt.GPUConfig(
+        device=device, coordinator_address=address, num_processes=world, process_id=rank,
+        backend=backend, mesh_shape="2x2",
+    ))
     counters = (cuda_radix.LAUNCHES, cuda_gather.LAUNCHES, cuda_codec.LAUNCHES, cuda_probe.LAUNCHES)
     result = {"rank": env.rank, "device": device, "backend": backend, "ops": {}}
-    for op, call in mp4_calls(ctt, ctx).items():
+    for op, call in mp4_calls(ctt, ctx, ctx22).items():
         for d in counters:
             for k in d:
                 d[k] = 0
@@ -499,6 +537,7 @@ def mp4_worker(rank: int, world: int, address: str, backend: str, out_dir: str) 
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
     ctx.barrier()
+    ctx22.finalize()
     ctx.finalize()
 
 
@@ -557,7 +596,8 @@ def phase_mp4(ctt, ctx4) -> dict:
                       "rank_devices": [f"cuda:{r}" if backend == "nccl" else "cuda:0"
                                        for r in range(WORLD)]}))
     ref, single, tiers = {}, {}, {}
-    for op, call in mp4_calls(ctt, ctx4).items():
+    ctx22 = ctt.CylonContext.init_distributed(ctt.GPUConfig(world_size=WORLD, mesh_shape="2x2"))
+    for op, call in mp4_calls(ctt, ctx4, ctx22).items():
         pk_join.COUNTS["fallback"] = 0
         before = tier_counts(tracing)
         call()
@@ -691,9 +731,12 @@ def main(mp4_only: bool = False) -> None:
         return orig_dest(lane, base, round_idx, P, bc)
 
     def rec_move(move, recv, P, bc, n_header=0):
-        # the largest buffer, and the largest whose rows are not a multiple
-        # of 16 bytes (B3's 4-byte store path)
-        for key in ("move", "move_odd") if move.shape[1] % 4 else ("move",):
+        # the largest buffer, the largest whose rows are not a multiple of
+        # 16 bytes (B3's 4-byte store path) and the largest of each header
+        # count (a two-hop round's same-group part has none, its combined
+        # cross-outer part one)
+        keys = ("move", "move_odd") if move.shape[1] % 4 else ("move",)
+        for key in keys + (f"move_nh{n_header}",):
             if key not in seen or move.numel() >= seen[key][0].numel():
                 seen[key] = (move, recv, P, bc, n_header)
         return orig_move(move, recv, P, bc, n_header)
@@ -705,8 +748,11 @@ def main(mp4_only: bool = False) -> None:
         if st["counts_f"] is not None:
             semi = {"applied": bool(st["use_filter"]), "rows": int(st["counts_u"].sum()),
                     "rows_filtered": int(st["counts_f"].sum())}
+        tp = st.get("topo_plan")
         gates.append({"semi_filter": semi, "wire": st["wire"] is not None,
-                      "row_bytes": _wire_row_bytes(st)})
+                      "row_bytes": _wire_row_bytes(st),
+                      "cap_o": None if tp is None else tp.cap_o,
+                      "ring_cap": None if st.get("ring") is None else st["ring"][1]})
 
     def rec_probe(lk, rk, rid, nb, B):
         if "probe" not in seen or lk.numel() > seen["probe"][0].numel():
@@ -2138,12 +2184,33 @@ def main(mp4_only: bool = False) -> None:
         got.update({k: [after[k][0] - before[k][0], after[k][1] - before[k][1]] for k in names})
         return out
 
-    def split_if(off):
-        return _spill.skew_disabled() if off else contextlib.nullcontext()
-
     def _in(cm, fn):
         with cm:
             return fn()
+
+    def gate_cells(what, fn, kernels, off, modes, names):
+        """``fn`` in each of ``modes``, the second under the context manager
+        ``off()``: (cells with the counters ``names`` each call moved, the
+        rounds, bucket caps and each shuffle's cap_o; outputs). The codec
+        inputs of the first mode's call are left in ``seen``."""
+        cells, outs = {}, {}
+        for mode in modes:
+            got = {}
+            if mode == modes[0]:
+                seen.clear()
+            out, cell = timed(lambda cm=(contextlib.nullcontext if mode == modes[0] else off):
+                              with_counters(lambda: _in(cm(), fn), names, got),
+                              f"{what}_{mode}", kernels)
+            cell.update({"counters": dict(got),
+                         "rounds": [k_ for _b, k_ in cell["shuffle_plans"]],
+                         "bucket_cap": [b_ for b_, _k in cell["shuffle_plans"]],
+                         "cap_o": [g_["cap_o"] for g_ in cell["tiers"]["shuffles"]]})
+            cells[mode], outs[mode] = cell, out
+            if mode == modes[0]:
+                captured = on_card(seen)
+        seen.clear()
+        seen.update(captured)
+        return cells, outs
 
     skew_names = ("shuffle.exchanged_bytes", "shuffle.spill.relay_bytes", "shuffle.skew_split",
                   "shuffle.rounds")
@@ -2153,24 +2220,13 @@ def main(mp4_only: bool = False) -> None:
     def skew_cells(what, fn, kernels):
         """The split call beside the padded one; the codec inputs of the
         split call are left in ``seen``."""
-        cells, outs = {}, {}
-        for mode in ("split", "padded"):
-            got = {}
-            if mode == "split":
-                seen.clear()
-            out, cell = timed(lambda off=mode == "padded": with_counters(
-                lambda: _in(split_if(off), fn), skew_names, got), f"{what}_{mode}", kernels)
-            cell.update({"counters": dict(got),
-                         "shipped_bytes": got["shuffle.exchanged_bytes"][1]
+        cells, outs = gate_cells(what, fn, kernels, _spill.skew_disabled, ("split", "padded"),
+                                 skew_names)
+        for cell in cells.values():
+            got = cell["counters"]
+            cell.update({"shipped_bytes": got["shuffle.exchanged_bytes"][1]
                          + got["shuffle.spill.relay_bytes"][1],
-                         "relay_rows": got["shuffle.skew_split"][1],
-                         "rounds": [k_ for _b, k_ in cell["shuffle_plans"]],
-                         "bucket_cap": [b_ for b_, _k in cell["shuffle_plans"]]})
-            cells[mode], outs[mode] = cell, out
-            if mode == "split":
-                captured = on_card(seen)
-        seen.clear()
-        seen.update(captured)
+                         "relay_rows": got["shuffle.skew_split"][1]})
         if not cells["split"]["relay_rows"] or cells["padded"]["relay_rows"]:
             fail(f"{what}: the skew split did not engage (or engaged when off): {cells}")
         return cells, outs
@@ -2285,6 +2341,111 @@ def main(mp4_only: bool = False) -> None:
         if not sp["tier1"][key] < sp["tier0"][key]:
             fail(f"SPILL4: tier 1's {key} {sp['tier1'][key]} is not below tier 0's {sp['tier0'][key]}")
     del spill_out, sp_l, sp_r
+
+    # ------------------------------------------------------------------
+    # workloads TOPO8_loc, TOPO8_ring and FUSED4_2x2: the two-hop topology
+    # exchange (ROADMAP A6 topo), each call beside the same call under
+    # topo.disabled() on the same context
+    # ------------------------------------------------------------------
+    from cylon_tpu_torch.parallel import topo as _topo
+
+    topo_names = ("shuffle.coll_bytes.intra", "shuffle.coll_bytes.inter",
+                  "shuffle.coll_bytes.inter_alt", "shuffle.exchanged_bytes", "shuffle.rounds",
+                  "shuffle.relay.ring_rows", "shuffle.spill.relay_bytes", "shuffle.skew_split")
+
+    def topo_cells(what, fn, kernels):
+        """The two-hop call beside the flat one: (cells, outputs); the codec
+        inputs of the two-hop call are left in ``seen``."""
+        return gate_cells(what, fn, kernels, _topo.disabled, ("two_hop", "flat"), topo_names)
+
+    def locality_keys(world, inner, seed):
+        """tools/topo_smoke.py's locality_shards at N_A rows: 80% of each
+        shard's keys hash to its own outer group (the port's murmur3
+        partition ids over arange(N_A)), the rest drawn from all of it."""
+        rng_t = np.random.default_rng(seed)
+        cand = np.arange(N_A, dtype=np.int32)
+        pid = hash_partition_ids([(torch.from_numpy(cand).to(dev), None)], None, world).cpu().numpy()
+        pools = [cand[(pid // inner) == g] for g in range(world // inner)]
+        n_shard = N_A // world
+        own = int(n_shard * 0.8)
+        keys = np.concatenate([np.concatenate([rng_t.choice(pools[p // inner], own),
+                                               rng_t.choice(cand, n_shard - own)])
+                               for p in range(world)]).astype(np.int32)
+        return keys, rng_t.normal(size=N_A).astype(np.float32)
+
+    work_topo = {"workload": "TOPO8_loc", "world": SKEW_WORLD, "rows_per_side": N_A,
+                 "budget_bytes": ctx8.shuffle_byte_budget, "cells": {}}
+    captured_topo = {}
+    for mesh in ("4x2", "2x4"):
+        inner = int(mesh.split("x")[1])
+        ctx_m = ctt.CylonContext.init_distributed(ctt.GPUConfig(world_size=SKEW_WORLD,
+                                                                mesh_shape=mesh))
+        kl_t, vl_t = locality_keys(SKEW_WORLD, inner, 0)
+        kr_t, wr_t = locality_keys(SKEW_WORLD, inner, 1)
+        tt_l = ctt.Table.from_pydict(ctx_m, {"k": kl_t, "v": vl_t})
+        tt_r = ctt.Table.from_pydict(ctx_m, {"k": kr_t, "w": wr_t})
+        del kl_t, vl_t, kr_t, wr_t
+        for op, fn, kernels in (
+                ("shuffle", lambda: tt_l.shuffle(["k"]), codec_kernels),
+                ("join", lambda: tt_l.distributed_join(tt_r, on="k"), all_kernels),
+                ("q3", lambda: tt_l.distributed_join(tt_r, on="k").distributed_groupby(
+                    "k_x", {"v": "sum"}), all_kernels)):
+            cells, outs = topo_cells(f"TOPO8_loc_{mesh}_{op}", fn, kernels)
+            if op == "q3":
+                shards_equal(rows_sorted(outs["two_hop"]), rows_sorted(outs["flat"]),
+                             f"TOPO8_loc {mesh} q3", sums=("v_sum",))
+            else:
+                multisets_equal(outs["two_hop"], outs["flat"], f"TOPO8_loc {mesh} {op}")
+            c2 = cells["two_hop"]["counters"]
+            if not c2["shuffle.coll_bytes.inter"][1] <= 0.75 * c2["shuffle.coll_bytes.inter_alt"][1]:
+                fail(f"TOPO8_loc {mesh} {op}: inter {c2}: not at most 0.75 of the flat exchange's")
+            if any(cells["flat"]["counters"][k_][0] for k_ in topo_names[:3]):
+                fail(f"TOPO8_loc {mesh} {op}: the flat call bumped a per-axis counter")
+            for mode in cells:
+                work_topo["cells"][f"{mesh}_{op}_{mode}"] = cells[mode]
+            del outs
+            if op == "shuffle":
+                captured_topo[mesh] = dict(seen)
+        if mesh == "4x2":
+            print(json.dumps({"profile_topo8_join_4x2": profile(
+                lambda: tt_l.distributed_join(tt_r, on="k"))}))
+        del tt_l, tt_r
+    print(json.dumps({"smi": smi, **work_topo}))
+
+    # TOPO8_ring: SKEW8_shuffle's one-hot table at both meshes, beside the
+    # flat split plan (the whole tail through the host relay)
+    work_ring = {"workload": "TOPO8_ring", "world": SKEW_WORLD, "rows": N_SKEW, "cells": {}}
+    for mesh in ("4x2", "2x4"):
+        ctx_m = ctt.CylonContext.init_distributed(ctt.GPUConfig(world_size=SKEW_WORLD,
+                                                                mesh_shape=mesh))
+        t_hot = ctt.Table.from_pydict(ctx_m, {"k": np.zeros(N_SKEW, np.int32),
+                                              "v": np.arange(N_SKEW, dtype=np.float32)})
+        cells, outs = topo_cells(f"TOPO8_ring_{mesh}", lambda: t_hot.shuffle(["k"]), codec_kernels)
+        if not cells["two_hop"]["counters"]["shuffle.relay.ring_rows"][1] or \
+                cells["flat"]["counters"]["shuffle.relay.ring_rows"][0]:
+            fail(f"TOPO8_ring {mesh}: the ring did not engage (or engaged flat): {cells}")
+        multisets_equal(outs["two_hop"], outs["flat"], f"TOPO8_ring {mesh}")
+        for mode in cells:
+            cells[mode]["host_relay_bytes"] = cells[mode]["counters"]["shuffle.skew_split"][1] * 8
+            work_ring["cells"][f"{mesh}_{mode}"] = cells[mode]
+        if mesh == "4x2":
+            captured_ring = dict(seen)
+        del t_hot, outs
+    print(json.dumps({"smi": smi, **work_ring}))
+
+    # FUSED4_2x2: A4's fused join on a 2x2 mesh (the structured two-hop:
+    # the same received layout, so the same rows in the same order)
+    ctx22 = ctt.CylonContext.init_distributed(ctt.GPUConfig(world_size=WORLD, mesh_shape="2x2"))
+    f22_l, f22_r = ctt.Table.from_pydict(ctx22, left), ctt.Table.from_pydict(ctx22, right)
+    cells, outs = topo_cells("FUSED4_2x2", lambda: f22_l.distributed_join(
+        f22_r, on="k", how="inner", mode="fused"), all_kernels)
+    shards_equal(outs["two_hop"], outs["flat"], "FUSED4_2x2")
+    if outs["two_hop"].row_count != n_join:
+        fail(f"FUSED4_2x2: join rows {outs['two_hop'].row_count} != {n_join}")
+    work_fused22 = {"workload": "FUSED4_2x2", "world": WORLD, "mesh": "2x2",
+                    "rows_per_side": N_A, "cells": cells}
+    del f22_l, f22_r, outs
+    print(json.dumps({"smi": smi, **work_fused22}))
 
 
     cuda_radix.radix_sort_lane, cuda_gather.expand_rows = orig_lane, orig_expand
@@ -2410,11 +2571,16 @@ def main(mp4_only: bool = False) -> None:
     # their q8 scale lanes and on FUSED4_quant's concatenated rounds, K1 on
     # FUSED4_slices2's combined (slice, pid) sort, K2 on FUSED4's emit
     new_paths = {}
-    for tag, cap_ in (("q4", captured_q4), ("fused4_quant", captured_f4q),
-                      ("skew8", captured_skew)):
-        if "move" not in cap_:
-            fail(f"{tag}: B3 received no buffer")
-        mv = cap_["move"]
+    topo_moves = [(f"topo8_{part}_{mesh}", cap_, key)
+                  for mesh, cap_ in (("4x2", captured_topo["4x2"]), ("2x4", captured_topo["2x4"]),
+                                     ("ring_4x2", captured_ring))
+                  for part, key in (("self", "move_nh0"), ("hop2", "move_nh1"))]
+    for tag, cap_, key in [(t_, c_, "move") for t_, c_ in (
+            ("q4", captured_q4), ("fused4_quant", captured_f4q), ("skew8", captured_skew))] \
+            + topo_moves:
+        if key not in cap_:
+            fail(f"{tag}: B3 received no buffer ({key})")
+        mv = cap_[key]
         got_m = cuda_codec.compact_move(*mv)
         torch.cuda.synchronize()
         new_paths[f"compact_move_{tag}"] = {
@@ -2641,6 +2807,8 @@ def main(mp4_only: bool = False) -> None:
     by_name["shuffle_compact_move"]["fused4_quant"] = new_paths["compact_move_fused4_quant"]
     by_name["radix_onesweep"]["slice_plan"] = new_paths["radix_slice_plan"]
     by_name["expand_rows"]["fused4"] = new_paths["expand_rows_fused4"]
+    for tag, _c, _k in topo_moves:  # B3 on both parts of a two-hop round
+        by_name["shuffle_compact_move"][tag] = new_paths[f"compact_move_{tag}"]
     # ptxas's registers and spills of every kernel (the builds' -Xptxas -v)
     usage = {n: _build.resource_usage(n) for n in _build.SOURCES}
     kernel_fn = {"radix_lane_hist": ("radix_pass", "lane_hist_kernel"),
@@ -2658,7 +2826,9 @@ def main(mp4_only: bool = False) -> None:
         # this slice's workloads: each variant's first timed call
         for tag, w in (("semi4", work_semi), ("pack", work_pack), ("pack4", work_pack4),
                        ("q4", work_q4), ("fused", work_fused), ("fused4", work_fused4),
-                       ("skew8", work_skew), ("skew8_join", work_skew_j), ("spill4", work_spill)):
+                       ("skew8", work_skew), ("skew8_join", work_skew_j), ("spill4", work_spill),
+                       ("topo8_loc", work_topo), ("topo8_ring", work_ring),
+                       ("fused4_2x2", work_fused22)):
             cells = w["cells"].items()
             if tag == "semi4":
                 cells = [(f"{sel}_{mode}", m) for sel, c in w["cells"].items() for mode, m in c.items()]

@@ -26,6 +26,14 @@ and the JAX package's ``coordinator_address`` / ``num_processes`` /
   one for ``device="cpu"``; on a card it stages each collective through
   the host). Nothing switches one for the other.
 
+``mesh_shape="OxI"`` declares a logical 2-D topology over the W shards,
+in both forms (outer x inner = W, or = ``num_processes``): shard ``p`` is
+outer group ``p // inner``, inner index ``p % inner``, so an inner group
+is a contiguous range of shards. Under ``torchrun`` a node's ranks are
+consecutive, so inner is the GPUs per node and outer the nodes. Every
+shuffle then runs as the two-hop exchange of parallel/topo.py. Unset, the
+context reads ``CYLON_TPU_TORCH_MESH``; unset there too, it is flat.
+
 Several shards per process (``devices=`` with a coordinator) are not
 ported (ROADMAP.md A1).
 """
@@ -120,12 +128,22 @@ class GPUConfig:
         num_processes: Optional[int] = None,
         process_id: Optional[int] = None,
         backend: Optional[str] = None,
+        mesh_shape: Optional[str] = None,
     ):
         self.coordinator_address = coordinator_address
         self.num_processes = self.process_id = self.backend = None
+        self.mesh_shape = mesh_shape
         if coordinator_address is not None:
             self._init_rank(device, world_size, devices, num_processes, process_id, backend)
-            return
+        else:
+            self._init_local(device, world_size, devices, num_processes, process_id, backend)
+        if mesh_shape:
+            from .parallel.topo import parse_mesh
+
+            parse_mesh(str(mesh_shape), self.world_size)
+
+    def _init_local(self, device, world_size, devices, num_processes, process_id, backend):
+        """The W shards of one process: their devices, checked."""
         if num_processes is not None or process_id is not None or backend is not None:
             raise ValueError(
                 "num_processes=, process_id= and backend= need a coordinator_address"
@@ -193,10 +211,11 @@ class GPUConfig:
         return next(d for d in self.devices if d is not None)
 
     def __repr__(self):
+        mesh = f", mesh_shape={self.mesh_shape!r}" if self.mesh_shape else ""
         if self.coordinator_address is not None:
             return (
                 f"GPUConfig(coordinator_address={self.coordinator_address!r}, "
                 f"num_processes={self.num_processes}, process_id={self.process_id}, "
-                f"device={self.device}, backend={self.backend!r})"
+                f"device={self.device}, backend={self.backend!r}{mesh})"
             )
-        return f"GPUConfig(world_size={self.world_size}, devices={self.devices})"
+        return f"GPUConfig(world_size={self.world_size}, devices={self.devices}{mesh})"

@@ -21,7 +21,10 @@ does), ``all_gather_counts(local_counts)`` (host
 integers that decide control flow, so that every rank takes the same
 branch), ``relay_exchange(mats, relay)`` (the skew split's host relay,
 parallel/spill.py: host rows regrouped by destination), ``gather_host(obj)``
-(host output) and ``barrier()``.
+(host output) and ``barrier()``. Under a 2-D topology (parallel/topo.py)
+two more: ``all_to_all_grouped(bufs, groups)``, an all_to_all among each
+group's members only (the two hops), and ``ppermute(bufs, perm)``, every
+shard's buffer to its ring neighbour (the skew relay's ring).
 """
 from __future__ import annotations
 
@@ -72,6 +75,32 @@ class LocalCommunicator:
             ])
             for d in range(w)
         ]
+
+    def all_to_all_grouped(self, bufs: Sequence[torch.Tensor], groups) -> List[torch.Tensor]:
+        """:meth:`all_to_all` inside each group of shards: ``bufs[s]`` holds
+        ``len(group)`` chunks, chunk a bound for the group's member at
+        position a; chunk b of member a's output is chunk a of member b's
+        input (the JAX package's ``all_to_all`` with
+        ``axis_index_groups``)."""
+        if len(bufs) != self.world_size:
+            raise ValueError(f"all_to_all_grouped needs {self.world_size} buffers, got {len(bufs)}")
+        out: List[Optional[torch.Tensor]] = [None] * self.world_size
+        for g in groups:
+            rows = bufs[g[0]].shape[0] // len(g)
+            for a, d in enumerate(g):
+                out[d] = torch.cat([bufs[s][a * rows:(a + 1) * rows].to(self.devices[d]) for s in g])
+        return out
+
+    def ppermute(self, bufs: Sequence[torch.Tensor], perm) -> List[torch.Tensor]:
+        """``perm`` ((src, dst) pairs): shard dst receives shard src's
+        buffer; a shard that no pair names receives zeros (the JAX
+        package's ``lax.ppermute``)."""
+        if len(bufs) != self.world_size:
+            raise ValueError(f"ppermute needs {self.world_size} buffers, got {len(bufs)}")
+        out = [torch.zeros_like(b) for b in bufs]
+        for src, dst in perm:
+            out[dst] = bufs[src].to(self.devices[dst])
+        return out
 
     def all_reduce(self, tensors: Sequence[torch.Tensor], op: str = "sum") -> List[torch.Tensor]:
         """``tensors[s]`` is shard s's contribution (one shape for all);
@@ -135,9 +164,12 @@ class DistCommunicator:
     ``[W * rows, L]`` buffer; ``all_reduce`` one ``dist.all_reduce`` (bool
     through int32: NCCL has no bool). Host integers and objects go over
     the group itself under gloo, and over a gloo side group made once
-    under NCCL (NCCL moves device memory only)."""
+    under NCCL (NCCL moves device memory only). Under a 2-D ``topology``
+    one process group per inner and per outer group is made at init, every
+    rank making the same ``new_group`` calls in the same order, as NCCL
+    and gloo both require."""
 
-    def __init__(self, config: GPUConfig):
+    def __init__(self, config: GPUConfig, topology=None):
         self.rank, self.world_size = config.process_id, config.num_processes
         self.device, self.backend = config.device, config.backend
         if self.device.type == "cuda":
@@ -156,6 +188,12 @@ class DistCommunicator:
                 f"{dist.get_rank()}, {dist.get_backend()}) is not the one {config!r} names"
             )
         self._host_group = dist.new_group(backend="gloo") if self.backend == "nccl" else None
+        self._groups: Dict[tuple, Any] = {}
+        if topology is not None and topology.outer > 1 and topology.inner > 1:
+            from .parallel.topo import inner_groups, outer_groups
+
+            for g in inner_groups(topology) + outer_groups(topology):
+                self._groups[g] = dist.new_group(ranks=list(g))
 
     def _one(self, tensors: Sequence[torch.Tensor], what: str) -> torch.Tensor:
         if len(tensors) != 1:
@@ -170,6 +208,33 @@ class DistCommunicator:
             raise ValueError(f"all_to_all: {buf.shape[0]} rows are not W = {self.world_size} chunks")
         out = torch.empty_like(buf)
         dist.all_to_all_single(out, buf)
+        return [out]
+
+    def all_to_all_grouped(self, bufs: Sequence[torch.Tensor], groups) -> List[torch.Tensor]:
+        """This shard's ``[len(group) * rows, ...]`` buffer -> its receive
+        buffer: one ``all_to_all_single`` on the process group of the group
+        holding this rank (its ranks in ascending order, as torch orders a
+        group's ranks)."""
+        buf = self._one(bufs, "all_to_all_grouped").contiguous()
+        g = next(tuple(g) for g in groups if self.rank in g)
+        if g not in self._groups:
+            raise ValueError(f"all_to_all_grouped: no process group for ranks {g}")
+        out = torch.empty_like(buf)
+        dist.all_to_all_single(out, buf, group=self._groups[g])
+        return [out]
+
+    def ppermute(self, bufs: Sequence[torch.Tensor], perm) -> List[torch.Tensor]:
+        """This shard's buffer to its ``perm`` destination, and its
+        source's buffer back (zeros where no pair names this rank as a
+        destination): one ``batch_isend_irecv``, since a ring of blocking
+        sends and receives deadlocks."""
+        buf = self._one(bufs, "ppermute").contiguous()
+        out = torch.zeros_like(buf)
+        ops = [dist.P2POp(dist.isend, buf, dst) for src, dst in perm if src == self.rank]
+        ops += [dist.P2POp(dist.irecv, out, src) for src, dst in perm if dst == self.rank]
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
         return [out]
 
     def all_reduce(self, tensors: Sequence[torch.Tensor], op: str = "sum") -> List[torch.Tensor]:
@@ -224,6 +289,9 @@ class DistCommunicator:
 
     def finalize(self) -> None:
         """Destroy the groups this communicator made."""
+        for g in self._groups.values():
+            dist.destroy_process_group(g)
+        self._groups = {}
         if self._host_group is not None:
             dist.destroy_process_group(self._host_group)
             self._host_group = None
@@ -232,13 +300,30 @@ class DistCommunicator:
             self._owns_group = False
 
 
+def _mesh_spec(mesh_shape) -> str:
+    """The mesh request: the config's, else CYLON_TPU_TORCH_MESH."""
+    from .parallel.topo import MESH_ENV
+
+    return str(mesh_shape) if mesh_shape else MESH_ENV.get()
+
+
 class CylonContext:
-    def __init__(self, devices: Sequence[Optional[torch.device]], comm=None):
+    def __init__(self, devices: Sequence[Optional[torch.device]], comm=None, mesh_shape=None):
         self.devices: List[Optional[torch.device]] = list(devices)
+        self._config: Dict[str, str] = {}
+        if mesh_shape:
+            self._config["mesh_shape"] = str(mesh_shape)
+        from .parallel.topo import parse_mesh
+
+        #: the declared logical 2-D topology (``mesh_shape`` >
+        #: CYLON_TPU_TORCH_MESH > None, flat), validated against the world
+        #: size and resolved once, here; a shuffle's decision (the kill
+        #: switch, the degenerate 1xN / Nx1 shapes) is
+        #: ``parallel.topo.effective(ctx)``
+        self.topology = parse_mesh(_mesh_spec(mesh_shape), len(self.devices))
         self.comm = LocalCommunicator(self.devices) if comm is None else comm
         #: the shard indices this process owns
         self.local_shards: List[int] = [s for s, d in enumerate(self.devices) if d is not None]
-        self._config: Dict[str, str] = {}
         self._finalized = False
         # reclaim tier-2 spill directories orphaned by dead processes of
         # this host (pid-stamped, age-guarded; never raises)
@@ -253,8 +338,11 @@ class CylonContext:
                 f"init_distributed requires a GPUConfig, got {type(config)}"
             )
         if config.coordinator_address is not None:
-            return cls(config.devices, DistCommunicator(config))
-        return cls(config.devices)
+            from .parallel.topo import parse_mesh
+
+            topo = parse_mesh(_mesh_spec(config.mesh_shape), config.world_size)
+            return cls(config.devices, DistCommunicator(config, topo), config.mesh_shape)
+        return cls(config.devices, mesh_shape=config.mesh_shape)
 
     @property
     def device(self) -> torch.device:
@@ -324,16 +412,8 @@ class CylonContext:
 
         return tolerance(self._config.get("quant_tol"))
 
-    def check_shuffle_tiers(self) -> None:
-        """Raise for a config that asks for a shuffle tier the port has not
-        ported: a 2-D mesh (``mesh_shape``). Read by every shuffle."""
-        if self._config.get("mesh_shape"):
-            raise NotImplementedError(
-                "mesh_shape: the two-hop topology exchange is not ported yet (ROADMAP.md: A6)"
-            )
-
     def __repr__(self):
         return (
             f"CylonContext(world_size={self.world_size}, rank={self.rank}, "
-            f"devices={self.devices})"
+            f"devices={self.devices}, topology={self.topology})"
         )

@@ -25,11 +25,13 @@ in one launch, the join sorts through K1 and emits INNER / LEFT rows
 through K2. The wire plan is the static one (``gather.static_wire_plan``):
 a fused program has no host stats step, so only validity masks, bools,
 16-bit floats and, under ``quant``, the lossy fields narrow; the q8
-block scales ride the header rows.
+block scales ride the header rows. Under a 2-D ``topo`` each round's
+exchange is the structured two-hop (``topo.exchange_buffer_structured``),
+whose bytes :func:`fused_axis_bytes` splits by axis.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,6 +41,7 @@ from ..ops.gather import KeyCol, pack_cols, static_wire_plan, unpack_cols
 from ..ops.hash import hash_columns
 from ..ops.partition import partition_of_hash
 from . import shuffle as _sh
+from . import topo as _topo
 
 #: slice bits live at hash bits 24..31 (the JAX package's
 #: SLICE_HASH_SHIFT): shard pids use the low bits, and its out-of-core
@@ -67,8 +70,26 @@ def fused_exchange_bytes(
     return num_slices * (1 + respill) * rows * (row_bytes_l + row_bytes_r)
 
 
+def fused_axis_bytes(world: int, bucket_cap: int, respill: int, row_bytes: int,
+                     topo: Optional[_topo.Topology], num_slices: int = 1) -> Tuple[int, int]:
+    """(intra, inter) collective bytes of one side's fused shuffles, the
+    fused twin of ``topo.axis_coll_bytes`` behind the same
+    ``shuffle.coll_bytes.{intra,inter}`` counters. The structured two-hop
+    keeps cap-sized chunks, so its cross-outer bytes equal the flat
+    exchange's (it trades message count, not bytes), and the inner hop
+    ships every chunk across the fast links once more. No topology counts
+    everything inter (the JAX package's formula)."""
+    k = max(num_slices * (1 + respill), 1)
+    rows_chunk = bucket_cap + _sh.HEADER_ROWS
+    if topo is None:
+        return 0, k * world * (world - 1) * rows_chunk * row_bytes
+    o, i = topo
+    return (k * world * (i - 1) * o * rows_chunk * row_bytes,
+            k * world * (o - 1) * i * rows_chunk * row_bytes)
+
+
 def _shuffle_rounds(comm, sts: Sequence[ShardTable], cnts, dest_fns, world: int,
-                    bucket_cap: int, respill: int, quant=None):
+                    bucket_cap: int, respill: int, quant=None, topo=None):
     """The shared respill-round loop: ``dest_fns[i](r) -> (dest,
     leftover)`` gives local shard i's round-r send slots (the hash
     shuffle's B2b, or one hash slice of a SlicePlan). Returns (shuffled
@@ -78,6 +99,7 @@ def _shuffle_rounds(comm, sts: Sequence[ShardTable], cnts, dest_fns, world: int,
     wire = static_wire_plan(sts[0].cols, quant=quant)
     outs, totals, lefts = _sh.exchange_rounds_fused(
         comm, [st.cols for st in sts], dest_fns, cnts, world, bucket_cap, 1 + respill, wire,
+        topo=topo,
     )
     overflow = comm.all_reduce(lefts, "sum")
     return [ShardTable(tuple(o), t) for o, t in zip(outs, totals)], overflow
@@ -89,7 +111,7 @@ def _leftover(cnt: torch.Tensor, bucket_cap: int, round_idx: int) -> torch.Tenso
 
 
 def shuffle_shard(comm, sts: Sequence[ShardTable], key_idx: Sequence[int], world: int,
-                  bucket_cap: int, respill: int = 1, quant=None):
+                  bucket_cap: int, respill: int = 1, quant=None, topo=None):
     """Static-capacity hash shuffle of one table's local shards (exact
     length, ``st.n`` their host row counts). Kernel B2a hashes the keys
     into each row's pid and its tile histogram; B2b gives round r's
@@ -103,7 +125,7 @@ def shuffle_shard(comm, sts: Sequence[ShardTable], key_idx: Sequence[int], world
         dest_fns.append(lambda r, lane=lane, base=base, cnt=cnt: (
             _codec.pack_dest(lane, base, r, world, bucket_cap), _leftover(cnt, bucket_cap, r)))
         cnts.append(cnt)
-    return _shuffle_rounds(comm, sts, cnts, dest_fns, world, bucket_cap, respill, quant)
+    return _shuffle_rounds(comm, sts, cnts, dest_fns, world, bucket_cap, respill, quant, topo)
 
 
 def slice_plans(sts: Sequence[ShardTable], key_idx: Sequence[int], world: int,
@@ -120,12 +142,12 @@ def slice_plans(sts: Sequence[ShardTable], key_idx: Sequence[int], world: int,
 
 
 def sliced_shuffle_shard(comm, sts: Sequence[ShardTable], plans, slice_idx: int, world: int,
-                         bucket_cap: int, respill: int = 1, quant=None):
+                         bucket_cap: int, respill: int = 1, quant=None, topo=None):
     """One hash slice's shuffle, driven by the precomputed plans (only
     elementwise slot math and the exchanges per slice)."""
     cnts = [_sh.slice_counts(p, slice_idx) for p in plans]
     dest_fns = [lambda r, p=p: _sh.slice_round_dest(p, slice_idx, bucket_cap, r) for p in plans]
-    return _shuffle_rounds(comm, sts, cnts, dest_fns, world, bucket_cap, respill, quant)
+    return _shuffle_rounds(comm, sts, cnts, dest_fns, world, bucket_cap, respill, quant, topo)
 
 
 def join_shard(left: ShardTable, right: ShardTable, l_key_idx: Sequence[int],
@@ -166,7 +188,7 @@ def _compact_slices(jts: Sequence[ShardTable], join_cap: int):
 
 def make_distributed_join_step(
     ctx, l_key_idx: Sequence[int], r_key_idx: Sequence[int], how: int, bucket_cap: int,
-    join_cap: int, respill: int = 1, num_slices: int = 1, quant_l=None, quant_r=None,
+    join_cap: int, respill: int = 1, num_slices: int = 1, quant_l=None, quant_r=None, topo=None,
 ):
     """The fused distributed join as one step over this process's shards.
 
@@ -177,7 +199,8 @@ def make_distributed_join_step(
     overflow, a device int32 [2]: rows the shuffle could not send, summed
     over every shard, and join rows past one slice's ``join_cap``, the
     exact shortfall). ``quant_l``/``quant_r`` thread the lossy wire tier
-    through each side's shuffle. One device: the local join."""
+    through each side's shuffle; ``topo`` (``topo.effective``) routes every
+    exchange as the structured two-hop. One device: the local join."""
     world = ctx.world_size
     comm = ctx.comm
     _check_slices(world, num_slices)
@@ -189,8 +212,8 @@ def make_distributed_join_step(
             jt, ovj = join_shard(lts[0], rts[0], l_key_idx, r_key_idx, how, join_cap)
             return [list(jt.cols)], [jt.n], [torch.stack([torch.zeros_like(ovj), ovj])]
         if num_slices == 1:
-            ls, ovl = shuffle_shard(comm, lts, l_key_idx, world, bucket_cap, respill, quant_l)
-            rs, ovr = shuffle_shard(comm, rts, r_key_idx, world, bucket_cap, respill, quant_r)
+            ls, ovl = shuffle_shard(comm, lts, l_key_idx, world, bucket_cap, respill, quant_l, topo)
+            rs, ovr = shuffle_shard(comm, rts, r_key_idx, world, bucket_cap, respill, quant_r, topo)
             outs, counts, ovs = [], [], []
             for i in range(len(lts)):
                 jt, ovj = join_shard(ls[i], rs[i], l_key_idx, r_key_idx, how, join_cap)
@@ -205,9 +228,9 @@ def make_distributed_join_step(
         ov_j = [torch.zeros((), dtype=torch.int32, device=c[0][0].device) for c in l_cols]
         for s in range(num_slices):
             ls, ovl = sliced_shuffle_shard(comm, lts, plans_l, s, world, bucket_cap, respill,
-                                           quant_l)
+                                           quant_l, topo)
             rs, ovr = sliced_shuffle_shard(comm, rts, plans_r, s, world, bucket_cap, respill,
-                                           quant_r)
+                                           quant_r, topo)
             for i in range(len(lts)):
                 jt, ovj = join_shard(ls[i], rs[i], l_key_idx, r_key_idx, how, join_cap)
                 per_slice[i].append(jt)
@@ -250,7 +273,7 @@ def _group_sum_padded(keys: Sequence[KeyCol], val: KeyCol, n, group_cap: int):
 def make_join_groupby_step(
     ctx, l_key_idx: Sequence[int], r_key_idx: Sequence[int], agg_col_idx: int, how: int,
     bucket_cap: int, join_cap: int, group_cap: int, respill: int = 1, quant_l=None,
-    quant_r=None, quant_tol: float = 0.0,
+    quant_r=None, quant_tol: float = 0.0, topo=None,
 ):
     """The fused q3 step: distributed join, a groupby-SUM on the (left)
     join key, and the global total of the sums.
@@ -271,8 +294,8 @@ def make_join_groupby_step(
         lts = [ShardTable(tuple(c), c[0][0].shape[0]) for c in l_cols]
         rts = [ShardTable(tuple(c), c[0][0].shape[0]) for c in r_cols]
         if world > 1:
-            lts, _ = shuffle_shard(comm, lts, l_key_idx, world, bucket_cap, respill, quant_l)
-            rts, _ = shuffle_shard(comm, rts, r_key_idx, world, bucket_cap, respill, quant_r)
+            lts, _ = shuffle_shard(comm, lts, l_key_idx, world, bucket_cap, respill, quant_l, topo)
+            rts, _ = shuffle_shard(comm, rts, r_key_idx, world, bucket_cap, respill, quant_r, topo)
         n_left = len(lts[0].cols)
         agg_is_left = agg_col_idx < n_left
         agg = (lts[0].cols[agg_col_idx] if agg_is_left else rts[0].cols[agg_col_idx - n_left])[0]

@@ -28,6 +28,10 @@ The fused mode (parallel/pipeline.py) composes the same pieces with
 static capacities: :func:`exchange_rounds_fused` runs a table's rounds and
 one B3 compact over every round's received buffers, and a hash-sliced
 join builds its send slots from one combined sort (:func:`build_slice_plan`).
+
+Under a 2-D topology (parallel/topo.py) the eager rounds exchange through
+``topo.two_hop_exchange`` and the fused ones through
+``topo.exchange_buffer_structured``; the pack and compact are unchanged.
 """
 from __future__ import annotations
 
@@ -456,6 +460,7 @@ def exchange_rounds_fused(
     bucket_cap: int,
     n_rounds: int,
     wplan=None,
+    topo=None,
 ) -> Tuple[List[List[KeyCol]], List[torch.Tensor], List[torch.Tensor]]:
     """A table's static-capacity shuffle rounds over every local shard,
     with no host read: per round, each shard's send slots
@@ -466,8 +471,18 @@ def exchange_rounds_fused(
     chunks), the JAX package's compact_received over the concatenated
     round masks. Returns per local shard (columns of ``n_rounds * P *
     bucket_cap`` rows, live rows first; received rows, a device scalar;
-    the last round's leftover)."""
+    the last round's leftover). Under a 2-D ``topo`` every round's
+    exchange is the structured two-hop (``topo.exchange_buffer_structured``):
+    the same received layout, routed inner hop first."""
     from ..ops import cuda_codec as _codec
+
+    if topo is not None:
+        from . import topo as _topo
+
+        def xchg(bufs):
+            return _topo.exchange_buffer_structured(comm, bufs, topo)
+    else:
+        xchg = comm.all_to_all
 
     P, bc = num_partitions, bucket_cap
     nh = wire_header_rows(wplan) if wplan is not None else HEADER_ROWS
@@ -482,7 +497,7 @@ def exchange_rounds_fused(
             packed, hx = round_send(cols, wplan, None, dest, P, bc) if q8 else (plain[i], None)
             bufs.append(pack_lane_buffer(packed, dest, round_counts(counts[i], bc, r), P, bc,
                                          header_extra=hx, n_header=nh))
-        for i, g in enumerate(comm.all_to_all(bufs)):
+        for i, g in enumerate(xchg(bufs)):
             got_rounds[i].append(with_scale_lanes(g, wplan, P, nh))
     out, totals = [], []
     for i, cols in enumerate(shard_cols):

@@ -808,9 +808,18 @@ def relay_extract(cols, lane: torch.Tensor, base: torch.Tensor, relay_row: np.nd
     uint8 q8 codes under one block scale for this source under the
     quantized tier (the relay then crosses the host link at 1 byte a row
     for those columns). None where the source relays nothing."""
-    n_rel = int(relay_row.sum())
-    if n_rel == 0:
+    if int(relay_row.sum()) == 0:
         return None
+    _idx, sel = relay_rows(cols, lane, base, relay_row, quota)
+    _qplan, q_cols = _quant_parts(_g.lane_plan(cols), qspec)
+    return HostCopy(_pack_host_bound(sel, q_cols))
+
+
+def relay_rows(cols, lane: torch.Tensor, base: torch.Tensor, relay_row: np.ndarray, quota: int):
+    """One source's relay rows in their slot order (destination-major,
+    ``shuffle.relay_send_slots``): (their int64 ids, their (data, valid)
+    columns)."""
+    n_rel = int(relay_row.sum())
     slots = _sh.relay_send_slots(lane, base, relay_row, quota, n_rel).to(torch.int64)
     # each row's id at its slot; the other rows land on spare slots behind
     # (distinct ones, so their writes do not all hit one address)
@@ -818,9 +827,7 @@ def relay_extract(cols, lane: torch.Tensor, base: torch.Tensor, relay_row: np.nd
     slots = torch.where(slots < n_rel, slots, n_rel + ids % _sh.DROP_ROWS)
     rows = torch.zeros(n_rel + _sh.DROP_ROWS, dtype=torch.int64, device=lane.device)
     idx = rows.scatter_(0, slots, ids)[:n_rel]
-    sel = [(_take(d, idx), None if v is None else v.index_select(0, idx)) for d, v in cols]
-    _qplan, q_cols = _quant_parts(_g.lane_plan(cols), qspec)
-    return HostCopy(_pack_host_bound(sel, q_cols))
+    return idx, [(_take(d, idx), None if v is None else v.index_select(0, idx)) for d, v in cols]
 
 
 def fetch_relay(comm, plan, copies: Dict[int, HostCopy], relay: np.ndarray, local: Sequence[int],

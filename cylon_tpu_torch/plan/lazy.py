@@ -23,6 +23,7 @@ from ..ops import sketch as _sketch
 from ..ops import quant as _quant
 from ..ops import stats as _stats
 from ..parallel import spill as _spill
+from ..parallel import topo as _topo
 from ..table import _not_ported
 from ..utils.tracing import bump, report
 from . import lower as _lower
@@ -55,14 +56,15 @@ def gate_report() -> Dict[str, Dict[str, float]]:
 
 def gated_fingerprint(plan: Node) -> tuple:
     """The executable identity of a plan: its structural fingerprint and
-    the ordering, semi-filter, lane-packing, quantized-wire and spill gates
-    (the forced spill tier and the skew split, ``spill.gate_state``),
-    which decide which rewrites fire and which paths the lowered ops take,
-    so a gate flip re-optimizes instead of reusing an executor built under
-    the other state. The JAX package adds the gate of the topology tier
-    (A6) and a feedback component (A9)."""
+    the ordering, semi-filter, lane-packing, quantized-wire, spill (the
+    forced spill tier and the skew split, ``spill.gate_state``) and
+    topology gates (the kill switch and the raw mesh request,
+    ``topo.gate_state``), which decide which rewrites fire and which paths
+    the lowered ops take, so a gate flip re-optimizes instead of reusing
+    an executor built under the other state. The JAX package adds a
+    feedback component (A9)."""
     return (plan.fingerprint(), _ord.enabled(), _sketch.enabled(), _stats.enabled(),
-            _quant.gate_state(), _spill.gate_state())
+            _quant.gate_state(), _spill.gate_state(), _topo.gate_state())
 
 
 def _normalize_aggs(agg: Dict[str, TUnion[str, Sequence[str]]]) -> List[Tuple[str, str]]:

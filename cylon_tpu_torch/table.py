@@ -72,6 +72,7 @@ from .ops.partition import _saturating_int
 from .ordering import Ordering
 from .parallel import shuffle as _sh
 from .parallel import spill as _spill
+from .parallel import topo as _topo
 from .utils.tracing import bump, gauge, span
 
 Encoded = Tuple[np.ndarray, Optional[np.ndarray], Any, Optional[np.ndarray]]
@@ -1169,7 +1170,6 @@ class Table:
             num_slices = 1  # no shuffle for the slice filter to ride
         bucket_cap = round_cap(int(capacity_factor * max(cap_l, cap_r) / max(world * num_slices, 1)))
         if world > 1:
-            ctx.check_shuffle_tiers()
             # the eager engine's byte budget caps the per-round buffer; an
             # undersized first attempt is recovered by the retry
             row_bytes = max(_sh.exchange_row_bytes(lref), _sh.exchange_row_bytes(rref))
@@ -1184,14 +1184,23 @@ class Table:
         l_in = [left._flat_cols(s) for s in local]
         r_in = [right._flat_cols(s) for s in local]
         dev0 = ctx.device
+        # the effective 2-D topology routes every fused exchange as the
+        # structured two-hop (parallel/topo.py), read once a call
+        topo = _topo.effective(ctx) if world > 1 else None
         for _attempt in range(max_retries):
             if world > 1:
+                rb_l, rb_r = _sh.exchange_row_bytes(lref), _sh.exchange_row_bytes(rref)
                 bump("shuffle.exchanged_bytes", rows=_pl.fused_exchange_bytes(
-                    world, bucket_cap, respill, _sh.exchange_row_bytes(lref),
-                    _sh.exchange_row_bytes(rref), num_slices))
+                    world, bucket_cap, respill, rb_l, rb_r, num_slices))
+                for rb_side in (rb_l, rb_r):
+                    fi, fo = _pl.fused_axis_bytes(world, bucket_cap, respill, rb_side, topo,
+                                                  num_slices)
+                    if fi:
+                        bump("shuffle.coll_bytes.intra", rows=fi)
+                    bump("shuffle.coll_bytes.inter", rows=fo)
             step = _pl.make_distributed_join_step(
                 ctx, lk_idx, rk_idx, howi, bucket_cap, join_cap, respill, num_slices,
-                quant_l=quant_l, quant_r=quant_r,
+                quant_l=quant_l, quant_r=quant_r, topo=topo,
             )
             with span("join.fused", rows=int(left._counts.sum() + right._counts.sum())):
                 out, nout, ov = step(l_in, r_in)
@@ -2437,7 +2446,6 @@ def _shuffle_state(spec: _ShuffleSpec) -> dict:
     world, local = t.world_size, t.ctx.local_shards
     if not t.column_names:
         raise ValueError("cannot shuffle a table without columns")
-    t.ctx.check_shuffle_tiers()
     counts = [int(n) for n in t._counts]
     if spec.kind == "range":
         pids = _p.range_partition_ids(
@@ -2481,11 +2489,17 @@ def _shuffle_state(spec: _ShuffleSpec) -> dict:
     # the relay and the spill arenas cross the host with the 'q8' columns
     # of the signature only (qb16 and qf32 are wire-only)
     relay_qsig = tuple(c if c == "q8" else None for c in quant_sig)
+    plan = lane_plan(ref)
     return {
         "spec": spec, "t": t, "ctx": t.ctx, "world": world, "local": local, "flat": flat,
         "ref": ref, "row_bytes": _sh.exchange_row_bytes(ref), "stat_cols": stat_cols,
-        "quant_sig": quant_sig, "shards": shards, "plan": lane_plan(ref),
+        "quant_sig": quant_sig, "shards": shards, "plan": plan,
         "relay_qsig": relay_qsig if any(relay_qsig) else None,
+        # the two-hop exchange (parallel/topo.py) needs the JAX package's
+        # word lanes for its headers: a table of only non-null float64
+        # columns has none there (they ride a passthrough), and stays flat
+        "topo_cfg": _topo.effective(t.ctx),
+        "has_lanes": any(dt != torch.float64 or hv for dt, _nl, hv in plan),
     }
 
 
@@ -2528,14 +2542,20 @@ def _plan_state(st: dict) -> None:
        ``plan_schedule`` at their row bytes and apply only where their
        schedule ships strictly fewer bytes, a relayed row costing
        ``RELAY_COST_FACTOR`` x its plain row bytes either way;
-    4. the spill tier (``spill.choose_tier``, from the staged bytes of the
+    4. under a declared 2-D topology (parallel/topo.py), the two-hop plan
+       (``cap_o``; a tight ``CYLON_TPU_TORCH_OUTER_BUDGET`` halves the
+       budget and re-plans until the outer hop fits) and the per-axis
+       ledger ``shuffle.coll_bytes.{intra,inter,inter_alt}``;
+    5. the spill tier (``spill.choose_tier``, from the staged bytes of the
        fullest shard) and, past tier 0, the engine's arena sink, with the
-       q8 columns of the quantized tier held as codes;
-    5. the analytic peak device bytes of a shard (the
+       q8 columns of the quantized tier held as codes; under two hops at
+       tier 0, the split of the relay: same-group tails to the device ring;
+    6. the analytic peak device bytes of a shard (the
        ``shuffle.spill.peak_device_bytes`` gauge): its input rows, a
-       round's send and receive buffers, the compacted round outputs held
-       on the device (every round at tier 0, at most two when spilled) and
-       its relay extraction, at the plain row bytes. The port's buffers are
+       round's send and receive buffers (both hops' under two hops), the
+       compacted round outputs held on the device (every round at tier 0,
+       at most two when spilled), its host relay extraction and its ring
+       buffers, at the plain row bytes. The port's buffers are
        exact-length, so the value departs from the JAX package's, which
        counts padded capacities."""
     w = st["world"]
@@ -2588,17 +2608,71 @@ def _plan_state(st: dict) -> None:
                 if wire_has_quant(wplan):
                     bump("shuffle.quant.gate_skipped")
     st["sched"] = sched
-    st["bucket_cap"], st["n_rounds"] = bc, k = sched.bucket_cap, sched.n_rounds
-    # shipped bytes: K rounds x W^2 bucket blocks x the (narrowed) row
-    # bytes, and the relay's rows at their plain row bytes
+    st["bucket_cap"], st["n_rounds"] = sched.bucket_cap, sched.n_rounds
     rb_eff = row_bytes if st["wire"] is None else wire_row_bytes(st["wire"])
-    bump("shuffle.exchanged_bytes", rows=sched.coll_row_slots(w) * int(rb_eff))
+    nh = _sh.wire_header_rows(st["wire"]) if st["wire"] is not None else _sh.HEADER_ROWS
+    # the two-hop decision (parallel/topo.py): a declared 2-D topology
+    # routes the exchange as an inner hop and a dense cross-outer hop. It
+    # needs word lanes for the headers and exactly one header row (a
+    # q8-widened wire keeps the flat path: its per-chunk scale blocks do
+    # not survive the hop-2 repack). The feedback autopilot's hop mode is
+    # A9's; without it a declared topology always takes two hops.
+    tcfg = st["topo_cfg"]
+    two_hop_ok = (tcfg is not None and (st["has_lanes"] or st["wire"] is not None) and nh == 1
+                  and not wire_q8_cols(st["wire"]))
+    tp = None
+    if two_hop_ok:
+        ob = _topo.outer_budget()
+        while True:
+            tp = _topo.plan_two_hop(st["send_counts"], tcfg, st["bucket_cap"], st["n_rounds"], nh)
+            # a tighter CYLON_TPU_TORCH_OUTER_BUDGET halves the global
+            # budget (more, smaller rounds) until the combined buffer fits
+            if not ob or st["bucket_cap"] <= 8 or tcfg.outer * (tp.cap_o + nh) * int(rb_eff) <= ob:
+                break
+            budget //= 2
+            sched = _spill.plan_schedule(st["send_counts"], int(rb_eff), w, budget)
+            st["sched"] = sched
+            st["bucket_cap"], st["n_rounds"] = sched.bucket_cap, sched.n_rounds
+    st["topo_plan"] = tp
+    bc, k = st["bucket_cap"], st["n_rounds"]
+    # rows of one round's compacted output: W chunks flat; the inner hop-1
+    # self chunks and the outer combined chunks under two hops
+    recv_cap = tp.inner * bc + tp.outer * tp.cap_o if tp is not None else w * bc
+    # the per-axis byte ledger: intra = inner-axis bytes, inter =
+    # cross-outer bytes, inter_alt = the flat exchange's inter bytes from
+    # the same counts (the pair the locality gate reads from one run)
+    intra_b = inter_b = 0
+    if tcfg is not None:
+        intra_b, inter_b = _topo.axis_coll_bytes(tcfg, w, bc, k, int(rb_eff), nh,
+                                                 cap_o=None if tp is None else tp.cap_o)
+        bump("shuffle.coll_bytes.intra", rows=intra_b)
+        bump("shuffle.coll_bytes.inter", rows=inter_b)
+    if two_hop_ok:
+        bump("shuffle.coll_bytes.inter_alt",
+             rows=_topo.axis_coll_bytes(tcfg, w, bc, k, int(rb_eff), nh)[1])
+    # shipped bytes: flat, K rounds x W^2 bucket blocks x the (narrowed)
+    # row bytes; two-hop, both hops' bytes; and the relay's rows at their
+    # plain row bytes
+    bump("shuffle.exchanged_bytes",
+         rows=intra_b + inter_b if tp is not None else sched.coll_row_slots(w) * int(rb_eff))
     if sched.adaptive:
         bump("shuffle.spill.relay_bytes", rows=sched.relay_rows() * int(row_bytes))
     st["new_counts"] = st["send_counts"].sum(axis=0).astype(np.int64)
     bump("shuffle.rounds", rows=k)
 
     tier = _spill.choose_tier(int(st["new_counts"].max()) * row_bytes)
+    # the relay under two hops: same-outer-group tails ride the device
+    # ring, cross-outer tails keep the host relay. Only at tier 0 with
+    # plain lanes: a q8 relay and a spilled shuffle keep the whole host
+    # relay (their rows cross the host anyway)
+    st["ring"], st["relay_host"] = None, sched.relay
+    if sched.adaptive and tp is not None:
+        intra_m, inter_m = _topo.split_relay(sched.relay, tcfg)
+        if intra_m is not None and tier == _spill.TIER_HBM and st["relay_qsig"] is None:
+            cap_ri = _topo.ring_cap(intra_m)
+            st["ring"], st["relay_host"] = (intra_m, cap_ri), inter_m
+            bump("shuffle.relay.ring_rows", rows=int(intra_m.sum()))
+            bump("shuffle.coll_bytes.intra", rows=_topo.ring_bytes(tcfg, cap_ri, int(row_bytes)))
     st["sink"] = None
     if tier != _spill.TIER_HBM:
         bump("shuffle.spill.shuffles")
@@ -2613,11 +2687,17 @@ def _plan_state(st: dict) -> None:
         st["sink"] = _spill.ShardArenaSink(
             w, schema, _spill.TIER_DISK if tier == _spill.TIER_DISK else _spill.TIER_HOST,
             quant=quant_map or None)
-    nh = _sh.wire_header_rows(st["wire"]) if st["wire"] is not None else _sh.HEADER_ROWS
     staged_rounds = k if tier == _spill.TIER_HBM else min(k, 2)
-    relay_out = int(sched.relay.sum(axis=1).max()) if sched.adaptive else 0
-    peak_rows = (int(st["t"]._counts.max()) + 2 * w * (bc + nh) + _sh.DROP_ROWS
-                 + staged_rounds * w * bc + relay_out)
+    relay = st["relay_host"]
+    relay_out = int(relay.sum(axis=1).max()) if relay is not None else 0
+    # a round's send buffer and hop-1 (or flat) receive buffer; under two
+    # hops its hop-2 send buffer, with its spare rows, and receive buffer;
+    # then the staged outputs, the host relay's extraction and the ring's
+    # buffers (every step of the rotation stays until the absorb)
+    two_hop_rows = 2 * tp.outer * (tp.cap_o + nh) + _sh.DROP_ROWS if tp is not None else 0
+    ring_rows = tcfg.inner * st["ring"][1] if st["ring"] is not None else 0
+    peak_rows = (int(st["t"]._counts.max()) + 2 * w * (bc + nh) + _sh.DROP_ROWS + two_hop_rows
+                 + staged_rounds * recv_cap + relay_out + ring_rows)
     st["dev_peak_bytes"] = peak_rows * row_bytes
 
 
@@ -2659,10 +2739,14 @@ def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
     3. RELAY (a skewed schedule only): each source's rows past the quota
        of a heavy bucket are extracted once (``spill.relay_extract``) and
        start for the host before round 0, so the copy overlaps the rounds;
+       under two hops at tier 0 the same-group tails ride the device ring
+       instead (``topo.ring_extract``, ``topo.ring_relay``);
     4. K ROUNDS of PACK (kernel B2b + the header-fused lane scatter),
-       COLLECTIVE (one all_to_all), COMPACT (kernel B3), with no host
-       sync; each round keeps its live rows, whose count the plan already
-       knows. Under tier 1 or 2 round r's output is decoded, packed and
+       COLLECTIVE (one all_to_all; under a 2-D topology the inner and the
+       outer grouped all_to_alls of ``topo.two_hop_exchange``), COMPACT
+       (kernel B3; under two hops once on the same-group rows and once on
+       the combined chunks), with no host sync; each round keeps its live
+       rows, whose count the plan already knows. Under tier 1 or 2 round r's output is decoded, packed and
        copied to the host once round r+1 is dispatched, and lands in the
        arenas before round r+2 is, so at most two staged outputs are ever
        on the device;
@@ -2671,7 +2755,8 @@ def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
        rank (a mismatch is an internal routing bug, raised everywhere);
        then the result: each shard's rounds in round order, then the rows
        relayed to it in source order (``spill.fetch_relay``: regrouped on
-       the host by the communicator), or the arenas rebuilt on the device
+       the host by the communicator), then the ring's rows in step order,
+       or the arenas rebuilt on the device
        (``spill.arena_result``) when spilled.
 
     Failure domain: any exception of phases 3-5 closes every arena the
@@ -2712,15 +2797,25 @@ def _stage_round(st: dict) -> None:
 
 
 def _shuffle_many_rounds(states: List[dict]) -> List[Table]:
-    """Phases 3-5 of :func:`_shuffle_many`: the relay extraction, the round
-    loop, the deferred fetch and the result."""
+    """Phases 3-5 of :func:`_shuffle_many`: the relay extraction (and the
+    ring under two hops), the round loop, the deferred fetch and the
+    result."""
     for st in states:
         sched = st["sched"]
-        if sched.adaptive:
-            with span("shuffle.round.relay", rows=sched.relay_rows()):
+        st["relay_copies"] = st["ring_out"] = None
+        if st["ring"] is not None:  # same-group tails: the device ring
+            intra_m, cap_ri = st["ring"]
+            with span("shuffle.round.relay_ring", rows=int(intra_m.sum())):
+                bufs = [_topo.ring_extract(st["flat"][s], st["send"][s]["lane"],
+                                           st["send"][s]["base"], intra_m[s], sched.quota, cap_ri)
+                        for s in st["local"]]
+                st["ring_out"] = _topo.ring_relay(st["ctx"].comm, bufs, st["local"],
+                                                  st["topo_cfg"], intra_m.sum(axis=0))
+        if st["relay_host"] is not None:
+            with span("shuffle.round.relay", rows=int(st["relay_host"].sum())):
                 st["relay_copies"] = {
                     s: _spill.relay_extract(st["flat"][s], st["send"][s]["lane"],
-                                            st["send"][s]["base"], sched.relay[s], sched.quota,
+                                            st["send"][s]["base"], st["relay_host"][s], sched.quota,
                                             qspec=st["relay_qsig"])
                     for s in st["local"]
                 }
@@ -2733,10 +2828,11 @@ def _shuffle_many_rounds(states: List[dict]) -> List[Table]:
             if spilled and st["pending"] is not None:
                 st["pending"].land()  # round r-2 leaves the device
                 st["pending"] = None
-            w, bc, wplan = st["world"], st["bucket_cap"], st["wire"]
+            w, bc, wplan, tp = st["world"], st["bucket_cap"], st["wire"], st["topo_plan"]
             nh = _sh.wire_header_rows(wplan) if wplan is not None else _sh.HEADER_ROWS
+            dev0, local = st["ctx"].device, st["local"]
             bufs = []
-            for s in st["local"]:
+            for s in local:
                 sh = st["send"][s]
                 dest = _codec.pack_dest(sh["lane"], sh["base"], r, w, bc)
                 rc = _sh.round_counts(sh["cnt"], bc, r)
@@ -2745,20 +2841,34 @@ def _shuffle_many_rounds(states: List[dict]) -> List[Table]:
                     packed, hx = _sh.round_send(st["flat"][s], wplan, st["bases"], dest, w, bc)
                 bufs.append(_sh.pack_lane_buffer(packed, dest, rc, w, bc, header_extra=hx,
                                                  n_header=nh))
-            got = _sh.exchange_buffer(st["ctx"].comm, bufs)
             expect = _expected_received(st["send_counts"], bc, r)
             fresh = {}
-            for d, g in zip(st["local"], got):
-                recv = _sh.header_counts(g, w)
-                moved = _codec.compact_move(_sh.with_scale_lanes(g, wplan, w, nh), recv, w, bc,
-                                            n_header=nh)
-                fresh[d] = moved[: int(expect[d])]
-                st["recv"].append(recv.to(st["ctx"].device, copy=True))
-            if spilled:
-                st["fresh"] = (fresh, expect)
+            if tp is None:
+                for d, g in zip(local, _sh.exchange_buffer(st["ctx"].comm, bufs)):
+                    recv = _sh.header_counts(g, w)
+                    moved = _codec.compact_move(_sh.with_scale_lanes(g, wplan, w, nh), recv, w, bc,
+                                                n_header=nh)
+                    fresh[d] = [moved[: int(expect[d])]]
+                    st["recv"].append(recv.to(dev0, copy=True))
             else:
-                for d, m in fresh.items():
-                    st["rounds_out"][d].append(m)
+                # two hops; B3 front-packs the same-group rows (final after
+                # hop 1), then the combined cross-outer chunks: the JAX
+                # package's one compaction over their concatenation
+                topo = st["topo_cfg"]
+                n_self, n_cross = _topo.round_split(st["send_counts"], topo, bc, r)
+                got = _topo.two_hop_exchange(st["ctx"].comm, bufs, local, topo, bc, tp.cap_o, nh)
+                for d, (g2, self_rows, self_cnt) in zip(local, got):
+                    recv2 = _sh.header_counts(g2, tp.outer)
+                    m1 = _codec.compact_move(self_rows, self_cnt, tp.inner, bc, n_header=0)
+                    m2 = _codec.compact_move(g2, recv2, tp.outer, tp.cap_o, n_header=nh)
+                    fresh[d] = [m1[: int(n_self[d])], m2[: int(n_cross[d])]]
+                    st["recv"].append(torch.cat([self_cnt, recv2]).to(dev0))
+            if spilled:
+                st["fresh"] = ({d: p[0] if len(p) == 1 else torch.cat(p) for d, p in fresh.items()},
+                               expect)
+            else:
+                for d, parts in fresh.items():
+                    st["rounds_out"][d].extend(parts)
         # after every table's round-r dispatch: round r-1 starts for the host
         for st in states:
             fresh = st.pop("fresh", None)
@@ -2770,15 +2880,29 @@ def _shuffle_many_rounds(states: List[dict]) -> List[Table]:
     for st in states:
         w, bc, k, local = st["world"], st["bucket_cap"], st["n_rounds"], st["local"]
         bump("host_sync")
-        mine = torch.stack(st["recv"]).cpu().numpy().reshape(k, len(local), w)  # the deferred sync
-        got_all = st["ctx"].comm.all_gather_counts(mine.transpose(1, 0, 2))  # [dst, round, src]
+        # the deferred sync: every round's received counts per local shard
+        # ([W] by source flat, [inner + outer] by hop under two hops) and the
+        # ring's absorbed rows, in one fetch
+        mine = torch.stack(st["recv"]).view(k, len(local), -1).transpose(0, 1).reshape(len(local), -1)
+        if st["ring_out"] is not None:
+            mine = torch.cat([mine, torch.stack([n.to(mine.device) for _r, n in st["ring_out"]])
+                              .view(-1, 1).to(mine.dtype)], 1)
+        got_all = st["ctx"].comm.all_gather_counts(mine.cpu().numpy())  # [dst, ...]
+        width = (got_all.shape[1] - (st["ring_out"] is not None)) // k
         expect_all = [_expected_received(st["send_counts"], bc, r) for r in range(k)]
         for r, expect in enumerate(expect_all):
-            got = got_all[:, r].sum(axis=1)
+            got = got_all[:, r * width:(r + 1) * width].sum(axis=1)
             if not (got == expect).all():
                 raise RuntimeError(
                     f"shuffle round {r}: received row counts {got} != "
                     f"expected {expect}: internal routing bug"
+                )
+        if st["ring_out"] is not None:
+            expect_ring = st["ring"][0].sum(axis=0).astype(np.int64)
+            if not (got_all[:, -1] == expect_ring).all():
+                raise RuntimeError(
+                    f"shuffle relay ring: absorbed row counts {got_all[:, -1]} != "
+                    f"expected {expect_ring}: internal routing bug"
                 )
         t = st["t"]
         spilled = st["sink"] is not None
@@ -2786,9 +2910,9 @@ def _shuffle_many_rounds(states: List[dict]) -> List[Table]:
             _stage_round(st)
             _stage_round(st)
         per_dst = None
-        if st["sched"].adaptive:
+        if st["relay_copies"] is not None:
             per_dst, rcounts = _spill.fetch_relay(
-                st["ctx"].comm, st["plan"], st["relay_copies"], st["sched"].relay, local,
+                st["ctx"].comm, st["plan"], st["relay_copies"], st["relay_host"], local,
                 qspec=st["relay_qsig"])
             st["relay_copies"] = None
             if spilled:
@@ -2801,18 +2925,34 @@ def _shuffle_many_rounds(states: List[dict]) -> List[Table]:
             def received(d, st=st, t=t):
                 parts = st["rounds_out"][d]
                 moved = parts[0] if len(parts) == 1 else torch.cat(parts)
-                cols: Shard = OrderedDict()
-                for (name, c), (data, valid) in zip(t._shards[d].items(), _received_cols(st, moved)):
-                    cols[name] = Column(data, c.dtype, valid, c.dictionary)
-                return cols
+                return _shard_of(t, d, _received_cols(st, moved))
 
             res = t._with_shards(_per_shard(st["ctx"], received), sum(expect_all))
+            # the JAX package's order: the rounds, the host relay, the ring
+            parts = [res]
             if per_dst is not None:
-                res = _concat_tables([res, _spill.shards_to_table(t, per_dst, rcounts)])
+                parts.append(_spill.shards_to_table(t, per_dst, rcounts))
+            if st["ring_out"] is not None:
+                ring = dict(zip(local, st["ring_out"]))
+                parts.append(t._with_shards(
+                    _per_shard(st["ctx"], lambda d, t=t: _shard_of(
+                        t, d, _sh.compact_received_lanes(st["plan"], ring[d][0]))),
+                    expect_ring))
+                st["ring_out"] = None
+            if len(parts) > 1:
+                res = _concat_tables(parts)
         # the shuffle moves rows, not values: the measured bounds hold
         names = t.column_names
         results.append(res._attach_stats({names[ci]: v for ci, v in st["col_stats"].items()}))
     return results
+
+
+def _shard_of(t: Table, d: int, cols: List[KeyCol]) -> Shard:
+    """Shard d of ``t``'s schema holding the physical columns ``cols``."""
+    out: Shard = OrderedDict()
+    for (name, c), (data, valid) in zip(t._shards[d].items(), cols):
+        out[name] = Column(data, c.dtype, valid, c.dictionary)
+    return out
 
 
 def _expected_received(send_counts: np.ndarray, bucket_cap: int, round_idx: int) -> np.ndarray:

@@ -11,8 +11,9 @@ which belong to torch's launcher, not to the port.
 
 The port registers only the knobs of features it has: the shuffle tiers,
 the skew split and the spill tiers (parallel/spill.py), the spill fault
-seams (fault/inject.py). Knobs of layers it has not ported join with their
-items (ROADMAP.md A6 topo, A7's out-of-core layers, A9); the JAX package's
+seams (fault/inject.py), the two-hop topology (parallel/topo.py). Knobs of
+layers it has not ported join with their items (ROADMAP.md A7's
+out-of-core layers, A9); the JAX package's
 knobs that choose between its XLA and Pallas tiers or configure XLA have no
 counterpart (ROADMAP.md A5).
 """
@@ -31,6 +32,8 @@ KINDS = {
     # host-resolved value that decides a plan per call (which wire fields a
     # shuffle ships); it reaches the device through that plan
     "dispatch": "host-resolved plan choice; rides the per-call plan and the fingerprint",
+    # Read once at import / context init, before any kernel exists.
+    "startup": "import/init-time configuration",
     # alters which host code paths raise (fault injection), never a plan
     # or a result where it does not fire
     "observability": "host-only reads; never a plan, a cache key or a result",
@@ -108,7 +111,7 @@ def env_gate(var: str, keyed_via: str = "", note: str = ""):
 # CYLON_TPU_TORCH_NO_ORDERING in ordering.py, CYLON_TPU_TORCH_NO_SEMI_FILTER
 # in ops/sketch.py, CYLON_TPU_TORCH_NO_LANE_PACK in ops/stats.py,
 # CYLON_TPU_TORCH_NO_QUANT in ops/quant.py, CYLON_TPU_TORCH_NO_SKEW_SPLIT in
-# parallel/spill.py)
+# parallel/spill.py, CYLON_TPU_TORCH_NO_TOPO in parallel/topo.py)
 # ----------------------------------------------------------------------
 SHUFFLE_BUDGET = EnvKnob(
     "CYLON_TPU_TORCH_SHUFFLE_BUDGET", "", kind="tuning",
@@ -125,6 +128,22 @@ QUANT_TOL = EnvKnob(
     note="lossy-wire tolerance (ops/quant.py): float payload columns ride "
     "q8/qb16/qf32 wire fields at or above their thresholds; the context's "
     "quant_tol config wins, an explicit 0 included",
+)
+
+# -- the two-hop topology (parallel/topo.py; the JAX package's
+# CYLON_TPU_MESH and CYLON_TPU_OUTER_BUDGET) --
+MESH = EnvKnob(
+    "CYLON_TPU_TORCH_MESH", "", kind="startup",
+    note="2-D topology 'OxI' (outer x inner), e.g. '4x2'; product must "
+    "equal the world size; read once at context init (GPUConfig.mesh_shape "
+    "wins); unset = flat 1-D",
+)
+OUTER_BUDGET = EnvKnob(
+    "CYLON_TPU_TORCH_OUTER_BUDGET", "", kind="tuning",
+    keyed_via="budget -> cross-outer combined-chunk capacity (cap_o) -> the "
+    "two-hop plan of the call",
+    note="per-round cross-outer (hop 2) exchange byte budget for 2-D "
+    "topologies; unset = the shared shuffle byte budget (never binds)",
 )
 
 # -- spill tiers (parallel/spill.py; the JAX package's CYLON_TPU_SPILL_*) --

@@ -375,12 +375,62 @@ def case_skew8(env):
     return out
 
 
+def mesh_context(env, mesh):
+    """A context over ``env``'s shards declared with a 2-D ``mesh``: under
+    torch.distributed on the same process group (every rank makes its
+    inner and outer groups), else in this process."""
+    ctx = env.context
+    if RANK_ARGS:
+        url, device, backend = RANK_ARGS
+        return ctt.CylonContext.init_distributed(ctt.GPUConfig(
+            device=device, coordinator_address=url, num_processes=ctx.world_size,
+            process_id=ctx.rank, backend=backend, mesh_shape=mesh))
+    return ctt.CylonContext.init_distributed(ctt.GPUConfig(
+        device=ctx.device, world_size=ctx.world_size, mesh_shape=mesh))
+
+
+def case_topo8(env):
+    """The two-hop exchange at 4x2 over eight shards: a shuffle of keys of
+    which 80% hash to the shard's own outer group, a one-hot shuffle whose
+    same-group relay tail rides the ring of ``batch_isend_irecv`` steps,
+    and a join; the grouped all_to_alls run on the inner and outer process
+    groups."""
+    from cylon_tpu_torch.ops.partition import hash_partition_ids
+    from cylon_tpu_torch.utils import tracing
+
+    ctx = mesh_context(env, "4x2")
+    rng = np.random.default_rng(SEED + 14)
+    cand = np.arange(20000, dtype=np.int32)
+    pid = hash_partition_ids([(torch.from_numpy(cand), None)], None, 8).numpy()
+    pools = [cand[(pid // 2) == g] for g in range(4)]
+    k = np.concatenate([np.concatenate([rng.choice(pools[p // 2], 400), rng.choice(cand, 100)])
+                        for p in range(8)]).astype(np.int32)
+    t = ctt.Table.from_encoded(ctx, port_encode({"k": k, "v": rng.normal(size=k.size)}))
+    hot = ctt.Table.from_encoded(ctx, port_encode(
+        {"k": np.zeros(4096, np.int32), "v": np.arange(4096, dtype=np.float32)}))
+    b = ctt.Table.from_encoded(ctx, port_encode(
+        {"k": rng.choice(cand, 300).astype(np.int32), "w": rng.normal(size=300)}))
+    names = ("shuffle.coll_bytes.inter", "shuffle.coll_bytes.inter_alt", "shuffle.relay.ring_rows")
+
+    def rows(n):
+        return int(tracing.report(n).get(n, {}).get("rows", 0))
+
+    before = {n: rows(n) for n in names}
+    out = {"locality": t.shuffle(["k"]), "ring": hot.shuffle(["k"]),
+           "join": t.distributed_join(b, on="k")}
+    out.update({n: rows(n) - before[n] for n in names})
+    ctx.finalize()
+    return out
+
+
 PORT = OrderedDict([("pk", case_pk), ("ingest", case_ingest), ("env", case_env),
                     ("frame", case_frame), ("surface", case_surface), ("lazy", case_lazy),
                     ("semi", case_semi), ("fused", case_fused)])
 CASES = list(SHARED) + list(PORT)
 #: cases run only where a test names them (their own world)
-EXTRA = OrderedDict([("skew8", case_skew8)])
+EXTRA = OrderedDict([("skew8", case_skew8), ("topo8", case_topo8)])
+#: (init URL, device, backend) of a rank process, for contexts a case makes
+RANK_ARGS = ()
 
 
 # ----------------------------------------------------------------------
@@ -546,9 +596,11 @@ def record_equal(got, want, what, shard, sums_close=False):
 
 
 def main(argv):
+    global RANK_ARGS
     rank, world, url, out_dir, device, backend = argv[:6]
     names = argv[6:] or CASES
     torch.set_num_threads(1)
+    RANK_ARGS = (url, device, backend)
     env = ctt.CylonEnv(config=ctt.GPUConfig(
         device=device, coordinator_address=url, num_processes=int(world),
         process_id=int(rank), backend=backend,

@@ -795,3 +795,71 @@ def test_relay_send_slots_on_card_match_cpu(dev):
         got.append(sh.relay_send_slots(lane, cuda_codec.scan_tiles(hist), relay, 1000,
                                        int(relay.sum())).cpu())
     assert torch.equal(got[0], got[1])
+
+
+@pytest.mark.parametrize("mesh,world", [("4x2", 8), ("2x4", 8), ("2x2", 4)])
+def test_two_hop_compact_parts_match_plain(dev, mesh, world):
+    """B3 on both parts of a two-hop round against its plain version: the
+    same-group rows ``[inner x bucket_cap]`` with their hop-1 counts (a
+    strided view into the hop-1 headers) and no header, and the combined
+    cross-outer chunks ``[outer x (cap_o + 1)]`` with their header counts;
+    also a part whose counts are all 0 and one past a 16-byte line."""
+    from cylon_tpu_torch.parallel import shuffle as sh
+    from cylon_tpu_torch.parallel import topo
+
+    t = topo.parse_mesh(mesh, world)
+    rng = np.random.default_rng(world + t.inner)
+    ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=dev, world_size=world))
+    for lm, bc in ((2, 64), (3, 1000)):
+        m = rng.integers(0, bc + 1, (world, world))
+        m[0] = 0  # shard 0 sends nothing: its self part's counts are 0
+        tp = topo.plan_two_hop(m, t, bc, 1, 1)
+        bufs = []
+        for s in range(world):
+            buf = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, (world * (bc + 1), lm))
+                                   .astype(np.int32)).to(dev)
+            buf.view(world, bc + 1, lm)[:, 0, 0] = torch.from_numpy(m[s].astype(np.int32)).to(dev)
+            bufs.append(buf)
+        parts = topo.two_hop_exchange(ctx.comm, bufs, range(world), t, bc, tp.cap_o, 1)
+        n_self, n_cross = topo.round_split(m, t, bc, 0)
+        for d, (g2, self_rows, self_cnt) in enumerate(parts):
+            recv2 = sh.header_counts(g2, t.outer)
+            for move, cnt, P, cap, nh in ((self_rows, self_cnt, t.inner, bc, 0),
+                                          (g2, recv2, t.outer, tp.cap_o, 1)):
+                got = cuda_codec.compact_move(move, cnt, P, cap, nh)
+                torch.cuda.synchronize()
+                want = cuda_codec.compact_move_plain(move.cpu(), cnt.cpu(), P, cap, nh)
+                assert torch.equal(got.cpu(), want), (mesh, d, P, cap)
+            assert int(self_cnt.sum()) == n_self[d] and int(recv2.sum()) == n_cross[d]
+
+
+@pytest.mark.parametrize("mesh,world", [("4x2", 8), ("2x4", 8), ("2x2", 4)])
+def test_two_hop_ops_on_card_match_cpu(dev, mesh, world):
+    """A shuffle, a one-hot shuffle (its same-group relay tail on the ring
+    at world 8), a join and the fused join under a 2-D mesh on the card
+    against the CPU, shard by shard, with the same per-axis counters."""
+    from cylon_tpu_torch.utils import tracing
+
+    rng = np.random.default_rng(13)
+    n = 100_000
+    left = {"k": rng.integers(0, 5000, n).astype(np.int32), "v": rng.normal(size=n)}
+    right = {"k": rng.integers(0, 5000, 4000).astype(np.int32),
+             "w": rng.normal(size=4000).astype(np.float32)}
+    hot = {"k": np.zeros(n, np.int32), "v": np.arange(n, dtype=np.float32)}
+    names = ("shuffle.coll_bytes.intra", "shuffle.coll_bytes.inter", "shuffle.coll_bytes.inter_alt",
+             "shuffle.relay.ring_rows", "shuffle.exchanged_bytes", "shuffle.rounds")
+    outs, counts = [], []
+    for device in (dev, "cpu"):
+        ctx = ctt.CylonContext.init_distributed(
+            ctt.GPUConfig(device=device, world_size=world, mesh_shape=mesh))
+        tracing.reset_trace()
+        tl, tr = ctt.Table.from_pydict(ctx, left), ctt.Table.from_pydict(ctx, right)
+        res = [tl.shuffle(["k"]), ctt.Table.from_pydict(ctx, hot).shuffle(["k"]),
+               tl.distributed_join(tr, on="k"), tl.distributed_join(tr, on="k", mode="fused")]
+        outs.append([_shard_dump(x) for x in res])
+        counts.append({k: (v["count"], v["rows"]) for k, v in tracing.report("shuffle.").items()
+                       if k in names})
+    for a, b in zip(*outs):
+        _dumps_equal(a, b)
+    assert counts[0] == counts[1]
+    assert ("shuffle.relay.ring_rows" in counts[0]) == (world == 8)

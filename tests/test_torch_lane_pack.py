@@ -53,15 +53,16 @@ def test_registry_holds_the_ports_knobs_and_only_those():
         "CYLON_TPU_TORCH_NO_SKEW_SPLIT", "CYLON_TPU_TORCH_SPILL_TIER",
         "CYLON_TPU_TORCH_SPILL_DEVICE_BUDGET", "CYLON_TPU_TORCH_SPILL_HOST_BUDGET",
         "CYLON_TPU_TORCH_SPILL_DIR", "CYLON_TPU_TORCH_SPILL_RETRIES", "CYLON_TPU_TORCH_FAULTS",
+        "CYLON_TPU_TORCH_NO_TOPO", "CYLON_TPU_TORCH_MESH", "CYLON_TPU_TORCH_OUTER_BUDGET",
     }
     kinds = {k: v.kind for k, v in envgate.REGISTRY.items()}
     assert kinds["CYLON_TPU_TORCH_SHUFFLE_BUDGET"] == kinds["CYLON_TPU_TORCH_SKETCH_BITS"] == "tuning"
     assert kinds["CYLON_TPU_TORCH_QUANT_TOL"] == "dispatch"
-    # the spill knobs take their JAX counterparts' kinds and defaults
+    # the spill and topology knobs take their JAX counterparts' kinds and defaults
     from cylon_tpu.utils import envgate as jenv
 
     for name in ("SPILL_TIER", "SPILL_DEVICE_BUDGET", "SPILL_HOST_BUDGET", "SPILL_DIR",
-                 "SPILL_RETRIES", "FAULTS", "NO_SKEW_SPLIT"):
+                 "SPILL_RETRIES", "FAULTS", "NO_SKEW_SPLIT", "NO_TOPO", "MESH", "OUTER_BUDGET"):
         mine, ref = envgate.REGISTRY["CYLON_TPU_TORCH_" + name], jenv.REGISTRY["CYLON_TPU_" + name]
         assert (mine.kind, mine.default) == (ref.kind, ref.default), name
     assert all(v.note or v.keyed_via for v in envgate.REGISTRY.values())

@@ -170,21 +170,32 @@ def test_world8_skew_relay_rank_equals_local_shard(tmp_path, monkeypatch):
     """Eight gloo ranks, a one-hot shuffle and a skewed join (again under
     tier 1): the skew split engages on every rank, the relayed tails cross
     one host all_to_all, and rank d's shard equals shard d of one process
-    bit for bit, in row order."""
+    bit for bit, in row order. Then a context at 4x2 on the same process
+    group: a locality shuffle, a one-hot shuffle whose same-group tail
+    rides the ring (``batch_isend_irecv``) and a join, over the inner and
+    outer process groups, again rank d's shard shard d of one process."""
     for k in W.PORT_NO_TIERS:
         monkeypatch.setenv(k, "1")
-    codes, logs, _s = W.run_ranks(tmp_path, 8, cases=["skew8"], limit=LIMIT_S)
+    codes, logs, _s = W.run_ranks(tmp_path, 8, cases=["skew8", "topo8"], limit=LIMIT_S)
     assert codes == [0] * 8, "\n".join(log[-2000:] for log in logs)
     ranks = W.load_ranks(tmp_path, 8)
     local = W.run_cases(ctt.CylonEnv(config=ctt.GPUConfig(device="cpu", world_size=8)),
-                        ["skew8"])["skew8"]
-    assert local["relays"] == 3
+                        ["skew8", "topo8"])
+    assert local["skew8"]["relays"] == 3
+    topo = local["topo8"]
+    assert topo["shuffle.relay.ring_rows"] > 0
+    assert topo["shuffle.coll_bytes.inter"] < topo["shuffle.coll_bytes.inter_alt"]
     for r, res in enumerate(ranks):
         got = res["skew8"]
-        assert got["__plans__"] == local["__plans__"] and got["relays"] == 3, r
+        assert got["__plans__"] == local["skew8"]["__plans__"] and got["relays"] == 3, r
         for key in ("shuffle", "join", "join_tier1"):
-            W.record_equal(got[key], local[key], key, r)
-        W.record_equal(got["join_tier1"], local["join"], "tier 1 against tier 0", r)
+            W.record_equal(got[key], local["skew8"][key], key, r)
+        W.record_equal(got["join_tier1"], local["skew8"]["join"], "tier 1 against tier 0", r)
+        got = res["topo8"]
+        assert got["__plans__"] == topo["__plans__"], r
+        for key in ("locality", "ring", "join", "shuffle.relay.ring_rows",
+                    "shuffle.coll_bytes.inter", "shuffle.coll_bytes.inter_alt"):
+            W.record_equal(got[key], topo[key], f"topo8 {key}", r)
 
 
 def test_a_failing_rank_fails_the_run_without_a_hang(tmp_path):

@@ -233,28 +233,19 @@ def test_dataframe_surface_matches_reference(rng, ref_env, world):
         td[3]
 
 
-def _shuffle_under(key, value):
-    """A shuffle of a context whose config asks for a tier not ported yet
-    (the two-hop topology: A6)."""
-    ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device="cpu", world_size=2))
-    ctx.add_config(key, value)
-    ctt.Table.from_pydict(ctx, {"k": np.arange(4, dtype=np.int32)}).shuffle(["k"])
+def _tuned_trigger(t):
+    """The round schedule under the feedback re-coster's tuned skew
+    trigger (A9)."""
+    from cylon_tpu_torch.parallel import spill
 
-
-def _join_under(key, value, mode):
-    """A distributed join, eager or fused, of a context whose config asks
-    for the two-hop topology (A6): its first shuffle raises."""
-    ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device="cpu", world_size=2))
-    ctx.add_config(key, value)
-    t = ctt.Table.from_pydict(ctx, {"k": np.arange(4, dtype=np.int32)})
-    t.distributed_join(t, on="k", mode=mode)
+    spill.plan_schedule(np.full((2, 2), 64, np.int64), 8, 2, 1 << 20, trigger=4)
 
 
 @pytest.mark.parametrize("call", [
     lambda t: t.lazy().explain(analyze=True), lambda t: t.to_arrow(), lambda t: t.to_csv("x.csv"),
-    lambda t: t.task_partition(["k"], 2), lambda t: _join_under("mesh_shape", "2x1", "fused"),
-    lambda t: _shuffle_under("mesh_shape", "2x1"), lambda t: t.lazy().collect_async(),
-    lambda t: _join_under("mesh_shape", "1x2", "eager"),
+    lambda t: t.task_partition(["k"], 2), _tuned_trigger,
+    lambda t: t.to_arrow(shard=0), lambda t: t.lazy().collect_async(),
+    lambda t: ctt.DataFrame(t).to_csv("x.csv", csv_write_options={}),
     lambda t: ctt.DataFrame(t).lazy().explain(analyze=True),
     lambda t: ctt.Table.from_arrow(t.ctx, None),
     lambda t: ctt.DataFrame(t).lazy().collect_async(), lambda t: ctt.DataFrame(t).collect_async(),
