@@ -147,6 +147,26 @@
      FUSED4_2x2: A4's join with mode="fused" on a 2x2 mesh (the
             structured two-hop), equal shard for shard to the flat fused
             join;
+   then the out-of-core layers (ROADMAP A7's second slice):
+     OOC: benchmarks/run_bench.py's config 5 (ooc_join_16chunks) at
+          workload A's scale: 8M rows a side (seed 2, int32 k uniform in
+          [0, 8M), float32 v and w), 16 host chunks of 500,000 a side and
+          16 buckets, through OutOfCoreJoin at world 1, beside the
+          in-memory distributed_join of the same host arrays: ms,
+          cost_split, max_device_cap and join_phase_device_cap,
+          torch.cuda.max_memory_allocated of both calls (the bounded device
+          memory is the result, time its cost); sink.rows equal and the
+          rows equal as a multiset;
+     OOC4: the same at world 4 (32 MiB budget), at the default tier and
+          at CYLON_TPU_TORCH_SPILL_TIER=2 under a temporary directory;
+     TASK4: A's left side at world 4 in T = 12 tasks (task_partition,
+          examples/task_parallel.py's 3x over-decomposition) beside
+          shuffle(["k"]): each task's rows on its owner alone, all of them
+          the input's;
+     DAG4: DisJoinOp over A's tables in 8 chunks a side beside
+          distributed_join, DisUnionOp over U's project(["k"]) sides in 8
+          chunks beside distributed_union: the same rows as multisets a
+          shard;
    then the torch.distributed backend, one process per shard:
      MP4: four processes of this script (``--mp4-worker``), each one rank
           of ``GPUConfig(coordinator_address=..., num_processes=4)``: gloo
@@ -158,7 +178,10 @@
           distributed_union and distributed_unique(["k"]), the pallas_pk
           join -> groupby, and L4's lazy q3 (every rank optimizes the same
           plan), then A4 and S4 again on the same ranks declared as a
-          2x2 mesh (the inner and outer process groups); it reports a sha256 of each output
+          2x2 mesh (the inner and outer process groups), then the small
+          task_partition and OutOfCoreJoin cases of
+          tests/_torch_mp_worker.py (each rank's ingest sinks, bucket
+          plan and result rows its own); it reports a sha256 of each output
           column of its shard, its kernel launches and the median of 3
           barrier-synchronised calls on rank 0's clock. Rank d's digests
           must equal those of shard d of the same calls at world_size=4
@@ -227,6 +250,10 @@ REPS_T = 3  # timed calls of each SEMI4, PACK and PACK4 variant, after a warm-up
 TIER_PREFIXES = ("shuffle.semi_filter.", "semi_filter.", "lane_pack.", "shuffle.quant.")
 REPS_MP4 = 3  # barrier-synchronised timed calls of each MP4 op
 N_SKEW = 8_000_000  # rows of SKEW8_shuffle (spill_bench.py's bench_skew)
+OOC_CHUNK = N_A // 16  # run_bench.py config 5: 16 chunks a side ...
+OOC_BUCKETS = 16  # ... and 16 buckets
+REPS_OOC = 2  # timed calls of OOC and OOC4 after a warm-up (tier 2: one)
+DAG_CHUNKS = 8  # chunks a side of DAG4's graphs
 SKEW_WORLD = 8  # at W = 4 a hot bucket can reach only 4x the mean: the 4x trigger never fires
 
 # peak memory bandwidth by card (NVIDIA data sheets); SXM5 H100 otherwise
@@ -315,6 +342,17 @@ def make_left2():
             "v": rng2.normal(size=N_A).astype(np.float32)}
 
 
+def make_ooc():
+    """run_bench.py config 5's sides (seed 2) at workload A's scale: int32 k
+    uniform in [0, N_A), float32 v and w."""
+    rng5 = np.random.default_rng(2)
+    lk = rng5.integers(0, N_A, N_A).astype(np.int32)
+    lv = rng5.normal(size=N_A).astype(np.float32)
+    rk = rng5.integers(0, N_A, N_A).astype(np.int32)
+    rv = rng5.normal(size=N_A).astype(np.float32)
+    return {"k": lk, "v": lv}, {"k": rk, "w": rv}
+
+
 def make_pk():
     """Workload PK's sides: unique right keys, left keys drawn from them."""
     rng_pk = np.random.default_rng(SEED)
@@ -381,6 +419,39 @@ def mp4_calls(ctt, ctx, ctx22):
         "L4": lambda: {"q3_lazy": q3.groupby("k", {"v": "sum"}).collect()},
         "A4_2x2": lambda: a4_on(t22_l, t22_r),
         "S4_2x2": lambda: {"sort": t22_l.distributed_sort("k")},
+        **small_out_of_core_calls(ctt, ctx),
+    }
+
+
+def small_out_of_core_calls(ctt, ctx):
+    """MP4's small out-of-core cases (those of tests/_torch_mp_worker.py's
+    case_out_of_core): task_partition of 900 rows into T = 3W tasks, and
+    OutOfCoreJoin in 4 buckets of 3000 x 1500 rows in chunks of 500, its
+    rows a shard each as one table (``Table.from_shards``)."""
+    from cylon_tpu_torch.parallel import LogicalTaskPlan
+    from cylon_tpu_torch.parallel.ooc import OutOfCoreJoin
+
+    world = ctx.world_size
+    rng = np.random.default_rng(22)
+    t = ctt.Table.from_pydict(ctx, {"k": rng.integers(0, 300, 900), "v": rng.normal(size=900)})
+    cols = {"k": rng.integers(0, 4000, 4500).astype(np.int32), "v": rng.normal(size=4500)}
+
+    def chunks(lo, hi):
+        for a in range(lo, hi, 500):
+            yield {c: v[a:a + 500] for c, v in cols.items()}
+
+    def ooc():
+        job = OutOfCoreJoin(ctx, on="k", num_buckets=4)
+        sink = job.execute(chunks(0, 3000), chunks(3000, 4500))
+        out = ctt.Table.from_shards(ctx, [
+            sink.result_pydict(shard=s) if s in ctx.local_shards else None for s in range(world)])
+        sink.close()
+        return {"ooc": out}
+
+    return {
+        "TASK4_small": lambda: {f"task{i}": p for i, p in t.task_partition(
+            ["k"], LogicalTaskPlan(3 * world, world)).items()},
+        "OOC4_small": ooc,
     }
 
 
@@ -396,6 +467,9 @@ MP4_KERNELS = {
     "A4_2x2": ("radix_lane_hist", "radix_onesweep", "expand_rows", "pack_hist", "pack_dest",
                "compact_move"),
     "S4_2x2": ("radix_lane_hist", "radix_onesweep", "pack_hist", "pack_dest", "compact_move"),
+    "TASK4_small": ("radix_lane_hist", "radix_onesweep", "pack_hist", "pack_dest", "compact_move"),
+    "OOC4_small": ("radix_lane_hist", "radix_onesweep", "expand_rows", "pack_hist", "pack_dest",
+                   "compact_move"),
 }
 
 
@@ -2447,6 +2521,170 @@ def main(mp4_only: bool = False) -> None:
     del f22_l, f22_r, outs
     print(json.dumps({"smi": smi, **work_fused22}))
 
+    # ------------------------------------------------------------------
+    # workloads OOC, OOC4, TASK4 and DAG4: the out-of-core layers (ROADMAP
+    # A7's second slice)
+    # ------------------------------------------------------------------
+    from cylon_tpu_torch.parallel import LogicalTaskPlan
+    from cylon_tpu_torch.parallel import dag as _dag
+    from cylon_tpu_torch.parallel.ooc import OutOfCoreJoin
+
+    ooc_names = ("shuffle.spill.ooc_joins", "shuffle.spill.shuffles", "shuffle.spill.staged_rounds",
+                 "shuffle.spill.staged_bytes", "shuffle.rounds", "shuffle.exchanged_bytes",
+                 "shuffle.skew_split")
+    ooc_l, ooc_r = make_ooc()
+
+    def ooc_chunks(cols):
+        for lo in range(0, N_A, OOC_CHUNK):
+            yield {c: v[lo:lo + OOC_CHUNK] for c, v in cols.items()}
+
+    def peak_of(fn):
+        """``fn()`` and the device bytes it allocated at its peak beyond
+        those allocated before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    def join_rows_sorted(k, v, w):
+        """The rows (k, v, w) of a join on k as two int64 words a row, in
+        one total order: a multiset compares as equal tensors."""
+        a = (k.long() << 32) | (v.view(torch.int32).long() & 0xFFFFFFFF)
+        b = w.view(torch.int32).long()
+        o = torch.sort(b, stable=True).indices
+        o = o[torch.sort(a[o], stable=True).indices]
+        return a[o], b[o]
+
+    def ooc_cell(ctx_o, what, kernels, reps):
+        """run_bench.py config 5 through OutOfCoreJoin on ``ctx_o``: a
+        warm-up, then ``reps`` timed calls from the host chunks, the first
+        with its launches, counters and peak device bytes, beside the
+        in-memory join of the same host tables (uploaded inside the call)."""
+        def call():
+            job = OutOfCoreJoin(ctx_o, on="k", how="inner", num_buckets=OOC_BUCKETS)
+            return job, job.execute(ooc_chunks(ooc_l), ooc_chunks(ooc_r))
+
+        def in_memory():
+            return ctt.Table.from_pydict(ctx_o, ooc_l).distributed_join(
+                ctt.Table.from_pydict(ctx_o, ooc_r), on="k", how="inner")
+
+        call()[1].close()
+        reset_counts()
+        got = {}
+        t0 = time.perf_counter()
+        (job, sink), peak = peak_of(lambda: with_counters(call, ooc_names, got))
+        times = [time.perf_counter() - t0]
+        launches = counts()
+        require_launches(launches, what, kernels)
+        rows = sink.result_pydict()
+        res = [torch.from_numpy(np.ascontiguousarray(rows[c])).to(dev) for c in ("k_x", "v", "w")]
+        split = job.cost_split
+        sink.close()
+        for _ in range(reps - 1):
+            t0 = time.perf_counter()
+            call()[1].close()
+            times.append(time.perf_counter() - t0)
+        in_memory()
+        t0 = time.perf_counter()
+        ref, ref_peak = peak_of(in_memory)
+        ref_s = time.perf_counter() - t0
+        if sink.rows != ref.row_count:
+            fail(f"{what}: sink.rows {sink.rows} != the in-memory join's {ref.row_count}")
+        got_rows = join_rows_sorted(*res)
+        want_rows = join_rows_sorted(*(cat_col(ref, c) for c in ("k_x", "v", "w")))
+        if not all(torch.equal(x, y) for x, y in zip(got_rows, want_rows)):
+            fail(f"{what}: the rows differ from the in-memory join's as multisets")
+        if _spill.arena_bytes()[0]:
+            fail(f"{what}: {_spill.arena_bytes()[0]} arena bytes left open")
+        del ref, res, got_rows, want_rows
+        return {"ms": float(np.median(times)) * 1e3, "ms_all": [t * 1e3 for t in times],
+                "launches": launches, "counters": dict(got), "sink_rows": sink.rows,
+                "cost_split": split, "max_device_cap": job.max_device_cap,
+                "join_phase_device_cap": job.join_phase_device_cap,
+                "max_memory_allocated": peak, "in_memory_ms": ref_s * 1e3,
+                "in_memory_max_memory_allocated": ref_peak}
+
+    work_ooc = {"workload": "OOC", "world": 1, "rows_per_side": N_A, "chunk_rows": OOC_CHUNK,
+                "buckets": OOC_BUCKETS,
+                "cells": {"ooc": ooc_cell(ctx, "OOC", local_kernels, REPS_OOC)}}
+    print(json.dumps({"smi": smi, **work_ooc}))
+    work_ooc4 = {"workload": "OOC4", "world": WORLD, "rows_per_side": N_A,
+                 "chunk_rows": OOC_CHUNK, "buckets": OOC_BUCKETS,
+                 "budget_bytes": ctx4.shuffle_byte_budget, "cells": {}}
+    ooc_dir = tempfile.TemporaryDirectory(prefix="ooc4_")
+    try:
+        for tier in ("", "2"):
+            os.environ["CYLON_TPU_TORCH_SPILL_TIER"] = tier
+            os.environ["CYLON_TPU_TORCH_SPILL_DIR"] = ooc_dir.name
+            work_ooc4["cells"][f"tier{tier or 'default'}"] = ooc_cell(
+                ctx4, f"OOC4_tier{tier or 'default'}", all_kernels, REPS_OOC if not tier else 1)
+    finally:
+        os.environ.pop("CYLON_TPU_TORCH_SPILL_TIER", None)
+        os.environ.pop("CYLON_TPU_TORCH_SPILL_DIR", None)
+    if os.listdir(ooc_dir.name):
+        fail(f"OOC4: tier 2 left files in its spill dir: {os.listdir(ooc_dir.name)}")
+    ooc_dir.cleanup()
+    print(json.dumps({"smi": smi, **work_ooc4}))
+    del ooc_l, ooc_r
+
+    # TASK4: A's left side at world 4 in T = 12 tasks (examples/
+    # task_parallel.py's 3x over-decomposition), beside shuffle(["k"])
+    task_t = ctt.Table.from_pydict(ctx4, left)
+    task_plan = LogicalTaskPlan(3 * WORLD, WORLD)
+    parts, cell_task = timed(lambda: task_t.task_partition(["k"], task_plan), "TASK4",
+                             list(cuda_radix.LAUNCHES) + codec_kernels)
+    _out, cell_shuffle = timed(lambda: task_t.shuffle(["k"]), "TASK4_shuffle", codec_kernels)
+    del _out
+    for t_id, p in parts.items():
+        owner = task_plan.worker_of(t_id)
+        if any(int(c) for w_, c in enumerate(p.row_counts) if w_ != owner):
+            fail(f"TASK4: task {t_id}'s rows {p.row_counts.tolist()} are not on worker {owner} alone")
+    got_k = torch.cat([cat_col(p, "k") for p in parts.values()])
+    got_v = torch.cat([cat_col(p, "v") for p in parts.values()])
+    in_k, in_v = torch.from_numpy(left["k"]).to(dev), torch.from_numpy(left["v"]).to(dev)
+    if not all(torch.equal(x, y) for x, y in zip(join_rows_sorted(got_k, got_v, got_v),
+                                                 join_rows_sorted(in_k, in_v, in_v))):
+        fail("TASK4: the tasks' rows are not the input's")
+    work_task4 = {"workload": "TASK4", "world": WORLD, "rows": N_A, "tasks": 3 * WORLD,
+                  "task_rows": {t_id: p.row_counts.tolist() for t_id, p in parts.items()},
+                  "cells": {"task_partition": cell_task, "shuffle": cell_shuffle}}
+    del parts, task_t, got_k, got_v, in_k, in_v
+    print(json.dumps({"smi": smi, **work_task4}))
+
+    # DAG4: DisJoinOp over A's tables in 8 chunks a side beside
+    # distributed_join; DisUnionOp over U's project(["k"]) sides in 8
+    # chunks beside distributed_union
+    def chunk_tables(cols):
+        m = N_A // DAG_CHUNKS
+        return [ctt.Table.from_pydict(ctx4, {c: v[i * m:(i + 1) * m] for c, v in cols.items()})
+                for i in range(DAG_CHUNKS)]
+
+    dl, dr = chunk_tables(left), chunk_tables(right)
+    ul, ur = chunk_tables({"k": left["k"]}), chunk_tables({"k": make_left2()["k"]})
+    d_tl, d_tr = ctt.Table.from_pydict(ctx4, left), ctt.Table.from_pydict(ctx4, right)
+    u_tl = ctt.Table.from_pydict(ctx4, {"k": left["k"]})
+    u_tr = ctt.Table.from_pydict(ctx4, {"k": make_left2()["k"]})
+    work_dag4 = {"workload": "DAG4", "world": WORLD, "rows_per_side": N_A, "chunks": DAG_CHUNKS,
+                 "cells": {}}
+    for op, graph, eager in (
+            ("join", lambda: _dag.DisJoinOp(on="k", how="inner").execute(dl, dr),
+             lambda: d_tl.distributed_join(d_tr, on="k", how="inner")),
+            ("union", lambda: _dag.DisUnionOp(columns=["k"]).execute(ul, ur),
+             lambda: u_tl.distributed_union(u_tr))):
+        g_out, g_cell = timed(graph, f"DAG4_{op}", all_kernels if op == "join" else
+                              list(cuda_radix.LAUNCHES) + codec_kernels)
+        e_out, e_cell = timed(eager, f"DAG4_{op}_eager", all_kernels if op == "join" else
+                              list(cuda_radix.LAUNCHES) + codec_kernels)
+        multisets_equal(g_out, e_out, f"DAG4 {op}")
+        if op == "join" and g_out.row_count != n_join:
+            fail(f"DAG4: join rows {g_out.row_count} != {n_join}")
+        work_dag4["cells"][f"{op}_graph"], work_dag4["cells"][f"{op}_eager"] = g_cell, e_cell
+        del g_out, e_out
+    del dl, dr, ul, ur, d_tl, d_tr, u_tl, u_tr
+    print(json.dumps({"smi": smi, **work_dag4}))
+
 
     cuda_radix.radix_sort_lane, cuda_gather.expand_rows = orig_lane, orig_expand
     cuda_codec.pack_hist, cuda_codec.pack_dest = orig_hist, orig_dest
@@ -2828,7 +3066,8 @@ def main(mp4_only: bool = False) -> None:
                        ("q4", work_q4), ("fused", work_fused), ("fused4", work_fused4),
                        ("skew8", work_skew), ("skew8_join", work_skew_j), ("spill4", work_spill),
                        ("topo8_loc", work_topo), ("topo8_ring", work_ring),
-                       ("fused4_2x2", work_fused22)):
+                       ("fused4_2x2", work_fused22), ("ooc", work_ooc), ("ooc4", work_ooc4),
+                       ("task4", work_task4), ("dag4", work_dag4)):
             cells = w["cells"].items()
             if tag == "semi4":
                 cells = [(f"{sel}_{mode}", m) for sel, c in w["cells"].items() for mode, m in c.items()]

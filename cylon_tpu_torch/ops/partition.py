@@ -21,11 +21,20 @@ def partition_of_hash(h: torch.Tensor, num_partitions: int) -> torch.Tensor:
 
 
 def hash_partition_ids(
-    key_cols: Sequence[KeyCol], n: Optional[int], num_partitions: int
+    key_cols: Sequence[KeyCol], n: Optional[int], num_partitions: int, hash_shift: int = 0
 ) -> torch.Tensor:
     """Target partition per row (int32); rows ``>= n`` -> ``num_partitions``.
-    ``n=None`` means every row is live (the port's exact-length shards)."""
-    pid = partition_of_hash(hash_columns(key_cols), num_partitions)
+    ``n=None`` means every row is live (the port's exact-length shards).
+
+    ``hash_shift`` takes other bits of the unsigned 32-bit hash (``h >>
+    shift``), so that two nested partitionings of the same keys stay
+    independent: the out-of-core join buckets on ``hash_shift=16`` because
+    each bucket's join partitions on the low bits again, and with the same
+    bits every row of bucket b would land on shard b mod W."""
+    h = hash_columns(key_cols)
+    if hash_shift:
+        h = (h & 0xFFFFFFFF) >> hash_shift  # the uint32 rides in int64: no sign bits
+    pid = partition_of_hash(h, num_partitions)
     if n is not None and n < pid.shape[0]:
         pid[n:] = num_partitions
     return pid

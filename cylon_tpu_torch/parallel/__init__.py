@@ -1,0 +1,1 @@
+from .task import LogicalTaskPlan, task_partition  # noqa: F401

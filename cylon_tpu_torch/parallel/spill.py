@@ -31,10 +31,12 @@ owner shard. A one-hot shuffle then ships O(rows) bytes instead of
 O(W x hottest bucket); the ``shuffle.skew_split`` counter fires, and a
 non-skewed plan is ``plan_rounds``' own.
 
-The host side is numpy, as in the JAX package; the device side takes
-torch tensors on the table's device. Left out: the feedback re-coster's
-tuned trigger and tier (A9), a caller-owned sink and the out-of-core
-layers that stream through it (A7, next).
+A shuffle spec may bring its own sink (:class:`CallerSink`: the
+out-of-core ingest of parallel/ooc.py) and force its own tier;
+:func:`stage_to_sink` stages a whole table into such a sink. The host side
+is numpy, as in the JAX package; the device side takes torch tensors on the
+table's device. Left out: the feedback re-coster's tuned trigger and tier
+(A9).
 """
 from __future__ import annotations
 
@@ -54,7 +56,7 @@ from ..fault.errors import SpillIOError
 from ..ops import gather as _g
 from ..ops import quant as _q
 from ..utils import envgate as _envgate
-from ..utils.tracing import bump, gauge
+from ..utils.tracing import bump, gauge, span
 from . import shuffle as _sh
 
 TIER_HBM = 0
@@ -676,18 +678,34 @@ class HostCopy:
     """Device tensors on their way to the host. On a card: pinned buffers
     filled on a side stream once the producing stream reaches this point,
     so the copy overlaps the work queued behind it; the device tensors are
-    held until :meth:`wait`. A CPU tensor is its own host copy."""
+    held until :meth:`wait`. A CPU tensor is its own host copy.
 
-    def __init__(self, tensors: Sequence[torch.Tensor]):
-        self._src = list(tensors)
+    ``tensors`` may instead be a function that makes them from the device
+    tensors ``sources``; it runs on the side stream, so the packing too
+    overlaps. ``after``: {device: CUDA event} the side stream waits for in
+    place of the current stream, where the producer is another thread
+    (whose later work on the shared stream the copy must not wait
+    behind). ``sources`` are marked as used on the side stream, so that
+    the caching allocator does not hand their memory out early."""
+
+    def __init__(self, tensors, after=None, sources: Sequence[torch.Tensor] = ()):
         self._event = None
-        dev = self._src[0].device if self._src else torch.device("cpu")
+        make = tensors if callable(tensors) else None
+        probe = list(sources) if make is not None else list(tensors)
+        dev = probe[0].device if probe else torch.device("cpu")
         if dev.type != "cuda":
+            self._src = make() if make is not None else probe
             self._host = self._src
             return
         side = torch.cuda.Stream(device=dev)  # from torch's pool of streams
-        side.wait_stream(torch.cuda.current_stream(dev))
+        if after is not None:
+            side.wait_event(after[dev])
+        else:
+            side.wait_stream(torch.cuda.current_stream(dev))
+        for t in sources:
+            t.record_stream(side)
         with torch.cuda.stream(side):
+            self._src = make() if make is not None else probe
             self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in self._src]
             for h, t in zip(self._host, self._src):
                 h.copy_(t, non_blocking=True)
@@ -757,7 +775,7 @@ class PendingStage:
         self.copies, self.counts, self.row_bytes = copies, counts, row_bytes
 
     def land(self) -> None:
-        world = len(self.sink.arenas)
+        world = len(self.counts)
         shard_cols: List[Optional[list]] = [None] * world
         scales: List[dict] = [{} for _ in range(world)]
         bump("host_sync")
@@ -774,6 +792,22 @@ class PendingStage:
         self.sink.accept(shard_cols, self.counts, scales=scales if self.q_cols else None)
 
 
+class CallerSink:
+    """A caller-owned sink behind the engine's staging path: the engine's
+    ``accept(shard_cols, counts)`` reaches it as ``sink.accept(table,
+    shard_cols, counts)``, with decoded physical columns (such a shuffle
+    stages no q8 codes). The caller owns it and closes it."""
+
+    def __init__(self, sink, table) -> None:
+        self.sink, self.table = sink, table
+
+    def accept(self, shard_cols, counts, scales=None) -> None:
+        self.sink.accept(self.table, shard_cols, counts)
+
+    def close(self) -> None:
+        pass
+
+
 def stage_table(sink, plan, shard_cols: Dict[int, list], counts: np.ndarray, row_bytes: int,
                 qspec=None) -> PendingStage:
     """Start staging one round: ``shard_cols[s]`` are this process's shards'
@@ -786,6 +820,35 @@ def stage_table(sink, plan, shard_cols: Dict[int, list], counts: np.ndarray, row
     qplan, q_cols = _quant_parts(plan, qspec)
     copies = {s: HostCopy(_pack_host_bound(cols, q_cols)) for s, cols in shard_cols.items()}
     return PendingStage(sink, qplan, q_cols, copies, counts, row_bytes)
+
+
+def stage_to_sink(sink, table, counts: np.ndarray, after=None) -> None:
+    """Stage a whole table into a caller-owned sink (the JAX package's
+    ``stage_table(sink, table, counts)``: the out-of-core ingest at world 1
+    and its result sink). Each shard this process holds leaves as ONE
+    packed ``[rows, L]`` int32 lane matrix, packed on a side stream and
+    copied into pinned memory (:class:`HostCopy`), is decoded on the host
+    and goes to ``sink.accept(table, shard_cols, counts)``, where
+    ``shard_cols[s]`` is None for a shard another process holds.
+    ``after``: {device: CUDA event} the packing waits for, where the
+    caller is another thread than the table's producer (:class:`HostCopy`)."""
+    local = table.ctx.local_shards
+    flat = {s: table._flat_cols(s) for s in local}
+    plan = _g.lane_plan(flat[local[0]])
+    shard_cols: List[Optional[list]] = [None] * table.world_size
+    with span("shuffle.spill.stage", rows=int(np.sum(counts))):
+        copies = {
+            s: HostCopy(lambda cols=flat[s]: _pack_host_bound(cols, ()), after=after,
+                        sources=[x for d, v in flat[s] for x in (d, v) if x is not None])
+            for s in local
+        }
+        bump("host_sync")
+        for s, copy in copies.items():
+            shard_cols[s], _sc = _host_shard(plan, (), *copy.wait(), decode=True)
+    staged = int(sum(int(counts[s]) for s in local))
+    bump("shuffle.spill.staged_rounds")
+    bump("shuffle.spill.staged_bytes", rows=staged * _sh.exchange_row_bytes(flat[local[0]]))
+    sink.accept(table, shard_cols, counts)
 
 
 #: unsigned dtypes torch gathers through their signed views

@@ -8,7 +8,7 @@ lower product is cached per context under the plan's gated fingerprint
 goes straight to execution. ``.explain()`` shows the plan before and after
 the rewrites and which rules fired.
 
-Not ported: ``explain(analyze=True)`` and ``collect_async`` (ROADMAP.md A9,
+Not ported: ``explain(analyze=True)``, ``collect_async`` and ``dispatch`` (ROADMAP.md A9,
 with the plan feedback component of the fingerprint). :func:`gate_report`
 reads the counters of the engine's adaptive decisions (``GATE_PREFIXES``),
 which the JAX package prints per node under ``explain(analyze=True)``.
@@ -218,6 +218,9 @@ class LazyFrame:
 
     def collect_async(self, block: bool = True):
         raise _not_ported("LazyFrame.collect_async (the serving scheduler)", "A9")
+
+    def dispatch(self):
+        raise _not_ported("LazyFrame.dispatch (the serving scheduler's deferred count)", "A9")
 
 
 def _fired_line(fired) -> str:

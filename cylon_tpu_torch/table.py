@@ -330,6 +330,42 @@ class Table:
         return cls(ctx, _per_shard(ctx, stage), counts)
 
     @classmethod
+    def from_shards(cls, ctx: CylonContext, shards: Sequence[Optional[Dict[str, Any]]]) -> "Table":
+        """Per-shard construction (the JAX package's ``from_shards``): shard
+        s's rows come from ``shards[s]``, a dict of host columns, as each MPI
+        rank loads its own file. Each shard is encoded alone, then types are
+        promoted and dictionaries unified across shards. Under several
+        processes ``shards[s]`` is None for a shard another process owns:
+        every rank gathers the others' column types, dictionaries and row
+        counts, so that all of them unify alike."""
+        world = ctx.world_size
+        if len(shards) != world:
+            raise ValueError(f"need {world} shards, got {len(shards)}")
+        local = ctx.local_shards
+        names = list(shards[local[0]].keys())
+        enc: List[Optional[Dict[str, Encoded]]] = [None] * world
+        for s in local:
+            enc[s] = OrderedDict((n, Column.encode_host(np.asarray(shards[s][n]))) for n in names)
+        if _all_local(ctx):
+            unify_encoded_shards(enc)
+            return cls.from_encoded_shards(ctx, enc)
+        # the other ranks' shards as zero-row stand-ins of their types and
+        # dictionaries: the unification then sees every shard
+        mine = {s: (len(next(iter(enc[s].values()))[0]) if names else 0,
+                    [(n, e[2], e[3]) for n, e in enc[s].items()]) for s in local}
+        counts = np.zeros(world, np.int64)
+        for got in ctx.comm.gather_host(mine):
+            for s, (rows, cols) in got.items():
+                counts[s] = rows
+                if enc[s] is None:
+                    enc[s] = OrderedDict(
+                        (n, (np.empty((0,), DataType.of(dt).physical_dtype), None, dt, dic))
+                        for n, dt, dic in cols)
+        unify_encoded_shards(enc)
+        return cls.from_encoded_shards(ctx, [e if s in local else None for s, e in enumerate(enc)],
+                                       counts)
+
+    @classmethod
     def from_pydict(cls, ctx: CylonContext, data: Dict[str, Any]) -> "Table":
         arrays = {k: np.asarray(v) for k, v in data.items()}
         n = len(next(iter(arrays.values()))) if arrays else 0
@@ -877,8 +913,13 @@ class Table:
                     out[s].append((h[c.data.clamp(0, len(hh) - 1).to(torch.int64)], c.valid))
         return out
 
-    def _shuffle_impl(self, key_names: Sequence[str], byte_budget: Optional[int] = None) -> "Table":
-        return _shuffle_many([_ShuffleSpec(self, tuple(key_names), byte_budget)])[0]
+    def _shuffle_impl(self, key_names: Sequence[str], byte_budget: Optional[int] = None, *,
+                      kind: str = "hash", task_map: Optional[np.ndarray] = None) -> "Table":
+        """One table through :func:`_shuffle_many`: a hash shuffle on
+        ``key_names``, or (``kind="task"``) the task shuffle, which sends a
+        row to worker ``task_map[t]`` of the task id t in its one key column."""
+        return _shuffle_many([_ShuffleSpec(self, tuple(key_names), byte_budget, kind=kind,
+                                           task_map=task_map)])[0]
 
     # ------------------------------------------------------------------
     # join
@@ -2188,12 +2229,18 @@ class Table:
 
         return ILocIndexer(self)
 
+    def task_partition(self, hash_columns: Sequence[Union[str, int]], plan) -> Dict[int, "Table"]:
+        """Task-based all-to-all (the reference's ArrowTaskAllToAll and
+        LogicalTaskPlan): hash rows into the plan's logical tasks and send
+        each task to its owning worker. Returns {task_id: Table}
+        (:func:`cylon_tpu_torch.parallel.task.task_partition`)."""
+        from .parallel.task import task_partition as _tp
+
+        return _tp(self, hash_columns, plan)
+
     # ------------------------------------------------------------------
     # not ported: each raises naming its ROADMAP item
     # ------------------------------------------------------------------
-    def task_partition(self, *args, **kwargs):
-        raise _not_ported("the task shuffle", "A7")
-
     def to_arrow(self, shard: Optional[int] = None):
         raise _not_ported("Arrow export", "A8")
 
@@ -2411,7 +2458,8 @@ class _ShuffleSpec(NamedTuple):
     """One table of a shuffle: its keys, the per-round byte budget (None:
     the context's) and the kind: "hash" routes a row by the murmur3 hash
     of its keys, "range" by the range partition of its first key
-    (``asc0``: that key's direction; ``num_bins``: 0 for 16 x W).
+    (``asc0``: that key's direction; ``num_bins``: 0 for 16 x W), "task"
+    by ``task_map[t]`` of the logical task id t in its one key column.
 
     The sketch fields carry the semi-join filter (ops/sketch.py): with
     ``sketch`` (per owned shard, the pair's combined ``[S, L]`` sketches
@@ -2431,6 +2479,13 @@ class _ShuffleSpec(NamedTuple):
     #: per owned shard the key hashes the sketch build made of this table
     #: (both sides filtered: each table is built and probed), or None
     key_hashes: Optional[Dict[int, Tuple[torch.Tensor, torch.Tensor]]] = None
+    #: the task kind's task -> worker map ([T] ints)
+    task_map: Optional[np.ndarray] = None
+    #: a caller-owned host sink, ``accept(table, shard_cols, counts)``: the
+    #: received rows stream into it as decoded physical columns (no q8
+    #: codes) at tier 1 or 2, and the shuffle returns None for this table
+    #: (the out-of-core ingest, parallel/ooc.py)
+    sink: Optional[Any] = None
 
 
 def _shuffle_state(spec: _ShuffleSpec) -> dict:
@@ -2457,6 +2512,14 @@ def _shuffle_state(spec: _ShuffleSpec) -> dict:
     elif spec.kind == "hash":
         khash = t._key_hash_cols(spec.key_names)
         packs = {s: _codec.pack_hist(*_codec.key_words(khash[s]), counts[s], world) for s in local}
+    elif spec.kind == "task":
+        # task t goes to worker task_map[t]: one gather, then B2a in pid mode
+        tmap = torch.from_numpy(np.asarray(spec.task_map, np.int32))
+        packs = {}
+        for s in local:
+            tasks = t._shards[s][spec.key_names[0]].data
+            wid = tmap.to(tasks.device).index_select(0, tasks.clamp(0, len(tmap) - 1).to(torch.int64))
+            packs[s] = _codec.pack_hist(None, None, (), counts[s], world, pid=wid)
     else:
         raise ValueError(f"unknown shuffle kind {spec.kind!r}")
     flat = {s: t._flat_cols(s) for s in local}
@@ -2660,7 +2723,12 @@ def _plan_state(st: dict) -> None:
     st["new_counts"] = st["send_counts"].sum(axis=0).astype(np.int64)
     bump("shuffle.rounds", rows=k)
 
+    # the tier: choose_tier's; a caller-owned sink takes at least tier 1
+    # (the rows' destination is the host)
+    spec = st["spec"]
     tier = _spill.choose_tier(int(st["new_counts"].max()) * row_bytes)
+    if spec.sink is not None and tier == _spill.TIER_HBM:
+        tier = _spill.TIER_HOST
     # the relay under two hops: same-outer-group tails ride the device
     # ring, cross-outer tails keep the host relay. Only at tier 0 with
     # plain lanes: a q8 relay and a spilled shuffle keep the whole host
@@ -2673,11 +2741,15 @@ def _plan_state(st: dict) -> None:
             st["ring"], st["relay_host"] = (intra_m, cap_ri), inter_m
             bump("shuffle.relay.ring_rows", rows=int(intra_m.sum()))
             bump("shuffle.coll_bytes.intra", rows=_topo.ring_bytes(tcfg, cap_ri, int(row_bytes)))
-    st["sink"] = None
+    st["sink"], st["stage_qsig"] = None, None
     if tier != _spill.TIER_HBM:
         bump("shuffle.spill.shuffles")
         gauge("shuffle.spill.tier", tier)
+    if tier != _spill.TIER_HBM and spec.sink is not None:
+        st["sink"] = _spill.CallerSink(spec.sink, st["t"])
+    elif tier != _spill.TIER_HBM:
         qsig, names = st["relay_qsig"], st["t"].column_names
+        st["stage_qsig"] = qsig
         quant_map, schema = {}, []
         for ci, (dt, _nl, has_valid) in enumerate(st["plan"]):
             ndt = numpy_dtype(dt)
@@ -2699,6 +2771,8 @@ def _plan_state(st: dict) -> None:
     peak_rows = (int(st["t"]._counts.max()) + 2 * w * (bc + nh) + _sh.DROP_ROWS + two_hop_rows
                  + staged_rounds * recv_cap + relay_out + ring_rows)
     st["dev_peak_bytes"] = peak_rows * row_bytes
+    if spec.sink is not None:
+        spec.sink.device_rows_peak = max(getattr(spec.sink, "device_rows_peak", 0), peak_rows)
 
 
 def _send_rows(st: dict, s: int) -> dict:
@@ -2723,7 +2797,7 @@ def _received_cols(st: dict, moved: torch.Tensor) -> List[KeyCol]:
     return _sh.received_cols(st["ref"], st["wire"], st["bases"], moved)
 
 
-def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
+def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Optional[Table]]:
     """The chunked shuffle engine (every Distributed* op funnels through
     here), the JAX package's phases with its two host syncs:
 
@@ -2757,10 +2831,13 @@ def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Table]:
        relayed to it in source order (``spill.fetch_relay``: regrouped on
        the host by the communicator), then the ring's rows in step order,
        or the arenas rebuilt on the device
-       (``spill.arena_result``) when spilled.
+       (``spill.arena_result``) when spilled. A spec with a caller-owned
+       ``sink`` gets no table (None): its staged rounds and relayed rows
+       went to ``sink.accept(table, shard_cols, counts)``.
 
     Failure domain: any exception of phases 3-5 closes every arena the
-    engine owns, and a raw ``OSError`` leaves as ``SpillIOError``.
+    engine owns (a caller's sink is the caller's to close), and a raw
+    ``OSError`` leaves as ``SpillIOError``.
     """
     states = [_shuffle_state(s) for s in specs]
     for st in states:
@@ -2793,10 +2870,10 @@ def _stage_round(st: dict) -> None:
         st["prev"] = None
         cols = {d: _received_cols(st, m) for d, m in moved.items()}
         st["pending"] = _spill.stage_table(st["sink"], st["plan"], cols, expect, st["row_bytes"],
-                                           qspec=st["relay_qsig"])
+                                           qspec=st["stage_qsig"])
 
 
-def _shuffle_many_rounds(states: List[dict]) -> List[Table]:
+def _shuffle_many_rounds(states: List[dict]) -> List[Optional[Table]]:
     """Phases 3-5 of :func:`_shuffle_many`: the relay extraction (and the
     ring under two hops), the round loop, the deferred fetch and the
     result."""
@@ -2917,6 +2994,10 @@ def _shuffle_many_rounds(states: List[dict]) -> List[Table]:
             st["relay_copies"] = None
             if spilled:
                 st["sink"].accept(per_dst, rcounts)
+        if spilled and st["spec"].sink is not None:
+            st["sink"] = None  # the rows live in the caller's sink
+            results.append(None)
+            continue
         if spilled:
             res = _spill.arena_result(st["sink"], t, counts=st["new_counts"])
             st["sink"] = None

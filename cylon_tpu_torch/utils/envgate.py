@@ -10,10 +10,11 @@ of the port reads ``os.environ`` outside this file, except the
 which belong to torch's launcher, not to the port.
 
 The port registers only the knobs of features it has: the shuffle tiers,
-the skew split and the spill tiers (parallel/spill.py), the spill fault
-seams (fault/inject.py), the two-hop topology (parallel/topo.py). Knobs of
-layers it has not ported join with their items (ROADMAP.md A7's
-out-of-core layers, A9); the JAX package's
+the skew split and the spill tiers (parallel/spill.py, which the
+out-of-core layers of parallel/ooc.py, task.py and dag.py read and add
+none to), the spill fault seams (fault/inject.py), the two-hop topology
+(parallel/topo.py). Knobs of layers it has not ported join with their
+items (ROADMAP.md A8, A9); the JAX package's
 knobs that choose between its XLA and Pallas tiers or configure XLA have no
 counterpart (ROADMAP.md A5).
 """

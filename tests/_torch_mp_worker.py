@@ -349,6 +349,38 @@ def case_fused(env):
     return {"inner": j, "outer_sliced": o, "host_syncs": syncs}
 
 
+def case_out_of_core(env):
+    """task_partition with T = 3W (each task's rows on its owner only) and
+    the out-of-core join in 4 buckets of 3000 x 1500 rows in chunks of
+    500: the ingest's caller-owned sinks take each rank's shards, every
+    rank plans the same buckets (one host gather) and stages its own shard
+    of each pair (``Table.from_shards``); the join's rows, a shard each,
+    come back as one table."""
+    from cylon_tpu_torch.parallel import LogicalTaskPlan
+    from cylon_tpu_torch.parallel.ooc import OutOfCoreJoin
+
+    ctx = env.context
+    world = ctx.world_size
+    rng = np.random.default_rng(SEED + 15)
+    t = ctt.Table.from_encoded(ctx, port_encode(
+        {"k": rng.integers(0, 300, 900), "v": rng.normal(size=900),
+         "s": WORDS[rng.integers(0, 60, 900)]}))
+    out = {f"task{i}": p for i, p in t.task_partition(["k"], LogicalTaskPlan(3 * world, world)).items()}
+    cols = {"k": rng.integers(0, 4000, 4500).astype(np.int32), "v": rng.normal(size=4500)}
+
+    def chunks(lo, hi):
+        for a in range(lo, hi, 500):
+            yield {c: v[a:a + 500] for c, v in cols.items()}
+
+    job = OutOfCoreJoin(ctx, on="k", num_buckets=4)
+    sink = job.execute(chunks(0, 3000), chunks(3000, 4500))
+    out["ooc"] = ctt.Table.from_shards(ctx, [
+        sink.result_pydict(shard=s) if s in ctx.local_shards else None for s in range(world)])
+    out["ooc_rows"] = sink.rows
+    sink.close()
+    return out
+
+
 def case_skew8(env):
     """A one-hot shuffle and a skewed join at world 8, where the skew split
     engages: each rank's hot-bucket tail crosses the host relay, one host
@@ -425,7 +457,7 @@ def case_topo8(env):
 
 PORT = OrderedDict([("pk", case_pk), ("ingest", case_ingest), ("env", case_env),
                     ("frame", case_frame), ("surface", case_surface), ("lazy", case_lazy),
-                    ("semi", case_semi), ("fused", case_fused)])
+                    ("semi", case_semi), ("fused", case_fused), ("out_of_core", case_out_of_core)])
 CASES = list(SHARED) + list(PORT)
 #: cases run only where a test names them (their own world)
 EXTRA = OrderedDict([("skew8", case_skew8), ("topo8", case_topo8)])

@@ -81,7 +81,8 @@ def _tables():
         lambda t: t.lazy().collect_async(),
         lambda t: t.to_arrow(),
         lambda t: t.to_csv("out.csv"),
-        lambda t: t.task_partition(["k"], 2),
+        lambda t: ctt.parallel.spill.plan_schedule(np.full((2, 2), 64, np.int64), 8, 2, 1 << 20,
+                                                   trigger=4),
     ],
 )
 def test_unported_arguments_raise(call):

@@ -6,6 +6,7 @@ built with nvcc on first use); without one they skip. On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -863,3 +864,87 @@ def test_two_hop_ops_on_card_match_cpu(dev, mesh, world):
         _dumps_equal(a, b)
     assert counts[0] == counts[1]
     assert ("shuffle.relay.ring_rows" in counts[0]) == (world == 8)
+
+
+@pytest.mark.parametrize("world,tier", [(1, ""), (4, ""), (4, "2")])
+def test_out_of_core_layers_on_card_match_cpu(dev, tmp_path, monkeypatch, world, tier):
+    """The task shuffle (T = 3W), the streaming join graph and the
+    out-of-core join (8 buckets, chunks of 20,000 rows; its results leave
+    the card on the drain thread through a side stream after each join's
+    event) on the card against the CPU: each task's table and the graph's
+    result shard by shard, the join's rows in order, the same spill
+    counters; tier 2 puts the arenas on disk and closes them all."""
+    from cylon_tpu_torch.parallel import LogicalTaskPlan, dag, spill
+    from cylon_tpu_torch.parallel.ooc import OutOfCoreJoin
+    from cylon_tpu_torch.utils import tracing
+
+    monkeypatch.setenv("CYLON_TPU_TORCH_SPILL_TIER", tier)
+    monkeypatch.setenv("CYLON_TPU_TORCH_SPILL_DIR", str(tmp_path))
+    rng = np.random.default_rng(14)
+    n = 120_000
+    left = {"k": rng.integers(0, 2 * n, n).astype(np.int32), "v": rng.normal(size=n).astype(np.float32)}
+    right = {"k": rng.integers(0, 2 * n, n // 2).astype(np.int32),
+             "w": rng.normal(size=n // 2).astype(np.float32)}
+
+    def chunks(cols):
+        m = len(cols["k"])
+        for lo in range(0, m, 20_000):
+            yield {c: v[lo:lo + 20_000] for c, v in cols.items()}
+
+    outs, counts = [], []
+    for device in (dev, "cpu"):
+        ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=device, world_size=world))
+        tracing.reset_trace()
+        tl, tr = ctt.Table.from_pydict(ctx, left), ctt.Table.from_pydict(ctx, right)
+        parts = tl.task_partition(["k"], LogicalTaskPlan(3 * world, world))
+        graph = dag.DisJoinOp(on="k").execute([tl, tl], [tr])
+        sink = OutOfCoreJoin(ctx, on="k", num_buckets=8).execute(chunks(left), chunks(right))
+        rows = sink.result_pydict()
+        outs.append(([_shard_dump(p) for _t, p in sorted(parts.items())], _shard_dump(graph),
+                     sink.rows, {c: v.copy() for c, v in rows.items()}))
+        sink.close()
+        counts.append({k: (v["count"], v["rows"]) for k, v in tracing.report("shuffle.").items()
+                       if k.startswith(("shuffle.spill.", "shuffle.rounds"))
+                       and k not in ("shuffle.spill.ooc_ingest", "shuffle.spill.ooc_join",
+                                     "shuffle.spill.stage", "shuffle.spill.host_bytes",
+                                     "shuffle.spill.disk_bytes", "shuffle.spill.peak_device_bytes")})
+    for a, b in zip(outs[0][0], outs[1][0]):
+        _dumps_equal(a, b)
+    _dumps_equal(outs[0][1], outs[1][1])
+    assert outs[0][2] == outs[1][2] == len(pd.DataFrame(left).merge(pd.DataFrame(right), on="k"))
+    for c in outs[1][3]:
+        np.testing.assert_array_equal(outs[0][3][c], outs[1][3][c])
+    assert counts[0] == counts[1] and counts[0]["shuffle.spill.ooc_joins"][0] == 1
+    assert spill.arena_bytes()[0] == 0 and not list(tmp_path.iterdir())
+
+
+def test_stage_to_sink_waits_for_its_event(dev):
+    """The drain path's copy: a table whose columns a long kernel is still
+    writing on the current stream, staged from another thread on a side
+    stream that waits for the event recorded after that kernel, comes
+    back with the kernel's values, not the ones before it."""
+    import threading
+
+    from cylon_tpu_torch.parallel import spill
+
+    ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=dev))
+    n = 1 << 22
+    t = ctt.Table.from_pydict(ctx, {"x": np.zeros(n, np.float32)})
+    x = t._shards[0]["x"].data
+    torch.cuda._sleep(200_000_000)  # about 0.1 s of card time ahead of the write
+    x.add_(1.0)
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+
+    class Sink:
+        got = None
+
+        def accept(self, table, shard_cols, counts):
+            Sink.got = shard_cols[0][0][0].copy()
+
+    th = threading.Thread(target=spill.stage_to_sink, args=(Sink(), t, t.row_counts),
+                          kwargs={"after": {x.device: ev}})
+    th.start()
+    th.join(timeout=60)
+    assert not th.is_alive()
+    assert Sink.got is not None and (Sink.got == 1.0).all()

@@ -243,7 +243,7 @@ def _tuned_trigger(t):
 
 @pytest.mark.parametrize("call", [
     lambda t: t.lazy().explain(analyze=True), lambda t: t.to_arrow(), lambda t: t.to_csv("x.csv"),
-    lambda t: t.task_partition(["k"], 2), _tuned_trigger,
+    lambda t: t.lazy().dispatch(), _tuned_trigger,
     lambda t: t.to_arrow(shard=0), lambda t: t.lazy().collect_async(),
     lambda t: ctt.DataFrame(t).to_csv("x.csv", csv_write_options={}),
     lambda t: ctt.DataFrame(t).lazy().explain(analyze=True),
