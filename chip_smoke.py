@@ -243,6 +243,7 @@ N_ISIN = 1024  # values of F's isin and labels of its loc list
 F_GROUPS = 65536  # F's g = k % F_GROUPS
 F_NAMES = np.array([f"name{i:02d}" for i in range(64)])  # F's string column, sorted
 MP4_LIMIT_S = 420  # wall-clock limit of the four MP4 processes
+N_CAPI = 1_000_000  # rows a side of the C ABI client's CSVs (workload CAPI)
 N_SEMI = 8_000_000  # rows a side of SEMI4 (run_bench.py config 1b's make_pair)
 N_PACK = 8_000_000  # rows of PACK and a side of PACK4 (lane_pack_bench's tables)
 REPS_T = 3  # timed calls of each SEMI4, PACK and PACK4 variant, after a warm-up
@@ -382,14 +383,17 @@ def make_f():
     }
 
 
-def mp4_calls(ctt, ctx, ctx22):
+def mp4_calls(ctt, ctx, ctx22, io_dir):
     """Phase MP4's calls on a world-4 context, each returning its output
     tables: A4 (join -> groupby), S4 (distributed_sort), U4 (union and
     unique on k) and PK4 (the PK join -> groupby), on the data of those
     workloads; then A4 and S4 again on ``ctx22``, the same shards
     declared as a 2x2 mesh (the two-hop exchange: the inner and outer
     process groups, the ring's ``batch_isend_irecv``). Every rank passes
-    the same host data and stages its own block."""
+    the same host data and stages its own block. IO4_rank reads A's left
+    side from the four files under ``io_dir`` (:func:`write_mp4_inputs`),
+    each rank only its own shard's (the others' paths name no file), and
+    writes its shard's file (:func:`io_rank_call`)."""
     left, right, _rng = make_a()
     tl, tr = ctt.Table.from_pydict(ctx, left), ctt.Table.from_pydict(ctx, right)
     t22_l, t22_r = ctt.Table.from_pydict(ctx22, left), ctt.Table.from_pydict(ctx22, right)
@@ -420,7 +424,35 @@ def mp4_calls(ctt, ctx, ctx22):
         "A4_2x2": lambda: a4_on(t22_l, t22_r),
         "S4_2x2": lambda: {"sort": t22_l.distributed_sort("k")},
         **small_out_of_core_calls(ctt, ctx),
+        "IO4_rank": lambda: io_rank_call(ctt, ctx, io_dir),
     }
+
+
+def mp4_io_paths(io_dir, sub, world=WORLD):
+    return [os.path.join(io_dir, sub, f"part{s}.csv") for s in range(world)]
+
+
+def write_mp4_inputs(ctt, ctx4, io_dir):
+    """IO4_rank's input: A's left side at world 4, one CSV file a shard,
+    written by this one process."""
+    left, _right, _rng = make_a()
+    os.makedirs(os.path.join(io_dir, "in"), exist_ok=True)
+    ctt.write_csv(ctt.Table.from_pydict(ctx4, left), mp4_io_paths(io_dir, "in"))
+
+
+def io_rank_call(ctt, ctx, io_dir):
+    """Per-rank I/O: read_csv of the world's input files, where another
+    process's shard names a file that does not exist (so a rank reads only
+    its own), then write_csv one file a shard (a rank writes only its own,
+    under ``out_mp``; one process under ``out_1p``), then a groupby on k."""
+    local = ctx.local_shards
+    paths = [p if s in local else os.path.join(io_dir, "absent", f"part{s}.csv")
+             for s, p in enumerate(mp4_io_paths(io_dir, "in", ctx.world_size))]
+    t = ctt.read_csv(ctx, paths)
+    sub = "out_mp" if len(local) < ctx.world_size else "out_1p"
+    os.makedirs(os.path.join(io_dir, sub), exist_ok=True)
+    ctt.write_csv(t, mp4_io_paths(io_dir, sub, ctx.world_size))
+    return {"read": t, "groupby": t.distributed_groupby("k", {"v": "sum"})}
 
 
 def small_out_of_core_calls(ctt, ctx):
@@ -470,6 +502,7 @@ MP4_KERNELS = {
     "TASK4_small": ("radix_lane_hist", "radix_onesweep", "pack_hist", "pack_dest", "compact_move"),
     "OOC4_small": ("radix_lane_hist", "radix_onesweep", "expand_rows", "pack_hist", "pack_dest",
                    "compact_move"),
+    "IO4_rank": ("radix_lane_hist", "radix_onesweep", "pack_hist", "pack_dest", "compact_move"),
 }
 
 
@@ -558,7 +591,8 @@ def shard_digests(outputs, s):
     return digests, sums
 
 
-def mp4_worker(rank: int, world: int, address: str, backend: str, out_dir: str) -> None:
+def mp4_worker(rank: int, world: int, address: str, backend: str, out_dir: str,
+               io_dir: str) -> None:
     """One MP4 rank: its shard of every MP4 call, digests, launches and
     times into ``out_dir``."""
     import torch
@@ -582,7 +616,7 @@ def mp4_worker(rank: int, world: int, address: str, backend: str, out_dir: str) 
     ))
     counters = (cuda_radix.LAUNCHES, cuda_gather.LAUNCHES, cuda_codec.LAUNCHES, cuda_probe.LAUNCHES)
     result = {"rank": env.rank, "device": device, "backend": backend, "ops": {}}
-    for op, call in mp4_calls(ctt, ctx, ctx22).items():
+    for op, call in mp4_calls(ctt, ctx, ctx22, io_dir).items():
         for d in counters:
             for k in d:
                 d[k] = 0
@@ -621,7 +655,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_mp4(backend: str, out_dir: str) -> list:
+def run_mp4(backend: str, out_dir: str, io_dir: str) -> list:
     """Start the four MP4 ranks; fail the run when one exits non-zero or
     the limit passes, killing the others. Returns their results."""
     address = f"127.0.0.1:{free_port()}"
@@ -632,7 +666,7 @@ def run_mp4(backend: str, out_dir: str) -> list:
             log = open(os.path.join(out_dir, f"rank{r}.log"), "w")
             procs.append((subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--mp4-worker", str(r), str(WORLD),
-                 address, backend, out_dir],
+                 address, backend, out_dir, io_dir],
                 stdout=log, stderr=subprocess.STDOUT,
             ), log))
         while time.perf_counter() - t0 < MP4_LIMIT_S:
@@ -671,7 +705,10 @@ def phase_mp4(ctt, ctx4) -> dict:
                                        for r in range(WORLD)]}))
     ref, single, tiers = {}, {}, {}
     ctx22 = ctt.CylonContext.init_distributed(ctt.GPUConfig(world_size=WORLD, mesh_shape="2x2"))
-    for op, call in mp4_calls(ctt, ctx4, ctx22).items():
+    io_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mp4_io_")
+    io_dir = io_tmp.name
+    write_mp4_inputs(ctt, ctx4, io_dir)
+    for op, call in mp4_calls(ctt, ctx4, ctx22, io_dir).items():
         pk_join.COUNTS["fallback"] = 0
         before = tier_counts(tracing)
         call()
@@ -690,8 +727,15 @@ def phase_mp4(ctt, ctx4) -> dict:
         del out
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mp4_") as mp4_dir:
         t0 = time.perf_counter()
-        ranks = run_mp4(backend, mp4_dir)
+        ranks = run_mp4(backend, mp4_dir, io_dir)
         wall_s = time.perf_counter() - t0
+        # each rank's file equals one process's and the input it read
+        for d, (mp, one, inp) in enumerate(zip(*(mp4_io_paths(io_dir, sub)
+                                                  for sub in ("out_mp", "out_1p", "in")))):
+            if not open(mp, "rb").read() == open(one, "rb").read() == open(inp, "rb").read():
+                fail(f"MP4 IO4_rank: rank {d}'s file differs from one process's")
+        io_bytes = [os.path.getsize(p) for p in mp4_io_paths(io_dir, "in")]
+        io_tmp.cleanup()
         for r, res in enumerate(ranks):
             print(json.dumps({"mp4_rank": r, "device": res["device"],
                               "digests": {op: v["digests"] for op, v in res["ops"].items()},
@@ -724,7 +768,101 @@ def phase_mp4(ctt, ctx4) -> dict:
         "shard_rows": {op: [res["ops"][op]["shard_rows"] for res in ranks] for op in rank0},
         "launches_rank0": {op: v["launches"] for op, v in rank0.items()},
         "tiers_rank0": {op: v["tiers"] for op, v in rank0.items()}, "tiers_single_process": tiers,
+        "io4_rank_file_bytes": io_bytes,
     }
+
+
+def widen(cols: dict) -> dict:
+    """Host columns as the CSV codec reads them back: integers as int64,
+    floats as float64 (the codec infers no narrower type)."""
+    return {c: v.astype(np.int64 if v.dtype.kind in "iu" else np.float64) for c, v in cols.items()}
+
+
+def tables_identical(a, b, what, sums=()) -> dict:
+    """``a`` equals ``b`` shard for shard, column for column, bit for bit:
+    names, row counts, validity and data; a float sum column of ``sums``
+    (the card adds a group's terms in no fixed order) equal bit for bit or
+    within rtol 1e-12. Returns {sum column: bit-equal in every shard}."""
+    import torch
+
+    if a.column_names != b.column_names or a.row_counts.tolist() != b.row_counts.tolist():
+        fail(f"{what}: names or shard rows differ ({a.row_counts.tolist()} vs "
+             f"{b.row_counts.tolist()})")
+    bits = {c: True for c in sums}
+    for d in a.ctx.local_shards:
+        for c in a.column_names:
+            x, y = a._shards[d][c], b._shards[d][c]
+            if x.data.dtype != y.data.dtype or (x.valid is None) != (y.valid is None) or (
+                    x.valid is not None and not torch.equal(x.valid, y.valid)):
+                fail(f"{what}: shard {d} {c} type or validity differs")
+            if torch.equal(x.data, y.data):
+                continue
+            if c not in sums or not torch.allclose(x.data, y.data, rtol=1e-12, atol=0):
+                fail(f"{what}: shard {d} {c} differs")
+            bits[c] = False
+    return bits
+
+
+def phase_capi(ctt, ctx, io_dir: str, counted) -> dict:
+    """Workload CAPI: the port's C ABI (native/capi.cpp) and its client
+    (native/examples/capi_client.c), built here, run as a program of its
+    own on cuda:0 (no CYLON_TPU_TORCH_PLATFORM) over A-shaped CSVs of
+    N_CAPI rows a side (int32 k uniform in [0, N_CAPI), float32 x and y):
+    read -> distributed_join -> distributed_sort -> project -> write_csv.
+    Its file must equal, byte for byte (sorted, so row for row), the same
+    calls through the Python API in this process, whose launches
+    ``counted(fn) -> (fn(), launches)`` reads. Returns the line."""
+    import sysconfig
+
+    import torch
+    from cylon_tpu_torch import native
+
+    t0 = time.perf_counter()
+    so = native.build_capi()
+    capi_build_s = time.perf_counter() - t0
+    exe = os.path.join(io_dir, "capi_client")
+    t0 = time.perf_counter()
+    subprocess.run(["gcc", "-O2", str(native.HERE / "examples" / "capi_client.c"), "-o", exe,
+                    "-ldl"], check=True, capture_output=True, timeout=120)
+    client_build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 15)
+    lp, rp, out, want_p = (os.path.join(io_dir, f) for f in
+                           ("capi_l.csv", "capi_r.csv", "capi_out.csv", "capi_want.csv"))
+    for path, name in ((lp, "x"), (rp, "y")):
+        ctt.write_csv(ctt.Table.from_pydict(ctx, {
+            "k": rng.integers(0, N_CAPI, N_CAPI).astype(np.int32),
+            name: rng.normal(size=N_CAPI).astype(np.float32)}), path)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root] + [p for p in sys.path if p]),
+               LD_LIBRARY_PATH=os.pathsep.join(filter(None, [
+                   sysconfig.get_config_var("LIBDIR") or "", os.environ.get("LD_LIBRARY_PATH", "")])))
+    env.pop("CYLON_TPU_TORCH_PLATFORM", None)  # the card
+    torch.cuda.empty_cache()  # the client's process shares the card
+    t0 = time.perf_counter()
+    res = subprocess.run([exe, so, lp, rp, out], capture_output=True, text=True, timeout=600,
+                         env=env)
+    client_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"CAPI: the client exited {res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+
+    def python_api():
+        j = ctt.read_csv(ctx, lp).distributed_join(ctt.read_csv(ctx, rp), on="k", how="inner")
+        return j.distributed_sort("k_x").project(["k_x", "x", "y"])
+
+    python_api()  # warm-up
+    t0 = time.perf_counter()
+    want, launches = counted(python_api)
+    ctt.write_csv(want, want_p)
+    python_s = time.perf_counter() - t0
+    if f"rows={want.row_count} cols=3" not in res.stdout:
+        fail(f"CAPI: the client printed {res.stdout.strip()!r}, not rows={want.row_count} cols=3")
+    if open(out, "rb").read() != open(want_p, "rb").read():
+        fail("CAPI: the client's file differs from the Python API's")
+    return {"workload": "CAPI", "rows_per_side": N_CAPI, "join_rows": want.row_count,
+            "capi_build_s": capi_build_s, "client_build_s": client_build_s,
+            "client_s": client_s, "python_api_s": python_s,
+            "out_bytes": os.path.getsize(out), "client_stdout": res.stdout.strip(),
+            "cells": {"python_api": {"launches": launches}}}
 
 
 def main(mp4_only: bool = False) -> None:
@@ -1002,6 +1140,7 @@ def main(mp4_only: bool = False) -> None:
     seg_names, seg_code = np.unique(customers["segment"], return_inverse=True)
     want = np.bincount(seg_code[orders["cust"]], weights=orders["price"],
                        minlength=len(seg_names))
+    b_ref = (seg_names, want)  # workload B_IO4's reference too
     if len(jb) != N_ORDERS or list(gb_host["segment"]) != list(seg_names):
         fail("workload B: join rows or segments differ from the reference")
     # float64 sums of ~330k terms in another order: rtol 1e-9
@@ -2685,6 +2824,136 @@ def main(mp4_only: bool = False) -> None:
     del dl, dr, ul, ur, d_tl, d_tr, u_tl, u_tr
     print(json.dumps({"smi": smi, **work_dag4}))
 
+    # ------------------------------------------------------------------
+    # workloads IO, IO4, B_IO4 and CAPI: files in and out (ROADMAP A8):
+    # the native CSV codec writes A's and B's tables and reads them back,
+    # the main path runs on what it read, and the C ABI's client drives it
+    # from a program of its own
+    # ------------------------------------------------------------------
+    from cylon_tpu_torch import native as _native
+    from cylon_tpu_torch.io import csv as _csv
+
+    io_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_io_")
+    io_dir = io_tmp.name
+    t0 = time.perf_counter()
+    _native.get_lib()  # g++ at first use
+    native_build_s = time.perf_counter() - t0
+    sums_a = ("v_sum", "w_sum")
+
+    def io_path(name):
+        return os.path.join(io_dir, name)
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def write_read(t, paths, ctx_):
+        """write_csv then read_csv of ``paths``: (read table, write s, read
+        s, file bytes)."""
+        _o, w_s = clock(lambda: ctt.write_csv(t, paths))
+        got, r_s = clock(lambda: ctt.read_csv(ctx_, paths))
+        nbytes = sum(os.path.getsize(p) for p in ([paths] if isinstance(paths, str) else paths))
+        return got, w_s, r_s, nbytes
+
+    def join_gb(l_t, r_t):
+        j = l_t.distributed_join(r_t, on="k", how="inner")
+        return j, j.distributed_groupby("k_x", {"v": "sum", "w": "sum"})
+
+    # IO (world 1): A's tables through one file a side
+    wide_l, wide_r = widen(left), widen(right)
+    io_l, wl_s, rl_s, bytes_l = write_read(tl, io_path("a_l.csv"), ctx)
+    io_r, wr_s, rr_s, bytes_r = write_read(tr, io_path("a_r.csv"), ctx)
+    enc_l, parse_s = clock(lambda: _csv._read_one_native(io_path("a_l.csv"), ctt.CSVReadOptions()))
+    _t, stage_s = clock(lambda: ctt.Table.from_encoded(ctx, enc_l))
+    del enc_l, _t
+    ref_l, ref_r = ctt.Table.from_pydict(ctx, wide_l), ctt.Table.from_pydict(ctx, wide_r)
+    tables_identical(io_l, ref_l, "IO: the read left side")
+    tables_identical(io_r, ref_r, "IO: the read right side")
+    (j_io, g_io), cell_io = timed(lambda: join_gb(io_l, io_r), "IO", local_kernels)
+    j_ref, g_ref = join_gb(ref_l, ref_r)
+    tables_identical(j_io, j_ref, "IO join")
+    bits_io = tables_identical(g_io, g_ref, "IO groupby", sums_a)
+    if j_io.row_count != n_join:
+        fail(f"IO: join rows {j_io.row_count} != {n_join}")
+    mb = 1e6
+    work_io = {"workload": "IO", "world": 1, "rows_per_side": N_A, "file_bytes": [bytes_l, bytes_r],
+               "native_build_s": native_build_s,
+               "write_mb_per_s": (bytes_l + bytes_r) / mb / (wl_s + wr_s),
+               "read_mb_per_s": (bytes_l + bytes_r) / mb / (rl_s + rr_s),
+               "write_s": [wl_s, wr_s], "read_s": [rl_s, rr_s],
+               "parse_s_left": parse_s, "staging_ms_left": stage_s * 1e3,
+               "sums_bit_equal": bits_io, "cells": {"join_groupby": cell_io}}
+    del j_io, g_io, j_ref, g_ref, ref_l, ref_r, io_l, io_r
+    print(json.dumps({"smi": smi, **work_io}))
+
+    # IO4 (world 4): one file a shard a side, then one file a side split evenly
+    io4 = {}
+    for side, cols, wide in (("l", left, wide_l), ("r", right, wide_r)):
+        paths = [io_path(f"a4_{side}{s}.csv") for s in range(WORLD)]
+        t4 = ctt.Table.from_pydict(ctx4, cols)
+        got, w_s, r_s, nbytes = write_read(t4, paths, ctx4)
+        offs = np.concatenate([[0], np.cumsum(t4.row_counts)])
+        ref4 = ctt.Table.from_shards(ctx4, [{c: v[offs[s]:offs[s + 1]] for c, v in wide.items()}
+                                            for s in range(WORLD)])
+        tables_identical(got, ref4, f"IO4: the read {side} side, shard for shard")
+        even, even_s = clock(lambda: ctt.read_csv(ctx4, io_path(f"a_{side}.csv")))
+        tables_identical(even, ctt.Table.from_pydict(ctx4, wide), f"IO4: one file, {side} side")
+        io4[side] = (got, ref4, {"write_s": w_s, "read_s": r_s, "file_bytes": nbytes,
+                                 "read_one_file_s": even_s})
+        del even, t4
+    (j4, g4), cell_io4 = timed(lambda: join_gb(io4["l"][0], io4["r"][0]), "IO4", all_kernels)
+    j4_ref, g4_ref = join_gb(io4["l"][1], io4["r"][1])
+    tables_identical(j4, j4_ref, "IO4 join")
+    bits_io4 = tables_identical(g4, g4_ref, "IO4 groupby", sums_a)
+    nbytes4 = sum(v[2]["file_bytes"] for v in io4.values())
+    work_io4 = {"workload": "IO4", "world": WORLD, "rows_per_side": N_A,
+                "sides": {k: v[2] for k, v in io4.items()},
+                "write_mb_per_s": nbytes4 / mb / sum(v[2]["write_s"] for v in io4.values()),
+                "read_mb_per_s": nbytes4 / mb / sum(v[2]["read_s"] for v in io4.values()),
+                "sums_bit_equal": bits_io4, "cells": {"join_groupby": cell_io4}}
+    del j4, g4, j4_ref, g4_ref, io4
+    print(json.dumps({"smi": smi, **work_io4}))
+
+    # B_IO4: B's orders and customers, four files a side at world 4
+    b_tables = {}
+    for name, cols in (("orders", orders), ("customers", customers)):
+        paths = [io_path(f"b_{name}{s}.csv") for s in range(WORLD)]
+        b_tables[name] = write_read(ctt.Table.from_pydict(ctx4, cols), paths, ctx4)
+    if b_tables["customers"][0]._ref["segment"].dictionary.tolist() != list(seg_names):
+        fail("B_IO4: the unified segment dictionary differs from B's")
+
+    def run_b_io4():
+        jb_ = ctt.DataFrame(b_tables["orders"][0]).merge(
+            ctt.DataFrame(b_tables["customers"][0]), on="cust", env=env4)
+        return jb_, jb_.groupby("segment", env=env4).agg({"price": "sum"}).to_dict()
+
+    (jb_io, gb_io), cell_bio = timed(run_b_io4, "B_IO4", all_kernels)
+    b_names, b_want = b_ref
+    order = np.argsort(np.asarray(gb_io["segment"], dtype=str))
+    if len(jb_io) != N_ORDERS or [gb_io["segment"][i] for i in order] != list(b_names):
+        fail("B_IO4: join rows or segments differ from B's")
+    if not np.allclose(np.asarray(gb_io["price_sum"], np.float64)[order], b_want, rtol=1e-9, atol=0):
+        fail("B_IO4: price sums differ from B's (rtol 1e-9)")
+    work_bio4 = {"workload": "B_IO4", "world": WORLD, "orders": N_ORDERS, "customers": N_CUST,
+                 "files": {k: {"write_s": v[1], "read_s": v[2], "file_bytes": v[3]}
+                           for k, v in b_tables.items()}, "cells": {"merge_groupby": cell_bio}}
+    del jb_io, b_tables
+    print(json.dumps({"smi": smi, **work_bio4}))
+
+    def counted(fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, counts()
+
+    work_capi = phase_capi(ctt, ctx, io_dir, counted)
+    require_launches(work_capi["cells"]["python_api"]["launches"], "CAPI", local_kernels)
+    print(json.dumps({"smi": smi, **work_capi}))
+    io_tmp.cleanup()
+
 
     cuda_radix.radix_sort_lane, cuda_gather.expand_rows = orig_lane, orig_expand
     cuda_codec.pack_hist, cuda_codec.pack_dest = orig_hist, orig_dest
@@ -3067,7 +3336,8 @@ def main(mp4_only: bool = False) -> None:
                        ("skew8", work_skew), ("skew8_join", work_skew_j), ("spill4", work_spill),
                        ("topo8_loc", work_topo), ("topo8_ring", work_ring),
                        ("fused4_2x2", work_fused22), ("ooc", work_ooc), ("ooc4", work_ooc4),
-                       ("task4", work_task4), ("dag4", work_dag4)):
+                       ("task4", work_task4), ("dag4", work_dag4), ("io", work_io),
+                       ("io4", work_io4), ("b_io4", work_bio4), ("capi", work_capi)):
             cells = w["cells"].items()
             if tag == "semi4":
                 cells = [(f"{sel}_{mode}", m) for sel, c in w["cells"].items() for mode, m in c.items()]
@@ -3096,7 +3366,7 @@ def main(mp4_only: bool = False) -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mp4-worker"]:
-        rank_, world_, address_, backend_, out_dir_ = sys.argv[2:7]
-        mp4_worker(int(rank_), int(world_), address_, backend_, out_dir_)
+        rank_, world_, address_, backend_, out_dir_, io_dir_ = sys.argv[2:8]
+        mp4_worker(int(rank_), int(world_), address_, backend_, out_dir_, io_dir_)
     else:
         main(mp4_only=sys.argv[1:] == ["--mp4"])

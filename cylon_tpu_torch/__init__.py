@@ -19,15 +19,28 @@ process_id=rank)`` (NCCL on the cards, gloo on the CPU), or
 ``coordinator_address="env://"`` under ``torchrun``. Lazy plans:
 ``t.lazy().join(u.lazy(), on="k").filter(col("v") > 0).groupby("k",
 {"v": "sum"})`` with ``.explain()`` and ``.collect()``.
+
+Files: ``read_csv(ctx, path or [one path a shard])`` through the native
+C++ codec (``native/``), ``write_csv(table, path or paths)``,
+``read_parquet`` / ``write_parquet`` through pyarrow, with
+``CSVReadOptions``, ``CSVWriteOptions`` and ``ParquetOptions``; and
+``Table.to_arrow`` / ``from_arrow``. A foreign language drives the same
+calls through the C ABI of ``native/capi.cpp`` (``native.build_capi()``).
 """
 from . import compute, indexing
 from .config import GPUConfig
 from .context import CylonContext
 from .frame import CylonEnv, DataFrame
+from .io import (
+    CSVReadOptions, CSVWriteOptions, ParquetOptions, read_csv, read_parquet, write_csv,
+    write_parquet,
+)
 from .join_config import JoinConfig
 from .plan import LazyFrame, col, lit
 from .series import Series
-from .table import Table
+from .table import Table, concat
 
-__all__ = ["CylonContext", "CylonEnv", "DataFrame", "GPUConfig", "JoinConfig", "LazyFrame",
-           "Series", "Table", "col", "compute", "indexing", "lit"]
+__all__ = ["CSVReadOptions", "CSVWriteOptions", "CylonContext", "CylonEnv", "DataFrame",
+           "GPUConfig", "JoinConfig", "LazyFrame", "ParquetOptions", "Series", "Table", "col",
+           "compute", "concat", "indexing", "lit", "read_csv", "read_parquet", "write_csv",
+           "write_parquet"]

@@ -28,6 +28,7 @@ shard's buffer to its ring neighbour (the skew relay's ring).
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -307,6 +308,9 @@ def _mesh_spec(mesh_shape) -> str:
     return str(mesh_shape) if mesh_shape else MESH_ENV.get()
 
 
+_POOL_LOCK = threading.Lock()  # first use of a context's memory_pool
+
+
 class CylonContext:
     def __init__(self, devices: Sequence[Optional[torch.device]], comm=None, mesh_shape=None):
         self.devices: List[Optional[torch.device]] = list(devices)
@@ -325,6 +329,7 @@ class CylonContext:
         #: the shard indices this process owns
         self.local_shards: List[int] = [s for s, d in enumerate(self.devices) if d is not None]
         self._finalized = False
+        self._memory_pool = None  # the native arena pool, made on first use
         # reclaim tier-2 spill directories orphaned by dead processes of
         # this host (pid-stamped, age-guarded; never raises)
         from .parallel.spill import reap_stale_spill
@@ -411,6 +416,23 @@ class CylonContext:
         from .ops.quant import tolerance
 
         return tolerance(self._config.get("quant_tol"))
+
+    @property
+    def memory_pool(self):
+        """The context's native arena pool for host staging buffers
+        (reference ToArrowPool(ctx), ctx/arrow_memory_pool_utils.hpp; here
+        native/runtime.cpp), made on first use; None under
+        CYLON_TPU_TORCH_NO_NATIVE. A failed native build raises.
+        ``write_csv`` resets it at the start of each native write and
+        carves that write's typed staging copies from it."""
+        from . import native
+
+        if not native.enabled():
+            return None
+        with _POOL_LOCK:
+            if self._memory_pool is None:
+                self._memory_pool = native.MemoryPool()
+        return self._memory_pool
 
     def __repr__(self):
         return (

@@ -148,7 +148,6 @@ class DataFrame:
     def _wrap(self, t: Table) -> "DataFrame":
         return DataFrame(t)
 
-    # -- not ported --------------------------------------------------------
     def lazy(self):
         """A lazy query plan over this frame's table (``plan/lazy.py``):
         ``df.lazy().filter(...).join(...).groupby(...).collect()``."""
@@ -158,10 +157,15 @@ class DataFrame:
         raise _not_ported("DataFrame.collect_async (the serving scheduler)", "A9")
 
     def to_arrow(self):
-        raise _not_ported("Arrow export", "A8")
+        """Typed pyarrow.Table (reference frame.py:217; Table.to_arrow)."""
+        return self._table.to_arrow()
 
     def to_csv(self, path, csv_write_options=None) -> None:
-        raise _not_ported("CSV output", "A8")
+        """Write CSV (reference frame.py:226; one file a shard given a list
+        of world_size paths)."""
+        from .io.csv import write_csv
+
+        write_csv(self._table, path, csv_write_options)
 
     # -- device placement (the JAX package's: the columns already live on
     #    the context's devices; host copies come from to_pandas) ------------

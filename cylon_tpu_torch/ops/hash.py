@@ -177,8 +177,8 @@ def hash_columns(cols: Sequence[KeyCol], seed=0) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------
-# strings: murmur3_x86_32 of the UTF-8 bytes (the JAX package's
-# native.murmur3_strings and its pure-python twin, util/murmur3.cpp)
+# strings: murmur3_x86_32 of the UTF-8 bytes (util/murmur3.cpp): the
+# plain twin of native/runtime.cpp's ct_murmur3_32
 # ----------------------------------------------------------------------
 
 def murmur3_bytes(data: bytes, seed: int = 0) -> int:
@@ -217,7 +217,9 @@ def hash_dictionary_host(dictionary: np.ndarray) -> np.ndarray:
     """uint32 value hash of each dictionary string (host side, once per
     dictionary). Hashing ``dict_hash[codes]`` instead of the codes makes
     routing independent of the dictionary: equal strings land on the same
-    shard whichever table encoded them."""
-    return np.array(
-        [murmur3_bytes(str(s).encode("utf-8")) for s in dictionary], np.uint32
-    )
+    shard whichever table encoded them. Through ``native.murmur3_strings``:
+    its C++ batch where the native library is already loaded, else
+    :func:`murmur3_bytes`, the same bits."""
+    from ..native import murmur3_strings
+
+    return murmur3_strings(dictionary)

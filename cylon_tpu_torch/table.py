@@ -44,6 +44,7 @@ from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
+from . import native
 from . import ordering as _ord
 from .column import Column, unify_dictionaries
 from .context import CylonContext
@@ -184,7 +185,10 @@ def promote_encoded_shards(shards: List[Optional[Dict[str, Encoded]]]) -> None:
 
 def unify_encoded_shards(shards: List[Optional[Dict[str, Encoded]]]) -> None:
     """Promote disagreeing types, then remap every shard's dictionary codes
-    onto the union dictionary in place (the JAX package's function)."""
+    onto the union dictionary in place (the JAX package's function). The
+    per-shard dictionaries are sorted and unique, so each fold is the
+    native two-pointer merge (``native.dict_union``) where it serves, and
+    ``np.union1d`` where it does not."""
     promote_encoded_shards(shards)
     live = [s for s in shards if s is not None]
     if not live:
@@ -194,11 +198,50 @@ def unify_encoded_shards(shards: List[Optional[Dict[str, Encoded]]]) -> None:
             continue
         union = live[0][name][3]
         for s in live[1:]:
-            union = np.union1d(union, s[name][3])
+            d = s[name][3]
+            got = native.dict_union(np.asarray(union), np.asarray(d))
+            union = got[0] if got is not None else np.union1d(union, d)
         for s in live:
             data, valid, dtype, d = s[name]
             remap = np.searchsorted(union, d).astype(np.int32)
             s[name] = (remap[data] if len(d) else data, valid, dtype, union)
+
+
+def _encode_arrow_array(chunked) -> Encoded:
+    """pyarrow ChunkedArray/Array -> (physical, valid, DataType, dictionary),
+    typed (the JAX package's function; reference arrow/arrow_types.cpp):
+    strings and dictionary arrays become codes on the sorted unique
+    dictionary (code order == value order), integers with nulls stay
+    integral, timestamps, dates and durations become int64 nanoseconds,
+    validity bitmaps the mask."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    arr = chunked.combine_chunks() if hasattr(chunked, "combine_chunks") else chunked
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.chunk(0) if arr.num_chunks == 1 else pa.concat_arrays(arr.chunks)
+    valid = ~np.asarray(arr.is_null()) if arr.null_count else None
+    t = arr.type
+    if pa.types.is_string(t) or pa.types.is_large_string(t):
+        arr = arr.dictionary_encode()
+        t = arr.type
+    if pa.types.is_dictionary(t):
+        raw_dict = np.asarray(arr.dictionary.to_pylist(), dtype=str)
+        codes = np.asarray(pc.fill_null(arr.indices, 0)).astype(np.int32)
+        sorted_dict, remap = np.unique(raw_dict, return_inverse=True)
+        return remap.astype(np.int32)[codes], valid, DataType(Type.STRING), sorted_dict
+    if pa.types.is_timestamp(t) or pa.types.is_date(t):
+        data = np.asarray(arr.cast(pa.timestamp("ns")).fill_null(0)).astype(np.int64)
+        return data, valid, DataType(Type.TIMESTAMP), None
+    if pa.types.is_duration(t):
+        data = np.asarray(arr.cast(pa.duration("ns")).fill_null(0)).astype(np.int64)
+        return data, valid, DataType(Type.DURATION), None
+    if pa.types.is_boolean(t):
+        return np.asarray(arr.fill_null(False)), valid, DataType(Type.BOOL), None
+    if pa.types.is_floating(t) or pa.types.is_integer(t):
+        data = np.asarray(arr.fill_null(0.0 if pa.types.is_floating(t) else 0))
+        return data, valid, DataType.from_numpy_dtype(data.dtype), None
+    raise TypeError(f"unsupported arrow type {t}")
 
 
 class Table:
@@ -346,14 +389,23 @@ class Table:
         enc: List[Optional[Dict[str, Encoded]]] = [None] * world
         for s in local:
             enc[s] = OrderedDict((n, Column.encode_host(np.asarray(shards[s][n]))) for n in names)
+        return cls._from_local_encoded(ctx, enc)
+
+    @classmethod
+    def _from_local_encoded(cls, ctx: CylonContext,
+                            enc: List[Optional[Dict[str, Encoded]]]) -> "Table":
+        """A table from the encodings of this process's shards (None for
+        the others'), e.g. the files of a per-rank read: every rank gathers
+        the others' row counts, types and dictionaries as zero-row
+        stand-ins, so all of them promote and unify alike, then stages its
+        own shards."""
+        local = ctx.local_shards
         if _all_local(ctx):
             unify_encoded_shards(enc)
             return cls.from_encoded_shards(ctx, enc)
-        # the other ranks' shards as zero-row stand-ins of their types and
-        # dictionaries: the unification then sees every shard
-        mine = {s: (len(next(iter(enc[s].values()))[0]) if names else 0,
+        mine = {s: (len(next(iter(enc[s].values()))[0]) if enc[s] else 0,
                     [(n, e[2], e[3]) for n, e in enc[s].items()]) for s in local}
-        counts = np.zeros(world, np.int64)
+        counts = np.zeros(ctx.world_size, np.int64)
         for got in ctx.comm.gather_host(mine):
             for s, (rows, cols) in got.items():
                 counts[s] = rows
@@ -2239,17 +2291,51 @@ class Table:
         return _tp(self, hash_columns, plan)
 
     # ------------------------------------------------------------------
-    # not ported: each raises naming its ROADMAP item
+    # Arrow and CSV (io/, native/)
     # ------------------------------------------------------------------
-    def to_arrow(self, shard: Optional[int] = None):
-        raise _not_ported("Arrow export", "A8")
-
     @classmethod
-    def from_arrow(cls, ctx: CylonContext, atable):
-        raise _not_ported("Arrow import", "A8")
+    def from_arrow(cls, ctx: CylonContext, atable) -> "Table":
+        """From a pyarrow.Table, typed (reference Table::FromArrowTable):
+        dictionary arrays keep their codes (remapped onto a sorted
+        dictionary), integer columns with nulls stay integral, validity
+        bitmaps become the mask (:func:`_encode_arrow_array`)."""
+        return cls.from_encoded(ctx, OrderedDict(
+            (name, _encode_arrow_array(atable.column(name))) for name in atable.column_names))
+
+    def to_arrow(self, shard: Optional[int] = None):
+        """Typed pyarrow.Table: dictionary columns as pa.DictionaryArray
+        (codes and dictionary), validity masks as null bitmaps, integers
+        integral. ``shard=i`` exports shard i's rows alone, fetched without
+        a gather (per-rank IO; the shard must be this process's)."""
+        import pyarrow as pa
+
+        if shard is None:
+            host = self._host_physical(self.column_names)
+        else:
+            host = {n: self._host_physical_shard(n, shard) for n in self.column_names}
+        arrays = []
+        for name in self.column_names:
+            col, (data, valid) = self._ref[name], host[name]
+            mask = None if valid is None else ~valid
+            if col.dtype.is_dictionary:
+                arr = pa.DictionaryArray.from_arrays(
+                    pa.array(np.asarray(data, np.int32), mask=mask),
+                    pa.array(col.dictionary.astype(object)))
+            elif col.dtype.type == Type.TIMESTAMP:
+                arr = pa.array(data.astype("datetime64[ns]"), mask=mask)
+            elif col.dtype.type == Type.DURATION:
+                arr = pa.array(data.astype("timedelta64[ns]"), mask=mask)
+            else:
+                arr = pa.array(data, mask=mask)
+            arrays.append(arr)
+        return pa.Table.from_arrays(arrays, names=self.column_names)
 
     def to_csv(self, path, csv_write_options=None) -> None:
-        raise _not_ported("CSV output", "A8")
+        """Write CSV (reference table.pyx to_csv): one file, or one a shard
+        given a list of world_size paths (:func:`io.csv.write_csv`)."""
+        from .io.csv import write_csv
+
+        write_csv(self, path, csv_write_options)
 
     def __repr__(self):
         return (
@@ -2413,6 +2499,13 @@ def _promote_key_pair(
         ra._attach_stats({n: v for n, v in a._stats.items() if ra._ref[n] is a._ref[n]}),
         rb._attach_stats({n: v for n, v in b._stats.items() if rb._ref[n] is b._ref[n]}),
     )
+
+
+def concat(tables: Sequence[Table]) -> Table:
+    """Row-stack same-schema tables shard by shard (pycylon's Table.concat,
+    the JAX package's module-level ``concat``, which the C ABI's
+    ``ct_api_merge`` calls)."""
+    return _concat_tables(list(tables))
 
 
 def _concat_tables(tables: Sequence[Table]) -> Table:

@@ -13,10 +13,12 @@ The port registers only the knobs of features it has: the shuffle tiers,
 the skew split and the spill tiers (parallel/spill.py, which the
 out-of-core layers of parallel/ooc.py, task.py and dag.py read and add
 none to), the spill fault seams (fault/inject.py), the two-hop topology
-(parallel/topo.py). Knobs of layers it has not ported join with their
-items (ROADMAP.md A8, A9); the JAX package's
+(parallel/topo.py), the native runtime's kill switch (native/) and the C
+ABI's platform (native/capi.cpp's ``ct_api_init``). Knobs of layers it has
+not ported join with their items (ROADMAP.md A9); the JAX package's
 knobs that choose between its XLA and Pallas tiers or configure XLA have no
-counterpart (ROADMAP.md A5).
+counterpart (ROADMAP.md A5), nor has its AddressSanitizer build of the
+native runtime (ROADMAP.md, "Left out so far").
 """
 from __future__ import annotations
 
@@ -38,6 +40,8 @@ KINDS = {
     # alters which host code paths raise (fault injection), never a plan
     # or a result where it does not fire
     "observability": "host-only reads; never a plan, a cache key or a result",
+    # native-extension build and runtime configuration (host code only)
+    "native": "native extension build/runtime config",
 }
 
 REGISTRY: Dict[str, "EnvKnob"] = {}
@@ -182,4 +186,18 @@ FAULTS = EnvKnob(
     "comma-separated 'seam[:p=0.05][:kind=ENOSPC][:n=3][:seed=7]' clauses "
     "arming spill.write/spill.read/arena.alloc; read at import and at "
     "fault.inject.refresh()",
+)
+
+# -- the native runtime and the C ABI (native/; the JAX package's
+# CYLON_TPU_NO_NATIVE and CYLON_TPU_PLATFORM) --
+NO_NATIVE = EnvKnob(
+    "CYLON_TPU_TORCH_NO_NATIVE", "", kind="native",
+    note="=1 turns the native C++ codec off: CSV reads go through pyarrow, "
+    "writes through pandas, and murmur3_strings takes its Python twin",
+)
+PLATFORM = EnvKnob(
+    "CYLON_TPU_TORCH_PLATFORM", "", kind="startup",
+    note="the device of the C ABI's context (native/capi.cpp ct_api_init): "
+    "unset = GPUConfig() on cuda:0, which raises without a card; 'cpu' "
+    "asks for the CPU; read once, at ct_api_init",
 )

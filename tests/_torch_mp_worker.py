@@ -455,12 +455,67 @@ def case_topo8(env):
     return out
 
 
+#: the directory of case_io's files: the rank processes' OUT_DIR, or one
+#: the test process sets for its own run
+IO_DIR = None
+
+
+def _io_input(path, s):
+    """Shard s's input file: int64 keys, float64 with empty fields (nulls),
+    a string column whose dictionary differs from file to file, and m,
+    int64 in the even files and float64 in the odd ones."""
+    rng = np.random.default_rng(SEED + 30 + s)
+    n = 40 + 9 * s
+    words = WORDS[5 * s: 5 * s + 12]
+    lines = ["k,x,s,m"]
+    for r in range(n):
+        x = "" if r % 5 == 2 else repr(float(rng.normal()))
+        m = int(rng.integers(0, 9)) + (0.5 if s % 2 else 0)
+        lines.append(f"{int(rng.integers(0, 25))},{x},{rng.choice(words)},{m}")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("\n".join(lines) + "\n")
+
+
+def case_io(env):
+    """Per-rank file I/O: each rank writes its own shard's input file, then
+    read_csv of world_size paths in which every other shard's path names a
+    file that does not exist (a rank reads only its own), write_csv of one
+    path a shard (each rank its own file) and of one path (the rank of
+    shard 0 writes it after a gather), and a groupby on the unified string
+    column; under torch.distributed also write_parquet and read_parquet one
+    file a shard (one process skips them: parquet I/O beside jaxlib has
+    made later XLA compiles of the test process segfault). Returns the
+    tables and the bytes of the files this process wrote."""
+    ctx = env.context
+    w, local = ctx.world_size, ctx.local_shards
+    d = Path(IO_DIR)
+    for s in local:
+        _io_input(d / "in" / f"part{s}.csv", s)
+
+    def mine(sub, ext):
+        return [str(d / (sub if s in local else "absent") / f"part{s}.{ext}") for s in range(w)]
+
+    t = ctt.read_csv(ctx, mine("in", "csv"))
+    (d / "out").mkdir(exist_ok=True)
+    ctt.write_csv(t, [str(d / "out" / f"part{s}.csv") for s in range(w)])
+    ctt.write_csv(t, str(d / "out" / "whole.csv"))
+    written = {s: (d / "out" / f"part{s}.csv").read_bytes() for s in local}
+    if 0 in local:
+        written["whole"] = (d / "out" / "whole.csv").read_bytes()
+    out = {"csv": t, "groupby": t.distributed_groupby("s", {"x": "sum", "m": "max"}),
+           "written": written}
+    if len(local) < w:
+        ctt.write_parquet(t, [str(d / "out" / f"part{s}.parquet") for s in range(w)])
+        out["parquet"] = ctt.read_parquet(ctx, mine("out", "parquet"))
+    return out
+
+
 PORT = OrderedDict([("pk", case_pk), ("ingest", case_ingest), ("env", case_env),
                     ("frame", case_frame), ("surface", case_surface), ("lazy", case_lazy),
                     ("semi", case_semi), ("fused", case_fused), ("out_of_core", case_out_of_core)])
 CASES = list(SHARED) + list(PORT)
 #: cases run only where a test names them (their own world)
-EXTRA = OrderedDict([("skew8", case_skew8), ("topo8", case_topo8)])
+EXTRA = OrderedDict([("skew8", case_skew8), ("topo8", case_topo8), ("io", case_io)])
 #: (init URL, device, backend) of a rank process, for contexts a case makes
 RANK_ARGS = ()
 
@@ -628,11 +683,12 @@ def record_equal(got, want, what, shard, sums_close=False):
 
 
 def main(argv):
-    global RANK_ARGS
+    global RANK_ARGS, IO_DIR
     rank, world, url, out_dir, device, backend = argv[:6]
     names = argv[6:] or CASES
     torch.set_num_threads(1)
     RANK_ARGS = (url, device, backend)
+    IO_DIR = out_dir
     env = ctt.CylonEnv(config=ctt.GPUConfig(
         device=device, coordinator_address=url, num_processes=int(world),
         process_id=int(rank), backend=backend,

@@ -1,6 +1,7 @@
-"""The port's boundaries: it imports neither JAX nor the JAX package, its
-device rule (the card unless the caller asks for the CPU), and the
-arguments it has not ported raise NotImplementedError."""
+"""The port's boundaries: it imports neither JAX nor the JAX package (its
+Python modules, nor its C and C++ sources), its device rule (the card
+unless the caller asks for the CPU), and the arguments it has not ported
+raise NotImplementedError."""
 import ast
 import os
 import subprocess
@@ -76,11 +77,8 @@ def _tables():
 @pytest.mark.parametrize(
     "call",
     [
-        lambda t: ctt.Table.from_arrow(t.ctx, None),
         lambda t: t.lazy().explain(analyze=True),
         lambda t: t.lazy().collect_async(),
-        lambda t: t.to_arrow(),
-        lambda t: t.to_csv("out.csv"),
         lambda t: ctt.parallel.spill.plan_schedule(np.full((2, 2), 64, np.int64), 8, 2, 1 << 20,
                                                    trigger=4),
     ],
@@ -89,6 +87,49 @@ def test_unported_arguments_raise(call):
     _ctx, t = _tables()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(t)
+
+
+@pytest.mark.parametrize("call", ["from_arrow", "to_arrow", "to_csv"])
+def test_arrow_and_csv_calls_give_the_jax_packages_results(tmp_path, call):
+    """The calls that raised until the I/O layers were ported, against the
+    JAX package's on the same table (tests/test_torch_io.py holds the rest
+    of the I/O surface)."""
+    import jax
+
+    import cylon_tpu as ct
+
+    _ctx, t = _tables()
+    jctx = ct.CylonContext.init_distributed(ct.TPUConfig(devices=jax.devices()[:1]))
+    jt = ct.Table.from_pydict(jctx, t.to_pydict())
+    if call == "from_arrow":
+        got = ctt.Table.from_arrow(t.ctx, jt.to_arrow())
+        assert got.to_pandas().equals(jt.to_pandas()) and got._ref["k"].data.dtype == torch.int32
+    elif call == "to_arrow":
+        assert t.to_arrow().equals(jt.to_arrow())
+    else:
+        t.to_csv(str(tmp_path / "t.csv"))
+        jt.to_csv(str(tmp_path / "j.csv"))
+        assert (tmp_path / "t.csv").read_bytes() == (tmp_path / "j.csv").read_bytes()
+
+
+NATIVE_SOURCES = ("native/csv.cpp", "native/runtime.cpp", "native/capi.cpp",
+                  "native/examples/capi_client.c", "native/examples/java_abi_harness.c")
+
+
+@pytest.mark.parametrize("rel", NATIVE_SOURCES)
+def test_native_sources_reach_neither_jax_nor_the_jax_package(rel):
+    """The port's C and C++ sources are its own copies: none imports a
+    Python module of the JAX package, includes a file of its tree, or
+    loads its libraries."""
+    import re
+
+    text = (PKG / rel).read_text()
+    for mod in re.findall(r'PyImport_ImportModule\("([^"]+)"\)', text):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "cylon_tpu"), (rel, mod)
+    assert not re.search(r'#include\s*[<"][^>"]*cylon_tpu/', text), rel
+    assert "_cylon_native" not in text and "_cylon_capi" not in text, rel
+    if rel == "native/capi.cpp":
+        assert 'PyImport_ImportModule("cylon_tpu_torch")' in text
 
 
 def test_world_size_above_one_raises(monkeypatch):

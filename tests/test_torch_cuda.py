@@ -948,3 +948,79 @@ def test_stage_to_sink_waits_for_its_event(dev):
     th.join(timeout=60)
     assert not th.is_alive()
     assert Sink.got is not None and (Sink.got == 1.0).all()
+
+
+@pytest.mark.parametrize("world,layout", [(1, "one"), (4, "one"), (4, "per_shard")])
+def test_csv_io_on_card_matches_cpu(dev, tmp_path, world, layout):
+    """write_csv of a table on the card (int64, float64 with nulls, a
+    string column) gives the CPU's bytes; read_csv onto the card (one path
+    split evenly, or one file a shard) gives the CPU's shards; the join ->
+    groupby (max, min) over the read tables equals the CPU's shard for
+    shard."""
+    rng = np.random.default_rng(15)
+    n = 50_000
+    x = rng.normal(size=n)
+    x[rng.random(n) < 0.1] = np.nan
+    cols = {"k": rng.integers(0, n, n), "x": x, "s": rng.choice(["a", "b,c", "d"], n)}
+    right = {"k": rng.integers(0, n, n // 2), "w": rng.normal(size=n // 2)}
+    outs = []
+    for device in (dev, "cpu"):
+        ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=device, world_size=world))
+        tag = "card" if device != "cpu" else "cpu"
+        paths = {}
+        for side, data in (("l", cols), ("r", right)):
+            t = ctt.Table.from_pydict(ctx, data)
+            if layout == "one":
+                paths[side] = str(tmp_path / f"{tag}_{side}.csv")
+            else:
+                paths[side] = [str(tmp_path / f"{tag}_{side}{s}.csv") for s in range(world)]
+            ctt.write_csv(t, paths[side])
+        tl, tr = ctt.read_csv(ctx, paths["l"]), ctt.read_csv(ctx, paths["r"])
+        assert tl._ref["k"].data.device.type == torch.device(device).type
+        # min and max: exact whatever order the card adds in
+        g = tl.distributed_join(tr, on="k").distributed_groupby("k_x", {"x": "max", "w": "min"})
+        files = paths["l"] if layout == "per_shard" else [paths["l"]]
+        outs.append(([open(p, "rb").read() for p in files], _shard_dump(tl), _shard_dump(g)))
+    assert outs[0][0] == outs[1][0]
+    _dumps_equal(outs[0][1], outs[1][1])
+    _dumps_equal(outs[0][2], outs[1][2])
+
+
+def test_capi_client_on_card_matches_the_python_api(dev, tmp_path):
+    """The C ABI's client (native/examples/capi_client.c) with no
+    CYLON_TPU_TORCH_PLATFORM, so on cuda:0: read -> distributed_join ->
+    distributed_sort -> project -> write_csv equals the same calls through
+    the Python API on the card, byte for byte."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+    import sysconfig
+
+    from cylon_tpu_torch import native
+
+    if shutil.which("gcc") is None:
+        pytest.skip("no gcc")
+    so = native.build_capi()
+    exe = str(tmp_path / "capi_client")
+    subprocess.run(["gcc", "-O2", str(native.HERE / "examples" / "capi_client.c"), "-o", exe,
+                    "-ldl"], check=True, timeout=120)
+    ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=dev))
+    rng = np.random.default_rng(16)
+    lp, rp, out = (str(tmp_path / f) for f in ("l.csv", "r.csv", "out.csv"))
+    ctt.write_csv(ctt.Table.from_pydict(ctx, {"k": rng.integers(0, 5000, 20_000),
+                                               "x": rng.normal(size=20_000)}), lp)
+    ctt.write_csv(ctt.Table.from_pydict(ctx, {"k": rng.integers(0, 5000, 10_000),
+                                               "y": rng.normal(size=10_000)}), rp)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root] + [p for p in sys.path if p]),
+               LD_LIBRARY_PATH=sysconfig.get_config_var("LIBDIR") or "")
+    env.pop("CYLON_TPU_TORCH_PLATFORM", None)
+    res = subprocess.run([exe, so, lp, rp, out], capture_output=True, text=True, timeout=600,
+                         env=env)
+    assert res.returncode == 0, res.stderr[-3000:]
+    want = (ctt.read_csv(ctx, lp).distributed_join(ctt.read_csv(ctx, rp), on="k")
+            .distributed_sort("k_x").project(["k_x", "x", "y"]))
+    ctt.write_csv(want, str(tmp_path / "want.csv"))
+    assert f"rows={want.row_count} cols=3" in res.stdout
+    assert open(out, "rb").read() == (tmp_path / "want.csv").read_bytes()

@@ -114,7 +114,7 @@ def test_groupby_view_shortcuts_match_reference(rng):
 
 
 def test_unported_and_device_rules(monkeypatch):
-    _jd, td = _frames({"k": np.arange(6), "v": np.ones(6)})
+    jd, td = _frames({"k": np.arange(6), "v": np.ones(6)})
     env = ctt.CylonEnv(config=ctt.GPUConfig(device="cpu", world_size=4))
     # the fused mode needs a distributed env, as in the JAX package, and
     # under one gives the eager merge's rows
@@ -126,9 +126,10 @@ def test_unported_and_device_rules(monkeypatch):
         eager.sort_values(list(eager.columns)).reset_index(drop=True))
     with pytest.raises(ValueError, match="unknown join mode"):
         td.join(td, on="k", mode="lazy")
-    for op in ("collect_async", "to_arrow"):  # std/var/nunique: test_torch_groupby_aggs
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(td, op)()
+    # std/var/nunique: test_torch_groupby_aggs
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        td.collect_async()
+    assert td.to_arrow().equals(jd.to_arrow())  # ported with the I/O layers (A8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md: A9"):  # lazy: test_torch_plan
         td.lazy().explain(analyze=True)
     local = ctt.CylonEnv(config=ctt.GPUConfig(device="cpu", world_size=4), distributed=False)

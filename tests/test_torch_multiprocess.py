@@ -198,6 +198,32 @@ def test_world8_skew_relay_rank_equals_local_shard(tmp_path, monkeypatch):
             W.record_equal(got[key], topo[key], f"topo8 {key}", r)
 
 
+@pytest.mark.parametrize("world", [2, 4])
+def test_io_ranks_read_and_write_only_their_own_files(tmp_path, world, monkeypatch):
+    """gloo ranks each read only their own shard's CSV file (every other
+    path names a file that does not exist on that rank) and write only
+    their own: rank d's tables equal shard d of one process, whose
+    unification saw every file, and the files it wrote equal one
+    process's byte for byte (the one-path file is written by rank 0); each
+    rank's parquet file, read back alone, equals its shard."""
+    codes, logs, _s = W.run_ranks(tmp_path, world, cases=["io"], limit=LIMIT_S)
+    assert codes == [0] * world, "\n".join(log[-2000:] for log in logs)
+    ranks = W.load_ranks(tmp_path, world)
+    monkeypatch.setattr(W, "IO_DIR", str(tmp_path / "local"))
+    local = W.run_cases(ctt.CylonEnv(config=ctt.GPUConfig(device="cpu", world_size=world)),
+                        ["io"])["io"]
+    assert local["csv"]["shards"][1]["m"][0].dtype == np.float64  # int64 and float64 files
+    assert "parquet" not in local
+    for r, res in enumerate(ranks):
+        got = res["io"]
+        for key in ("csv", "groupby"):
+            W.record_equal(got[key], local[key], key, r)
+        W.record_equal(got["parquet"], local["csv"], "parquet read of the rank's own file", r)
+        assert sorted(got["written"], key=str) == sorted([r] + (["whole"] if r == 0 else []), key=str)
+        for key, data in got["written"].items():
+            assert data == local["written"][key], (r, key)
+
+
 def test_a_failing_rank_fails_the_run_without_a_hang(tmp_path):
     """Rank 1 dies before the first collective: the run ends as soon as it
     exits, well inside the limit, and rank 0, blocked in that collective,

@@ -242,17 +242,52 @@ def _tuned_trigger(t):
 
 
 @pytest.mark.parametrize("call", [
-    lambda t: t.lazy().explain(analyze=True), lambda t: t.to_arrow(), lambda t: t.to_csv("x.csv"),
-    lambda t: t.lazy().dispatch(), _tuned_trigger,
-    lambda t: t.to_arrow(shard=0), lambda t: t.lazy().collect_async(),
-    lambda t: ctt.DataFrame(t).to_csv("x.csv", csv_write_options={}),
+    lambda t: t.lazy().explain(analyze=True),
+    lambda t: t.lazy().dispatch(), _tuned_trigger, lambda t: t.lazy().collect_async(),
     lambda t: ctt.DataFrame(t).lazy().explain(analyze=True),
-    lambda t: ctt.Table.from_arrow(t.ctx, None),
     lambda t: ctt.DataFrame(t).lazy().collect_async(), lambda t: ctt.DataFrame(t).collect_async(),
-    lambda t: ctt.DataFrame(t).to_arrow(), lambda t: ctt.DataFrame(t).to_csv("x.csv"),
 ])
 def test_left_out_surface_raises_naming_its_item(call):
     tctx = _contexts(1)[1]
     t = ctt.Table.from_pydict(tctx, {"k": np.arange(4, dtype=np.int32)})
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md: A[4-9]"):
         call(t)
+
+
+def _same_files(tmp, write_j, write_t, world=None):
+    """Both writers' CSV output, byte for byte: one file, or one a shard."""
+    names = ["x"] if world is None else [f"x{s}" for s in range(world)]
+    write_j([str(tmp / f"j{n}.csv") for n in names] if world else str(tmp / "jx.csv"))
+    write_t([str(tmp / f"t{n}.csv") for n in names] if world else str(tmp / "tx.csv"))
+    for n in names:
+        assert (tmp / f"t{n}.csv").read_bytes() == (tmp / f"j{n}.csv").read_bytes(), n
+
+
+def _same_arrow(got, want):
+    assert got.equals(want), (got.schema, want.schema)
+
+
+IO_SURFACE = {  # (JAX table, port's table, tmp_path, world) -> None
+    "to_arrow": lambda j, t, tmp, w: _same_arrow(t.to_arrow(), j.to_arrow()),
+    "to_csv": lambda j, t, tmp, w: _same_files(tmp, j.to_csv, t.to_csv),
+    "to_arrow_shard": lambda j, t, tmp, w: [
+        _same_arrow(t.to_arrow(shard=s), j.to_arrow(shard=s)) for s in range(w)],
+    "frame_to_csv_options": lambda j, t, tmp, w: _same_files(
+        tmp, lambda p: ct.DataFrame(_table=j).to_csv(p, csv_write_options={}),
+        lambda p: ctt.DataFrame(t).to_csv(p, csv_write_options={})),
+    "from_arrow": lambda j, t, tmp, w: tables_equal(
+        ct.Table.from_arrow(j.ctx, j.to_arrow()), ctt.Table.from_arrow(t.ctx, j.to_arrow())),
+    "frame_to_arrow": lambda j, t, tmp, w: _same_arrow(
+        ctt.DataFrame(t).to_arrow(), ct.DataFrame(_table=j).to_arrow()),
+    "frame_to_csv": lambda j, t, tmp, w: _same_files(
+        tmp, ct.DataFrame(_table=j).to_csv, ctt.DataFrame(t).to_csv, world=w),
+}
+
+
+@pytest.mark.parametrize("call", list(IO_SURFACE))
+def test_io_surface_gives_the_jax_packages_results(tmp_path, rng, call):
+    """The surface that raised until the I/O layers were ported (A8), each
+    call against the JAX package's on the same table at world 4: Arrow
+    tables equal, CSV files byte for byte."""
+    jt, tt = both(4, _cols(rng, 90))
+    IO_SURFACE[call](jt, tt, tmp_path, 4)
