@@ -178,7 +178,7 @@
           distributed_union and distributed_unique(["k"]), the pallas_pk
           join -> groupby, and L4's lazy q3 (every rank optimizes the same
           plan), then A4 and S4 again on the same ranks declared as a
-          2x2 mesh (the inner and outer process groups), then the small
+          2x2 mesh (the grouped exchanges on the whole process group), then the small
           task_partition and OutOfCoreJoin cases of
           tests/_torch_mp_worker.py (each rank's ingest sinks, bucket
           plan and result rows its own); it reports a sha256 of each output
@@ -187,6 +187,21 @@
           must equal those of shard d of the same calls at world_size=4
           in this process, in row order (float sums, which the card adds
           in no fixed order, within workload A's tolerance);
+     MP2x2: several shards a process: two gloo processes of this script,
+          each ``GPUConfig(devices=["cuda:0", "cuda:0"],
+          coordinator_address=..., num_processes=2)``, rank p owning
+          shards 2p and 2p + 1, run MP4's A4, S4, U4, PK4 and L4 calls and
+          A4 and S4 on the 2x2 mesh (an inner group inside one process,
+          both outer groups across the two) on MP4's data; each shard's
+          digests equal the same shard at world_size=4 in this process;
+     OBS: A's join -> groupby and L's q3_lazy untraced and under
+          ``obs.trace.query_trace`` with the profiler on (the traced
+          outputs bit-equal, the host_sync counts and the card's own
+          synchronizing calls equal), then
+          ``explain(analyze=True)`` of q3_lazy; it prints the span tree's
+          size, each span's and profiled stage's device ms from its CUDA
+          events beside the call's torch.profiler device time, both
+          calls' ms, and loads the Chrome export back;
 3. holds each kernel against its plain PyTorch version on the inputs the
    main path gave it (exact: the kernels move integers; the compact B3
    also on B4's largest received buffer whose rows are not a multiple of
@@ -325,6 +340,40 @@ def profile(fn, top=12) -> dict:
     }
 
 
+#: the CUDA runtime calls that hold the host until the card catches up
+SYNC_APIS = ("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize",
+             "cudaMemcpy")
+
+
+def sync_census(fn) -> dict:
+    """The card's synchronizing calls in one call of ``fn``, counted
+    directly, not through the engine's own ``host_sync`` counter: the
+    warnings of torch's sync debug mode (a blocking device-to-host copy,
+    ``.item()``, ``.cpu()``, ``nonzero``) and the CUDA runtime's
+    synchronize and blocking-copy calls in a torch.profiler trace (which
+    also sees ``torch.cuda.synchronize`` and ``Event.synchronize``)."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages() if e.key in SYNC_APIS}
+    # the mode's own one-time notice ("... prototype feature ...") is no sync
+    return {"debug_mode_warnings": sum("called a synchronizing CUDA operation" in str(w.message)
+                                       for w in caught),
+            "runtime_calls": calls}
+
+
 def make_a():
     """Workload A's sides (seed SEED), and the generator, which workload B
     draws on from."""
@@ -388,8 +437,9 @@ def mp4_calls(ctt, ctx, ctx22, io_dir):
     tables: A4 (join -> groupby), S4 (distributed_sort), U4 (union and
     unique on k) and PK4 (the PK join -> groupby), on the data of those
     workloads; then A4 and S4 again on ``ctx22``, the same shards
-    declared as a 2x2 mesh (the two-hop exchange: the inner and outer
-    process groups, the ring's ``batch_isend_irecv``). Every rank passes
+    declared as a 2x2 mesh (the two-hop exchange: the grouped exchanges
+    and the ring's ``ppermute`` routed through the whole process group).
+    Every rank passes
     the same host data and stages its own block. IO4_rank reads A's left
     side from the four files under ``io_dir`` (:func:`write_mp4_inputs`),
     each rank only its own shard's (the others' paths name no file), and
@@ -592,9 +642,12 @@ def shard_digests(outputs, s):
 
 
 def mp4_worker(rank: int, world: int, address: str, backend: str, out_dir: str,
-               io_dir: str) -> None:
-    """One MP4 rank: its shard of every MP4 call, digests, launches and
-    times into ``out_dir``."""
+               io_dir: str, per: int = 1, ops: str = "") -> None:
+    """One MP4 rank: its shards of every MP4 call (``ops``: the calls named
+    there, comma-separated), digests, launches and times into
+    ``out_dir``. ``world`` is the number of processes; with ``per`` > 1
+    the rank owns ``per`` shards on its one card (MP2x2), shards
+    ``[rank * per, (rank + 1) * per)``."""
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -604,19 +657,24 @@ def mp4_worker(rank: int, world: int, address: str, backend: str, out_dir: str,
 
     torch.set_num_threads(max(1, (os.cpu_count() or WORLD) // WORLD))  # the host's cores, shared
     device = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+    where = dict(devices=[device] * per) if per > 1 else dict(device=device)
     env = ctt.CylonEnv(config=ctt.GPUConfig(
-        device=device, coordinator_address=address, num_processes=world, process_id=rank,
-        backend=backend,
+        coordinator_address=address, num_processes=world, process_id=rank,
+        backend=backend, **where,
     ))
     ctx = env.context
     # the same ranks as a 2x2 mesh, on the same process group
     ctx22 = ctt.CylonContext.init_distributed(ctt.GPUConfig(
-        device=device, coordinator_address=address, num_processes=world, process_id=rank,
-        backend=backend, mesh_shape="2x2",
+        coordinator_address=address, num_processes=world, process_id=rank,
+        backend=backend, mesh_shape="2x2", **where,
     ))
     counters = (cuda_radix.LAUNCHES, cuda_gather.LAUNCHES, cuda_codec.LAUNCHES, cuda_probe.LAUNCHES)
-    result = {"rank": env.rank, "device": device, "backend": backend, "ops": {}}
-    for op, call in mp4_calls(ctt, ctx, ctx22, io_dir).items():
+    result = {"rank": env.rank, "device": device, "backend": backend,
+              "shards": list(ctx.local_shards), "ops": {}}
+    calls = mp4_calls(ctt, ctx, ctx22, io_dir)
+    if ops:
+        calls = {op: calls[op] for op in ops.split(",")}
+    for op, call in calls.items():
         for d in counters:
             for k in d:
                 d[k] = 0
@@ -632,14 +690,17 @@ def mp4_worker(rank: int, world: int, address: str, backend: str, out_dir: str,
             out = call()
             ctx.barrier()
             times.append(time.perf_counter() - t0)
-        digests, sums = shard_digests(out, rank)
-        for key, arr in sums.items():
-            np.save(os.path.join(out_dir, f"rank{rank}.{op}.{key}.npy"), arr)
+        digests = {}
+        for s in ctx.local_shards:
+            digests[s], sums = shard_digests(out, s)
+            for key, arr in sums.items():
+                np.save(os.path.join(out_dir, f"shard{s}.{op}.{key}.npy"), arr)
         result["ops"][op] = {
-            "digests": digests, "launches": launches, "fallbacks": pk_join.COUNTS["fallback"],
-            "tiers": tiers,
+            "digests": {str(s): d for s, d in digests.items()}, "launches": launches,
+            "fallbacks": pk_join.COUNTS["fallback"], "tiers": tiers,
             "s": float(np.median(times)), "s_all": times,
-            "shard_rows": {n: int(t.row_counts[rank]) for n, t in out.items()},
+            "shard_rows": {n: [int(t.row_counts[s]) for s in ctx.local_shards]
+                           for n, t in out.items()},
         }
         del out
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -655,18 +716,20 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_mp4(backend: str, out_dir: str, io_dir: str) -> list:
-    """Start the four MP4 ranks; fail the run when one exits non-zero or
-    the limit passes, killing the others. Returns their results."""
+def run_mp4(backend: str, out_dir: str, io_dir: str, n_procs: int = WORLD, per: int = 1,
+            ops: str = "", what: str = "MP4") -> list:
+    """Start the ``n_procs`` ranks of ``per`` shards each; fail the run
+    when one exits non-zero or the limit passes, killing the others.
+    Returns their results."""
     address = f"127.0.0.1:{free_port()}"
     procs = []
     t0 = time.perf_counter()
     try:
-        for r in range(WORLD):
+        for r in range(n_procs):
             log = open(os.path.join(out_dir, f"rank{r}.log"), "w")
             procs.append((subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--mp4-worker", str(r), str(WORLD),
-                 address, backend, out_dir, io_dir],
+                [sys.executable, os.path.abspath(__file__), "--mp4-worker", str(r), str(n_procs),
+                 address, backend, out_dir, io_dir, str(per), ops],
                 stdout=log, stderr=subprocess.STDOUT,
             ), log))
         while time.perf_counter() - t0 < MP4_LIMIT_S:
@@ -681,19 +744,20 @@ def run_mp4(backend: str, out_dir: str, io_dir: str) -> list:
             p.wait()
             log.close()
     codes = [p.returncode for p, _log in procs]
-    if codes != [0] * WORLD:
+    if codes != [0] * n_procs:
         tails = "\n".join(f"--- rank {r}\n" + open(os.path.join(out_dir, f"rank{r}.log")).read()[-3000:]
-                          for r in range(WORLD))
-        fail(f"MP4: ranks exited {codes} after {time.perf_counter() - t0:.1f} s "
+                          for r in range(n_procs))
+        fail(f"{what}: ranks exited {codes} after {time.perf_counter() - t0:.1f} s "
              f"(limit {MP4_LIMIT_S} s):\n{tails}")
-    return [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(WORLD)]
+    return [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(n_procs)]
 
 
-def phase_mp4(ctt, ctx4) -> dict:
+def phase_mp4(ctt, ctx4, keep: dict = None) -> dict:
     """Workload MP4: the torch.distributed backend, four processes, held
     shard for shard against the same calls at world 4 in this process
     (``ctx4``), which are timed beside them (median of REPS_MP4 calls
-    after a warm-up). Returns MP4's workload line."""
+    after a warm-up). Returns MP4's workload line; ``keep`` takes the
+    one-process digests, times and tier gates for MP2x2."""
     import torch
     from cylon_tpu_torch.ops import pk_join
     from cylon_tpu_torch.utils import tracing
@@ -742,10 +806,10 @@ def phase_mp4(ctt, ctx4) -> dict:
                               "launches": {op: v["launches"] for op, v in res["ops"].items()}}))
             for op, got in res["ops"].items():
                 want_digests, want_sums = ref[op][r]
-                if got["digests"] != want_digests:
+                if got["digests"] != {str(r): want_digests}:
                     fail(f"MP4 {op}: rank {r}'s digests differ from shard {r} at world 4")
                 for key, want in want_sums.items():  # workload A's tolerance
-                    arr = np.load(os.path.join(mp4_dir, f"rank{r}.{op}.{key}.npy"))
+                    arr = np.load(os.path.join(mp4_dir, f"shard{r}.{op}.{key}.npy"))
                     if arr.shape != want.shape or not np.allclose(
                             arr.astype(np.float64), want.astype(np.float64), rtol=1e-5, atol=1e-4):
                         fail(f"MP4 {op}: rank {r}'s {key} differs from shard {r} at world 4")
@@ -758,6 +822,8 @@ def phase_mp4(ctt, ctx4) -> dict:
                 # counts gathered from every rank
                 if got["tiers"] != tiers[op]:
                     fail(f"MP4 {op}: rank {r}'s tier gates {got['tiers']} != one process's {tiers[op]}")
+    if keep is not None:
+        keep.update(ref=ref, single=single, tiers=tiers)
     rank0 = ranks[0]["ops"]
     return {
         "workload": "MP4", "world": WORLD, "backend": backend, "processes": WORLD,
@@ -770,6 +836,210 @@ def phase_mp4(ctt, ctx4) -> dict:
         "tiers_rank0": {op: v["tiers"] for op, v in rank0.items()}, "tiers_single_process": tiers,
         "io4_rank_file_bytes": io_bytes,
     }
+
+
+#: MP2x2's calls: MP4's A4, S4, U4, PK4 and L4, and A4 and S4 on the 2x2 mesh
+MP2X2_OPS = ("A4", "S4", "U4", "PK4", "L4", "A4_2x2", "S4_2x2")
+
+
+def phase_mp2x2(keep: dict, smi: str) -> dict:
+    """Workload MP2x2: two gloo processes of two shards each, both on
+    cuda:0 (``GPUConfig(devices=["cuda:0", "cuda:0"], coordinator_address=
+    ...)``), running MP4's calls on MP4's data; rank p's shards 2p and
+    2p + 1 held against the same shards of the one-process world-4 calls
+    (``keep``, from :func:`phase_mp4`): digests bit for bit, float sums
+    within workload A's tolerance, the same tier gates, every kernel of the
+    call launched on every rank. Prints each rank's shards, launches and
+    median seconds a call."""
+    ref, single, tiers = keep["ref"], keep["single"], keep["tiers"]
+    procs, per = 2, 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp2x2_") as d:
+        t0 = time.perf_counter()
+        ranks = run_mp4("gloo", d, d, n_procs=procs, per=per, ops=",".join(MP2X2_OPS),
+                        what="MP2x2")
+        wall_s = time.perf_counter() - t0
+        for r, res in enumerate(ranks):
+            if res["shards"] != list(range(r * per, (r + 1) * per)):
+                fail(f"MP2x2: rank {r} owns shards {res['shards']}")
+            print(json.dumps({"mp2x2_rank": r, "device": res["device"], "shards": res["shards"],
+                              "s": {op: v["s"] for op, v in res["ops"].items()},
+                              "launches": {op: v["launches"] for op, v in res["ops"].items()},
+                              "smi": smi}))
+            for op, got in res["ops"].items():
+                for sh in res["shards"]:
+                    want_digests, want_sums = ref[op][sh]
+                    if got["digests"][str(sh)] != want_digests:
+                        fail(f"MP2x2 {op}: rank {r}'s shard {sh} differs from shard {sh} at world 4")
+                    for key, want in want_sums.items():  # workload A's tolerance
+                        arr = np.load(os.path.join(d, f"shard{sh}.{op}.{key}.npy"))
+                        if arr.shape != want.shape or not np.allclose(
+                                arr.astype(np.float64), want.astype(np.float64), rtol=1e-5,
+                                atol=1e-4):
+                            fail(f"MP2x2 {op}: rank {r}'s {key} of shard {sh} differs")
+                for k in MP4_KERNELS[op]:
+                    if got["launches"][k] <= 0:
+                        fail(f"MP2x2 {op}: rank {r} launched no {k}")
+                if got["fallbacks"]:
+                    fail(f"MP2x2 {op}: rank {r} fell back to the sort join")
+                if got["tiers"] != tiers[op]:
+                    fail(f"MP2x2 {op}: rank {r}'s tier gates {got['tiers']} != one process's "
+                         f"{tiers[op]}")
+    return {
+        "workload": "MP2x2", "world": procs * per, "backend": "gloo", "processes": procs,
+        "shards_per_process": per, "rank_shards": [res["shards"] for res in ranks],
+        "rank_devices": [res["device"] for res in ranks], "wall_s": wall_s, "smi": smi,
+        "s": {op: [res["ops"][op]["s"] for res in ranks] for op in MP2X2_OPS},
+        "s_all": {op: [res["ops"][op]["s_all"] for res in ranks] for op in MP2X2_OPS},
+        "single_process_s": {op: single[op] for op in MP2X2_OPS},
+        "launches": {op: [res["ops"][op]["launches"] for res in ranks] for op in MP2X2_OPS},
+        "shard_rows": {op: [res["ops"][op]["shard_rows"] for res in ranks] for op in MP2X2_OPS},
+    }
+
+
+def phase_obs(tl, tr, reset_counts, counts, require_launches, kernels, smi) -> dict:
+    """Workload OBS: A's join -> groupby (8M x 8M) and L's q3_lazy, each
+    untraced and under ``obs.trace.query_trace`` with the profiler on, then
+    ``explain(analyze=True)`` of q3_lazy. Holds the traced outputs bit for
+    bit against the untraced ones, the ``host_sync`` counts equal and the
+    card's own synchronizing calls (:func:`sync_census`) equal, the
+    Chrome export written to a temporary file and loaded back
+    schema-clean. Prints the span tree's node count, the device ms of each
+    span and profiled stage from their CUDA events beside the call's
+    device time from torch.profiler, and the traced and untraced ms."""
+    import torch
+    from cylon_tpu_torch.obs import export as obs_export
+    from cylon_tpu_torch.obs import prof as obs_prof
+    from cylon_tpu_torch.obs import trace as obs_trace
+    from cylon_tpu_torch.utils import tracing
+
+    tr_rk = tr.rename({"k": "rk"})
+    q3 = tl.lazy().join(tr_rk.lazy(), left_on="k", right_on="rk").groupby("k", {"v": "sum"})
+
+    def a_call():
+        j = tl.distributed_join(tr, on="k", how="inner")
+        return {"join": j, "groupby": j.distributed_groupby("k_x", {"v": "sum", "w": "sum"})}
+
+    calls = {"A": a_call, "q3_lazy": lambda: {"q3": q3.collect()}}
+    cells = {}
+    for name, call in calls.items():
+        call()  # warm
+        torch.cuda.synchronize()
+        res = {}
+        outs = {}
+        for mode in ("untraced", "traced"):
+            syncs, ms = [], []
+            for i in range(1 + REPS):
+                os.environ["CYLON_TPU_TORCH_PROF"] = "1" if mode == "traced" else "0"
+                obs_prof.reset()
+                obs_export.reset_ring()
+                reset_counts()
+                before = tracing.get_count("host_sync")
+                t0 = time.perf_counter()
+                if mode == "traced":
+                    with obs_trace.query_trace(name, force=True) as q:
+                        out = call()
+                else:
+                    out = call()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                syncs.append(tracing.get_count("host_sync") - before)
+                if i == 0:
+                    outs[mode] = out
+                    res[f"launches_{mode}"] = counts()
+                    if mode == "traced":
+                        trace = q
+                elif i == 1 and mode == "untraced":
+                    outs["untraced_again"] = out  # the card's float sums vary run to run
+                else:
+                    del out
+            os.environ.pop("CYLON_TPU_TORCH_PROF", None)
+            res[f"{mode}_ms"] = float(np.median(ms[1:]))
+            res[f"{mode}_ms_all"] = ms
+            res[f"host_sync_{mode}"] = syncs
+        if res["host_sync_traced"] != res["host_sync_untraced"]:
+            fail(f"OBS {name}: host_sync traced {res['host_sync_traced']} != untraced "
+                 f"{res['host_sync_untraced']}")
+        # the card's own synchronizing calls, traced (and profiled) and not
+        for mode in ("untraced", "traced"):
+            os.environ["CYLON_TPU_TORCH_PROF"] = "1" if mode == "traced" else "0"
+            obs_prof.reset()
+
+            def census_call(call=call, name=name, mode=mode):
+                if mode == "untraced":
+                    return call()
+                with obs_trace.query_trace(name, force=True):
+                    return call()
+
+            res[f"sync_census_{mode}"] = sync_census(census_call)
+        os.environ.pop("CYLON_TPU_TORCH_PROF", None)
+        if res["sync_census_traced"] != res["sync_census_untraced"]:
+            fail(f"OBS {name}: the card's synchronizing calls differ, traced "
+                 f"{res['sync_census_traced']} against untraced {res['sync_census_untraced']}")
+        require_launches(res["launches_traced"], f"OBS {name}", kernels[name])
+        # bit for bit, but the float sums, which the card adds in no fixed
+        # order (index_add_): within workload A's tolerance, and counted
+        # against two untraced calls' own difference
+        res["float_sum_bits_differ"] = {"traced": 0, "untraced_twice": 0}
+        for key, want in outs["untraced"].items():
+            for other, tag in ((outs["traced"][key], "traced"),
+                               (outs["untraced_again"][key], "untraced_twice")):
+                for s_ in range(want.world_size):
+                    for c in want.column_names:
+                        gc_, wc = other._shards[s_][c], want._shards[s_][c]
+                        if (gc_.valid is None) != (wc.valid is None) or (
+                                wc.valid is not None and not torch.equal(gc_.valid, wc.valid)):
+                            fail(f"OBS {name}: {tag} {key}.{c} validity differs from untraced")
+                        if torch.equal(gc_.data, wc.data):
+                            continue
+                        if not (c.endswith("_sum") and wc.data.dtype.is_floating_point):
+                            fail(f"OBS {name}: {tag} {key}.{c} differs from untraced")
+                        err = (gc_.data.double() - wc.data.double()).abs()
+                        if not bool((err <= 1e-4 + 1e-5 * wc.data.double().abs()).all()):
+                            fail(f"OBS {name}: {tag} {key}.{c} max abs err {float(err.max())}")
+                        res["float_sum_bits_differ"][tag] += 1
+        del outs
+        spans = list(trace.all_spans())
+        res["span_nodes"] = len(spans)
+        res["trace_device_ms"] = trace.device_ms(wait=True)
+        res["span_device_ms"] = {}
+        for sp in spans:
+            dev = sp.device_ms(wait=True)
+            if dev is None:
+                fail(f"OBS {name}: span {sp.name} carries no device events")
+            res["span_device_ms"].setdefault(sp.name, []).append(dev)
+        stages = {}
+        for p in trace.attrs.get(obs_prof.PROF_ATTR) or []:
+            if not p.on_device():
+                fail(f"OBS {name}: a {p.kind} stage profile carries no device events")
+            for st, sec in p.seconds(wait=True).items():
+                stages[st] = stages.get(st, 0.0) + sec * 1e3
+        res["stage_device_ms"] = stages
+        def traced_call(call=call, name=name):
+            with obs_trace.query_trace(name, force=True):
+                return call()
+
+        prof = profile(traced_call)
+        res["profiler_kernel_ms"] = prof["kernel_ms"]
+        res["profiler_wall_ms"] = prof["wall_ms"]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as d:
+            path = os.path.join(d, "trace.json")
+            n_events = obs_export.write_chrome(path, [trace])
+            doc = obs_export.load_chrome(path)
+            problems = obs_export.validate_chrome(doc)
+            if problems or len(doc["traceEvents"]) != n_events:
+                fail(f"OBS {name}: the Chrome export does not load back clean: {problems[:3]}")
+            res["chrome_events"] = n_events
+            res["chrome_bytes"] = os.path.getsize(path)
+        cells[name] = res
+    # explain(analyze=True) of q3_lazy
+    t0 = time.perf_counter()
+    text = q3.explain(analyze=True)
+    explain_ms = (time.perf_counter() - t0) * 1e3
+    if "== Analyzed plan (executed) ==" not in text or "FusedJoinGroupBySum" not in text:
+        fail(f"OBS: explain(analyze=True) of q3_lazy:\n{text}")
+    print(text)
+    return {"workload": "OBS", "world": tl.world_size, "smi": smi, "cells": cells,
+            "explain_ms": explain_ms, "explain_lines": len(text.splitlines())}
 
 
 def widen(cols: dict) -> dict:
@@ -2960,7 +3230,15 @@ def main(mp4_only: bool = False) -> None:
     cuda_codec.compact_move, _tbl._plan_state = orig_move, orig_plan
     cuda_probe.probe = orig_probe
 
-    work_mp4 = phase_mp4(ctt, ctx4)
+    mp4_keep = {}
+    work_mp4 = phase_mp4(ctt, ctx4, mp4_keep)
+    print(json.dumps(work_mp4))
+    work_mp2x2 = phase_mp2x2(mp4_keep, smi)
+    print(json.dumps(work_mp2x2))
+    del mp4_keep
+    work_obs = phase_obs(tl, tr, reset_counts, counts, require_launches,
+                         {"A": local_kernels, "q3_lazy": list(cuda_radix.LAUNCHES)}, smi)
+    print(json.dumps(work_obs))
 
     # ------------------------------------------------------------------
     # each kernel against its plain version, at the main path's shapes
@@ -3342,6 +3620,11 @@ def main(mp4_only: bool = False) -> None:
             if tag == "semi4":
                 cells = [(f"{sel}_{mode}", m) for sel, c in w["cells"].items() for mode, m in c.items()]
             k[f"launches_{tag}"] = {name: m["launches"].get(ck, 0) for name, m in cells}
+        # MP2x2's ranks (two shards each) and OBS's traced calls
+        k["launches_mp2x2"] = {op: [ln[ck] for ln in work_mp2x2["launches"][op]]
+                               for op in MP2X2_OPS}
+        k["launches_obs"] = {name: c["launches_traced"].get(ck, 0)
+                             for name, c in work_obs["cells"].items()}
         src, fn = kernel_fn[k["name"]]
         k["ptxas"] = {m: u for m, u in usage[src].items() if fn in m}
         if not k["ptxas"]:
@@ -3357,7 +3640,7 @@ def main(mp4_only: bool = False) -> None:
     print(json.dumps(work_pk4))
     print(json.dumps(work_dup))
     for w in (work_s, work_s4, work_s4k, work_u, work_u4, work_o, work_f, work_f4, work_l, work_l4,
-              work_semi, work_pack, work_pack4, work_mp4):
+              work_semi, work_pack, work_pack4):
         print(json.dumps(w))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3366,7 +3649,7 @@ def main(mp4_only: bool = False) -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mp4-worker"]:
-        rank_, world_, address_, backend_, out_dir_, io_dir_ = sys.argv[2:8]
-        mp4_worker(int(rank_), int(world_), address_, backend_, out_dir_, io_dir_)
+        rank_, world_, address_, backend_, out_dir_, io_dir_, per_, ops_ = sys.argv[2:10]
+        mp4_worker(int(rank_), int(world_), address_, backend_, out_dir_, io_dir_, int(per_), ops_)
     else:
         main(mp4_only=sys.argv[1:] == ["--mp4"])

@@ -13,9 +13,15 @@ JAX package's single-controller model):
 With ``coordinator_address`` the process is one rank of a
 ``torch.distributed`` group (the ``mpirun -np N`` model of the reference,
 and the JAX package's ``coordinator_address`` / ``num_processes`` /
-``process_id``): it owns exactly one shard, shard ``process_id`` of
+``process_id``). By default it owns one shard, shard ``process_id`` of
 ``num_processes``, on ``device=`` if given, else on
-``cuda:(process_id % torch.cuda.device_count())``.
+``cuda:(process_id % torch.cuda.device_count())``. With ``devices=[...]``
+it owns ``L = len(devices)`` shards, one on each: the world is
+``num_processes x L``, and process ``p`` owns shards ``[p L, (p + 1) L)``,
+the order in which the JAX package's mesh lays out each process's local
+devices (its ``tests/test_multiprocess.py``: 2 processes of 2 devices, a
+mesh of 4). Every process gives the same ``L`` (checked at init); under
+NCCL a process's shards share its one card.
 
 * ``coordinator_address``: ``"host:port"`` (rank 0 listens there), any
   ``torch.distributed`` init URL (``"tcp://..."``, ``"file://..."``), or
@@ -34,8 +40,6 @@ consecutive, so inner is the GPUs per node and outer the nodes. Every
 shuffle then runs as the two-hop exchange of parallel/topo.py. Unset, the
 context reads ``CYLON_TPU_TORCH_MESH``; unset there too, it is flat.
 
-Several shards per process (``devices=`` with a coordinator) are not
-ported (ROADMAP.md A1).
 """
 from __future__ import annotations
 
@@ -170,13 +174,18 @@ class GPUConfig:
         self.world_size = len(self.devices)
 
     def _init_rank(self, device, world_size, devices, num_processes, process_id, backend):
-        """One rank of a process group: its one shard's device, the group's
+        """One rank of a process group: its shards' devices, the group's
         size and this process's rank, and the backend, checked."""
-        if devices is not None or world_size is not None:
+        if world_size is not None:
             raise ValueError(
-                "with coordinator_address each process owns one shard: the world "
-                "is num_processes; devices= and world_size= do not apply"
+                "with coordinator_address a process owns one shard per device of devices= "
+                "(one shard without it): the world is num_processes x len(devices), so "
+                "world_size= does not apply"
             )
+        if devices is not None and device is not None:
+            raise ValueError("pass either device= or devices=, not both")
+        if devices is not None and not devices:
+            raise ValueError("devices= must name at least one device")
         from_env = self.coordinator_address == "env://"
         if num_processes is None and from_env:
             num_processes = os.environ.get("WORLD_SIZE")
@@ -184,26 +193,38 @@ class GPUConfig:
             process_id = os.environ.get("RANK")
         if num_processes is None or process_id is None:
             raise ValueError("coordinator_address needs num_processes= and process_id=")
-        world, rank = int(num_processes), int(process_id)
-        if world < 1 or not 0 <= rank < world:
-            raise ValueError(f"process_id={rank} is not a rank of num_processes={world}")
-        if device is None:
+        procs, rank = int(num_processes), int(process_id)
+        if procs < 1 or not 0 <= rank < procs:
+            raise ValueError(f"process_id={rank} is not a rank of num_processes={procs}")
+        if devices is not None:
+            devs = [_resolve(d) for d in devices]
+        elif device is None:
             n_cards = _need_card("GPUConfig(coordinator_address=...)")
             local = int(os.environ.get("LOCAL_RANK", rank)) if from_env else rank
-            dev = torch.device("cuda", local % n_cards)
+            devs = [torch.device("cuda", local % n_cards)]
         else:
-            dev = _resolve(device)
-        backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+            devs = [_resolve(device)]
+        backend = backend or ("nccl" if devs[0].type == "cuda" else "gloo")
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         if backend == "nccl":
-            if dev.type != "cuda":
-                raise ValueError(f"backend='nccl' needs a CUDA device, got {dev}; use 'gloo'")
+            if any(d.type != "cuda" for d in devs):
+                raise ValueError(f"backend='nccl' needs a CUDA device, got {devs[0]}; use 'gloo'")
+            if len(set(devs)) > 1:
+                raise ValueError(
+                    f"backend='nccl': this process's shards are on {devs}, but NCCL gives "
+                    "a process one communicator on one card, so its shards must share "
+                    "that card; name one card, or use 'gloo'"
+                )
             if not dist.is_nccl_available():
                 raise RuntimeError("backend='nccl': this PyTorch build has no NCCL")
-        self.num_processes, self.process_id, self.backend = world, rank, backend
-        self.devices = [dev if s == rank else None for s in range(world)]
-        self.world_size = world
+        elif len({d.type for d in devs}) > 1:
+            raise ValueError(f"a process's shards must be all on the CPU or all on cards, got {devs}")
+        per = len(devs)
+        self.num_processes, self.process_id, self.backend = procs, rank, backend
+        self.devices = [None] * (procs * per)
+        self.devices[rank * per:(rank + 1) * per] = devs
+        self.world_size = procs * per
 
     @property
     def device(self) -> torch.device:
@@ -216,6 +237,10 @@ class GPUConfig:
             return (
                 f"GPUConfig(coordinator_address={self.coordinator_address!r}, "
                 f"num_processes={self.num_processes}, process_id={self.process_id}, "
-                f"device={self.device}, backend={self.backend!r}{mesh})"
+                f"{self._local_repr()}, backend={self.backend!r}{mesh})"
             )
         return f"GPUConfig(world_size={self.world_size}, devices={self.devices}{mesh})"
+
+    def _local_repr(self) -> str:
+        mine = [d for d in self.devices if d is not None]
+        return f"device={mine[0]}" if len(mine) == 1 else f"devices={mine}"

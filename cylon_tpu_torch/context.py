@@ -28,7 +28,9 @@ shard's buffer to its ring neighbour (the skew relay's ring).
 """
 from __future__ import annotations
 
+import atexit
 import threading
+import weakref
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -159,19 +161,42 @@ class LocalCommunicator:
 
 
 class DistCommunicator:
-    """One shard per process over a ``torch.distributed`` process group.
+    """The shards of this process over a ``torch.distributed`` process group.
 
-    ``all_to_all`` is one ``all_to_all_single`` of the equal-chunk
-    ``[W * rows, L]`` buffer; ``all_reduce`` one ``dist.all_reduce`` (bool
-    through int32: NCCL has no bool). Host integers and objects go over
+    Process ``p`` of ``P`` owns ``L`` shards, ``[p L, (p + 1) L)``, of the
+    ``W = P L`` (``GPUConfig(devices=...)``; ``L = 1`` by default). Every
+    method takes and returns one tensor per owned shard, in shard order.
+
+    ``all_to_all`` is one ``all_to_all_single`` among the processes: with
+    ``L = 1`` of the equal-chunk ``[W * rows, ...]`` buffer itself, with
+    ``L > 1`` of the ``L`` send buffers laid out ``[P, L_src, L_dst, rows]``
+    (the chunks between this process's own shards are the block the
+    collective copies locally). ``all_reduce``, ``all_gather`` and
+    ``all_gather_counts`` reduce or stack the ``L`` shards' inputs first,
+    then run one collective among the processes; ``all_reduce`` moves bool
+    through int32 (NCCL has no bool). Host integers and objects go over
     the group itself under gloo, and over a gloo side group made once
-    under NCCL (NCCL moves device memory only). Under a 2-D ``topology``
-    one process group per inner and per outer group is made at init, every
-    rank making the same ``new_group`` calls in the same order, as NCCL
-    and gloo both require."""
+    under NCCL (NCCL moves device memory only).
 
-    def __init__(self, config: GPUConfig, topology=None):
-        self.rank, self.world_size = config.process_id, config.num_processes
+    Under a 2-D topology an inner or outer group is a set of shards that
+    may lie inside one process (then its exchange is a local transpose)
+    or span several: every grouped exchange, the ring's ``ppermute`` and
+    the relay route their chunks through one ``all_to_all_single`` on the
+    whole process group (one exchange carries every group), the chunks
+    between this process's own shards by a local copy.
+
+    A rank that leaves by an exception (a collective op's ValueError)
+    destroys its groups at interpreter exit (``atexit``), before
+    torch's own teardown runs, and tolerates a peer that has already gone:
+    it exits with the error, not with the abort of a process group
+    destroyed under a closed connection."""
+
+    def __init__(self, config: GPUConfig):
+        self.rank, self.n_procs = config.process_id, config.num_processes
+        self.local = [s for s, d in enumerate(config.devices) if d is not None]
+        self.devices = [config.devices[s] for s in self.local]
+        self.per = len(self.local)
+        self.world_size = self.n_procs * self.per
         self.device, self.backend = config.device, config.backend
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
@@ -179,107 +204,172 @@ class DistCommunicator:
         if self._owns_group:
             dist.init_process_group(
                 self.backend, init_method=init_method(config.coordinator_address),
-                world_size=self.world_size, rank=self.rank,
+                world_size=self.n_procs, rank=self.rank,
             )
         elif (dist.get_world_size(), dist.get_rank(), dist.get_backend()) != (
-            self.world_size, self.rank, self.backend
+            self.n_procs, self.rank, self.backend
         ):
             raise ValueError(
                 f"the process group of this process (world {dist.get_world_size()}, rank "
                 f"{dist.get_rank()}, {dist.get_backend()}) is not the one {config!r} names"
             )
         self._host_group = dist.new_group(backend="gloo") if self.backend == "nccl" else None
-        self._groups: Dict[tuple, Any] = {}
-        if topology is not None and topology.outer > 1 and topology.inner > 1:
-            from .parallel.topo import inner_groups, outer_groups
+        self._exit_hook = _teardown_at_exit(self)
+        per_proc = self.gather_host(self.per)
+        if len(set(per_proc)) != 1:
+            self.finalize()
+            raise ValueError(
+                f"every process must own the same number of shards (len(devices=)); "
+                f"the processes give {per_proc}"
+            )
 
-            for g in inner_groups(topology) + outer_groups(topology):
-                self._groups[g] = dist.new_group(ranks=list(g))
+    def _proc(self, shard: int) -> int:
+        return shard // self.per
 
-    def _one(self, tensors: Sequence[torch.Tensor], what: str) -> torch.Tensor:
-        if len(tensors) != 1:
-            raise ValueError(f"{what}: this process owns one shard, got {len(tensors)} tensors")
-        return tensors[0]
+    def _owned(self, tensors: Sequence[torch.Tensor], what: str) -> List[torch.Tensor]:
+        if len(tensors) != self.per:
+            owns = "one shard" if self.per == 1 else f"{self.per} shards"
+            raise ValueError(f"{what}: this process owns {owns}, got {len(tensors)} tensors")
+        return list(tensors)
+
+    def _route(self, chunks, expect, crosses: bool, like: torch.Tensor, group=None):
+        """Point-to-point chunks between shards: ``chunks`` (src, dst,
+        tensor) from this process's shards, ``expect`` (src, dst, rows)
+        into them, all of ``like``'s trailing shape and dtype. A chunk
+        between two of this process's shards is a local copy; the rest ride one
+        ``all_to_all_single`` on ``group`` when ``crosses`` (a fact of the
+        pattern, the same on every rank), each process's chunks in (src,
+        dst) order. Returns {(src, dst): tensor}."""
+        got: Dict[tuple, torch.Tensor] = {}
+        send: List[List[torch.Tensor]] = [[] for _ in range(self.n_procs)]
+        for src, dst, t in sorted(chunks, key=lambda c: c[:2]):
+            if self._proc(dst) == self.rank:
+                got[(src, dst)] = t.clone()
+            else:
+                send[self._proc(dst)].append(t)
+        if not crosses:
+            return got
+        remote = [e for e in sorted(expect) if self._proc(e[0]) != self.rank]
+        tail = tuple(like.shape[1:])
+        sizes_in = [sum(t.shape[0] for t in ts) for ts in send]
+        sizes_out = [0] * self.n_procs
+        for src, _dst, rows in remote:
+            sizes_out[self._proc(src)] += int(rows)
+        flat = [t for ts in send for t in ts]
+        inp = torch.cat(flat) if flat else like.new_empty((0,) + tail)
+        out = like.new_empty((sum(sizes_out),) + tail)
+        dist.all_to_all_single(out, inp, output_split_sizes=sizes_out,
+                               input_split_sizes=sizes_in, group=group)
+        off = 0
+        for src, dst, rows in remote:
+            got[(src, dst)] = out[off:off + int(rows)]
+            off += int(rows)
+        return got
 
     def all_to_all(self, bufs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """This shard's ``[W * rows, ...]`` send buffer, chunk d bound for
-        shard d -> its receive buffer, chunk s from shard s."""
-        buf = self._one(bufs, "all_to_all").contiguous()
-        if buf.shape[0] % self.world_size:
-            raise ValueError(f"all_to_all: {buf.shape[0]} rows are not W = {self.world_size} chunks")
-        out = torch.empty_like(buf)
-        dist.all_to_all_single(out, buf)
-        return [out]
+        """Each owned shard's ``[W * rows, ...]`` send buffer, chunk d bound
+        for shard d -> its receive buffer, chunk s from shard s."""
+        bufs = [b.contiguous() for b in self._owned(bufs, "all_to_all")]
+        w, per = self.world_size, self.per
+        if bufs[0].shape[0] % w or any(b.shape != bufs[0].shape for b in bufs):
+            raise ValueError(f"all_to_all: buffers must share one [W = {w} chunks, ...] shape")
+        if per == 1:
+            out = torch.empty_like(bufs[0])
+            dist.all_to_all_single(out, bufs[0])
+            return [out]
+        rows, tail = bufs[0].shape[0] // w, tuple(bufs[0].shape[1:])
+        x = torch.stack([b.to(self.device) for b in bufs]).view((per, self.n_procs, per, rows) + tail)
+        x = x.transpose(0, 1).contiguous()  # [P, L_src, L_dst, rows, ...]
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out.view((-1,) + tail), x.view((-1,) + tail))
+        # receive buffer of local shard j: chunks in global source order
+        return [out[:, :, j].reshape((w * rows,) + tail).to(d) for j, d in enumerate(self.devices)]
 
     def all_to_all_grouped(self, bufs: Sequence[torch.Tensor], groups) -> List[torch.Tensor]:
-        """This shard's ``[len(group) * rows, ...]`` buffer -> its receive
-        buffer: one ``all_to_all_single`` on the process group of the group
-        holding this rank (its ranks in ascending order, as torch orders a
-        group's ranks)."""
-        buf = self._one(bufs, "all_to_all_grouped").contiguous()
-        g = next(tuple(g) for g in groups if self.rank in g)
-        if g not in self._groups:
-            raise ValueError(f"all_to_all_grouped: no process group for ranks {g}")
-        out = torch.empty_like(buf)
-        dist.all_to_all_single(out, buf, group=self._groups[g])
-        return [out]
+        """Each owned shard's ``[len(group) * rows, ...]`` buffer, chunk a
+        bound for the group's shard a -> its receive buffer, chunk a from
+        the group's shard a."""
+        bufs = [b.contiguous() for b in self._owned(bufs, "all_to_all_grouped")]
+        of = {s: tuple(g) for g in groups for s in g}
+        chunks, expect = [], []
+        for s, b in zip(self.local, bufs):
+            g = of[s]
+            rows = b.shape[0] // len(g)
+            chunks += [(s, d, b[a * rows:(a + 1) * rows]) for a, d in enumerate(g)]
+            expect += [(src, s, rows) for src in g]
+        crosses = any(len({self._proc(s) for s in g}) > 1 for g in groups)
+        got = self._route(chunks, expect, crosses, bufs[0])
+        return [torch.cat([got[(src, d)] for src in of[d]]).to(dev)
+                for d, dev in zip(self.local, self.devices)]
 
     def ppermute(self, bufs: Sequence[torch.Tensor], perm) -> List[torch.Tensor]:
-        """This shard's buffer to its ``perm`` destination, and its
-        source's buffer back (zeros where no pair names this rank as a
-        destination): one ``batch_isend_irecv``, since a ring of blocking
-        sends and receives deadlocks."""
-        buf = self._one(bufs, "ppermute").contiguous()
-        out = torch.zeros_like(buf)
-        ops = [dist.P2POp(dist.isend, buf, dst) for src, dst in perm if src == self.rank]
-        ops += [dist.P2POp(dist.irecv, out, src) for src, dst in perm if dst == self.rank]
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-        return [out]
+        """Each owned shard's buffer to its ``perm`` destination, and its
+        source's buffer back (zeros where no pair names the shard as a
+        destination)."""
+        bufs = [b.contiguous() for b in self._owned(bufs, "ppermute")]
+        mine = dict(zip(self.local, bufs))
+        rows = bufs[0].shape[0]
+        chunks = [(src, dst, mine[src]) for src, dst in perm if src in mine]
+        expect = [(src, dst, rows) for src, dst in perm if dst in mine]
+        crosses = any(self._proc(src) != self._proc(dst) for src, dst in perm)
+        got = self._route(chunks, expect, crosses, bufs[0])
+        src_of = {dst: src for src, dst in perm}
+        return [got[(src_of[d], d)].to(b.device) if d in src_of else torch.zeros_like(b)
+                for d, b in zip(self.local, bufs)]
 
     def all_reduce(self, tensors: Sequence[torch.Tensor], op: str = "sum") -> List[torch.Tensor]:
         _check_op(op)
-        t = self._one(tensors, "all_reduce")
-        x = t.to(torch.int32) if t.dtype == torch.bool else t.clone()
+        ts = self._owned(tensors, "all_reduce")
+        is_bool = ts[0].dtype == torch.bool
+        xs = [t.to(torch.int32) if is_bool else t for t in ts]
+        if len(xs) == 1:
+            x = xs[0].clone()
+        else:  # this process's shards first, in the input's own dtype
+            x = _REDUCE[op](torch.stack([t.to(self.device) for t in xs]), dim=0).to(xs[0].dtype)
         x = x.contiguous()
         dist.all_reduce(x, op=_DIST_OPS[op])
-        if t.dtype == torch.bool:
+        if is_bool:
             x = x.to(torch.int64) if op == "sum" else x.to(torch.bool)
-        return [x]
+        return [x.to(d) for d in self.devices]
 
     def all_gather(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """This shard's tensor -> every shard's, stacked ``[W, ...]``: one
-        ``all_gather_into_tensor``."""
-        t = self._one(tensors, "all_gather").contiguous()
-        out = torch.empty(self.world_size * t.numel(), dtype=t.dtype, device=t.device)
-        dist.all_gather_into_tensor(out, t.reshape(-1))
-        return [out.view((self.world_size,) + tuple(t.shape))]
+        """The owned shards' tensors -> every shard's, stacked ``[W, ...]``:
+        one ``all_gather_into_tensor`` of this process's stacked shards."""
+        ts = self._owned(tensors, "all_gather")
+        mine = torch.stack([t.to(self.device) for t in ts]).contiguous()
+        out = torch.empty(self.n_procs * mine.numel(), dtype=mine.dtype, device=mine.device)
+        dist.all_gather_into_tensor(out, mine.reshape(-1))
+        stacked = out.view((self.world_size,) + tuple(ts[0].shape))
+        return [stacked.to(d) for d in self.devices]
 
     def all_gather_counts(self, local_counts) -> np.ndarray:
+        """Host integers, one entry (a count or a row of counts) per owned
+        shard -> every shard's, ``[W]`` or ``[W, ...]``, over gloo."""
         mine = torch.from_numpy(np.ascontiguousarray(np.asarray(local_counts, np.int64)))
-        if mine.shape[:1] != (1,):
-            raise ValueError("all_gather_counts: this process owns one shard")
-        parts = [torch.empty_like(mine) for _ in range(self.world_size)]
+        if mine.shape[:1] != (self.per,):
+            owns = "one shard" if self.per == 1 else f"{self.per} shards"
+            raise ValueError(f"all_gather_counts: this process owns {owns}, got "
+                             f"{tuple(mine.shape)[:1]} entries")
+        parts = [torch.empty_like(mine) for _ in range(self.n_procs)]
         dist.all_gather(parts, mine, group=self._host_group)
         return torch.cat(parts).numpy()
 
     def relay_exchange(self, mats: Dict[int, np.ndarray], relay: np.ndarray) -> Dict[int, np.ndarray]:
-        """This rank's relay rows (destination-major, ``relay[rank, d]``
-        rows for shard d) -> the rows every source relays to this rank, in
-        source order: one host ``all_to_all_single`` over gloo (the group
-        itself, or the side group under NCCL), the relay matrix giving the
-        split sizes."""
-        send = torch.from_numpy(np.ascontiguousarray(mats[self.rank]))
-        out = torch.empty((int(relay[:, self.rank].sum()), send.shape[1]), dtype=send.dtype)
-        dist.all_to_all_single(
-            out, send, output_split_sizes=[int(x) for x in relay[:, self.rank]],
-            input_split_sizes=[int(x) for x in relay[self.rank]], group=self._host_group,
-        )
-        return {self.rank: out.numpy()}
+        """The owned shards' relay rows (``mats[s]`` destination-major,
+        ``relay[s, d]`` rows for shard d) -> the rows every source relays
+        to each owned shard, in source order: one host
+        ``all_to_all_single`` over gloo (the group itself, or the side
+        group under NCCL), the relay matrix giving the split sizes."""
+        w = self.world_size
+        offs = np.concatenate([np.zeros((w, 1), np.int64), np.cumsum(relay, 1)], 1)
+        chunks = [(s, d, torch.from_numpy(np.ascontiguousarray(mats[s][offs[s, d]:offs[s, d + 1]])))
+                  for s in self.local for d in range(w)]
+        expect = [(s, d, int(relay[s, d])) for d in self.local for s in range(w)]
+        got = self._route(chunks, expect, self.n_procs > 1, chunks[0][2], group=self._host_group)
+        return {d: torch.cat([got[(s, d)] for s in range(w)]).numpy() for d in self.local}
 
     def gather_host(self, obj: Any) -> List[Any]:
-        out: List[Any] = [None] * self.world_size
+        out: List[Any] = [None] * self.n_procs
         dist.all_gather_object(out, obj, group=self._host_group)
         return out
 
@@ -290,15 +380,35 @@ class DistCommunicator:
 
     def finalize(self) -> None:
         """Destroy the groups this communicator made."""
-        for g in self._groups.values():
-            dist.destroy_process_group(g)
-        self._groups = {}
+        if self._exit_hook is not None:
+            atexit.unregister(self._exit_hook)
+            self._exit_hook = None
         if self._host_group is not None:
             dist.destroy_process_group(self._host_group)
             self._host_group = None
         if self._owns_group and dist.is_initialized():
             dist.destroy_process_group()
             self._owns_group = False
+
+
+def _teardown_at_exit(comm: DistCommunicator):
+    """Register ``comm.finalize`` to run at interpreter exit (unregistered
+    by ``finalize`` itself). The hook holds a weak reference, and any
+    error it meets (a peer that has already closed its connections) is
+    dropped: the process keeps the exit code its own error gave it."""
+    ref = weakref.ref(comm)
+
+    def hook():
+        c = ref()
+        if c is None:
+            return
+        try:
+            c.finalize()
+        except Exception:  # the peers may be gone; the exit code stands
+            pass
+
+    atexit.register(hook)
+    return hook
 
 
 def _mesh_spec(mesh_shape) -> str:
@@ -335,6 +445,11 @@ class CylonContext:
         from .parallel.spill import reap_stale_spill
 
         reap_stale_spill()
+        # the ops endpoint, where CYLON_TPU_TORCH_METRICS_PORT asks for it
+        # (idempotent; a failed bind is reported once, never raised)
+        from .obs.export import ensure_ops_server
+
+        ensure_ops_server()
 
     @classmethod
     def init_distributed(cls, config: GPUConfig) -> "CylonContext":
@@ -345,8 +460,9 @@ class CylonContext:
         if config.coordinator_address is not None:
             from .parallel.topo import parse_mesh
 
-            topo = parse_mesh(_mesh_spec(config.mesh_shape), config.world_size)
-            return cls(config.devices, DistCommunicator(config, topo), config.mesh_shape)
+            # a mesh that does not fit raises before the process group is made
+            parse_mesh(_mesh_spec(config.mesh_shape), config.world_size)
+            return cls(config.devices, DistCommunicator(config), config.mesh_shape)
         return cls(config.devices, mesh_shape=config.mesh_shape)
 
     @property

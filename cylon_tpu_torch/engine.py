@@ -39,11 +39,17 @@ _CACHE_LOCK = threading.Lock()
 
 
 class PlanEntry(NamedTuple):
-    """One cached optimize + lower product."""
+    """One cached optimize + lower product. ``hist_key`` is the plan's
+    latency-histogram key (``obs.metrics.fingerprint_key``), hashed once,
+    when the entry is made, not on every collect; ``obs_key`` is the
+    observation store's profile key (the same fingerprint's key: the port
+    has no feedback component to leave out)."""
 
     opt: Any                  # the optimized (detached) plan
     fired: Tuple[str, ...]    # the optimizer's rule firings, in order
     fn: Callable              # the executor: fn(tables) -> Table
+    hist_key: str = ""        # fingerprint_key(fingerprint)
+    obs_key: str = ""
 
 
 def plan_executable(ctx, fingerprint, compile_fn: Callable[[], PlanEntry]):

@@ -1,8 +1,8 @@
 """Deterministic, seeded fault injection on the spill tier's host paths
-(counterpart of the spill seams of cylon_tpu/fault/inject.py), armed from
-``CYLON_TPU_TORCH_FAULTS``.
+and the observability layer (counterpart of the spill and obs seams of
+cylon_tpu/fault/inject.py), armed from ``CYLON_TPU_TORCH_FAULTS``.
 
-SEAMS (``check(seam)`` sites in parallel/spill.py):
+SEAMS (``check(seam)`` sites in parallel/spill.py and obs/):
 
 =================  ====================================================
 ``spill.write``    arena append path (fires only while the arena holds or
@@ -10,10 +10,15 @@ SEAMS (``check(seam)`` sites in parallel/spill.py):
                    ENOSPC, and the tier-degradation escape must escape)
 ``spill.read``     arena read-back at result rebuild (disk-backed only)
 ``arena.alloc``    host or disk arena buffer allocation
+``obs.journal``    the observation-store journal append (obs/store.py): a
+                   failure turns the store to in-memory telemetry
+                   (``obs.journal_degraded``), the query unaffected
+``obs.prof``       the profiler's record path (obs/prof.py): a failure
+                   turns profiling off (``prof.degraded``), never the
+                   query
 =================  ====================================================
 
-The serving, streaming and observability seams come with their layers
-(ROADMAP.md A9).
+The serving and streaming seams come with their layers (ROADMAP.md A9).
 
 SPEC GRAMMAR: comma-separated seam clauses, ``:``-separated fields::
 
@@ -23,7 +28,8 @@ SPEC GRAMMAR: comma-separated seam clauses, ``:``-separated fields::
     kind=<name>   ENOSPC | EIO | ENOMEM: an OSError with that errno, the
                   only kinds these seams take (their sites sit inside
                   ``except OSError`` degradation ladders); default per
-                  seam (spill.write and arena.alloc ENOSPC, spill.read EIO)
+                  seam (spill.write and arena.alloc ENOSPC, spill.read
+                  and the obs seams EIO)
     n=<int>       total injection cap (default unlimited)
     seed=<int>    RNG seed of this seam's draw sequence (default 0)
 
@@ -44,15 +50,15 @@ import threading
 from typing import Dict, Optional
 
 from ..utils import envgate as _eg
-from ..utils.tracing import bump
 
 #: the seam catalog; check() accepts only these names
-SEAMS = ("spill.write", "spill.read", "arena.alloc")
+SEAMS = ("spill.write", "spill.read", "arena.alloc", "obs.journal", "obs.prof")
 
 _ERRNO_KINDS = {"ENOSPC": errno.ENOSPC, "EIO": errno.EIO, "ENOMEM": errno.ENOMEM}
 
 #: default fault kind per seam: the failure that path sees in the wild
-_DEFAULT_KIND = {"spill.write": "ENOSPC", "spill.read": "EIO", "arena.alloc": "ENOSPC"}
+_DEFAULT_KIND = {"spill.write": "ENOSPC", "spill.read": "EIO", "arena.alloc": "ENOSPC",
+                 "obs.journal": "EIO", "obs.prof": "EIO"}
 
 
 class FaultSpec:
@@ -150,7 +156,11 @@ def _check_armed(seam: str) -> None:
         if spec.p < 1.0 and spec.rng.random() >= spec.p:
             return
         spec.fired += 1
-    bump(f"fault.injected.{seam}")
+    # the counter via obs.metrics directly (lazy: utils.tracing imports
+    # obs, whose store imports this module)
+    from ..obs.metrics import rollup_count
+
+    rollup_count(f"fault.injected.{seam}")
     raise OSError(_ERRNO_KINDS[spec.kind],
                   f"{spec.kind} injected at seam {seam} (fault injection)")
 

@@ -154,7 +154,7 @@ class DataFrame:
         return self._table.lazy()
 
     def collect_async(self, block: bool = True):
-        raise _not_ported("DataFrame.collect_async (the serving scheduler)", "A9")
+        raise _not_ported("DataFrame.collect_async (the serving scheduler)", "A9c")
 
     def to_arrow(self):
         """Typed pyarrow.Table (reference frame.py:217; Table.to_arrow)."""

@@ -24,7 +24,9 @@ extern "C" {
 struct CtPool {
   std::mutex mu;
   size_t block_bytes;
-  std::vector<char*> blocks;
+  std::vector<char*> blocks;      // block_bytes each, kept across resets
+  std::vector<char*> dedicated;   // one oversized request each, freed at reset
+  size_t dedicated_bytes = 0;     // their total size
   size_t cur_block = 0;   // index of the block being carved
   size_t cur_off = 0;     // offset inside it
   size_t in_use = 0;      // bytes handed out since last reset
@@ -39,7 +41,8 @@ void* ct_pool_create(int64_t block_bytes) {
 }
 
 // Arena alloc: bump-pointer within blocks; oversized requests get a
-// dedicated block. Returned memory lives until ct_pool_reset/destroy.
+// dedicated block of their own. Returned memory lives until
+// ct_pool_reset/destroy.
 void* ct_pool_alloc(void* pool, int64_t nbytes) {
   auto* p = static_cast<CtPool*>(pool);
   if (nbytes <= 0) return nullptr;
@@ -49,11 +52,9 @@ void* ct_pool_alloc(void* pool, int64_t nbytes) {
   p->in_use += n;
   if (p->in_use > p->peak) p->peak = p->in_use;
   if (n > p->block_bytes) {
-    // dedicated block, inserted BEFORE the carving position so normal
-    // carving is unaffected
     char* b = new char[n];
-    p->blocks.insert(p->blocks.begin() + p->cur_block, b);
-    p->cur_block++;
+    p->dedicated.push_back(b);
+    p->dedicated_bytes += n;
     return b;
   }
   while (true) {
@@ -71,10 +72,20 @@ void* ct_pool_alloc(void* pool, int64_t nbytes) {
   }
 }
 
-// Reuse all blocks without freeing (the arena pattern: reset between ops).
+static void free_dedicated(CtPool* p) {
+  for (char* b : p->dedicated) delete[] b;
+  p->dedicated.clear();
+  p->dedicated_bytes = 0;
+}
+
+// Reuse the carving blocks without freeing (the arena pattern: reset
+// between ops) and free the dedicated ones: a staging buffer larger than
+// a block is one write's column, and keeping it would grow the pool by
+// every large write for the pool's lifetime.
 void ct_pool_reset(void* pool) {
   auto* p = static_cast<CtPool*>(pool);
   std::lock_guard<std::mutex> g(p->mu);
+  free_dedicated(p);
   p->cur_block = 0;
   p->cur_off = 0;
   p->in_use = 0;
@@ -95,9 +106,7 @@ int64_t ct_pool_peak(void* pool) {
 int64_t ct_pool_reserved(void* pool) {
   auto* p = static_cast<CtPool*>(pool);
   std::lock_guard<std::mutex> g(p->mu);
-  size_t total = 0;
-  for (size_t i = 0; i < p->blocks.size(); ++i) total += p->block_bytes;
-  return (int64_t)total;
+  return (int64_t)(p->blocks.size() * p->block_bytes + p->dedicated_bytes);
 }
 
 int64_t ct_pool_allocs(void* pool) {
@@ -109,6 +118,7 @@ int64_t ct_pool_allocs(void* pool) {
 void ct_pool_destroy(void* pool) {
   auto* p = static_cast<CtPool*>(pool);
   for (char* b : p->blocks) delete[] b;
+  free_dedicated(p);
   delete p;
 }
 

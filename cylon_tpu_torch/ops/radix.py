@@ -10,7 +10,8 @@ an optional hint that narrows the bit span.
 Float lanes (the f64 total-order lane of ops/sort.orderable_key) have no
 digit decomposition: a lexsort holding one declines, exactly where the JAX
 package declines, and the caller sorts with ``torch.sort(stable=True)``.
-``COUNTS["declined"]`` counts those declines.
+``COUNTS["declined"]`` counts those declines; ``COUNTS["passes"]`` counts the
+8-bit digit passes the sorts run (the profiler's sort stage units).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from . import cuda_radix as _cr
 #: digit width of every pass (the JAX package's PALLAS_RADIX_BITS)
 RADIX_BITS = 8
 
-COUNTS = {"declined": 0}
+COUNTS = {"declined": 0, "passes": 0}
 
 #: ("span", lo, hi): unsigned values with significant bits in [lo, hi);
 #: ("bias", b, bits): small signed lane, (lane + b) fits ``bits`` bits
@@ -130,6 +131,7 @@ def lexsort_perm(
         return None
     perm = None
     for enc, lo, hi, _ in planned:
+        COUNTS["passes"] += _cr.n_passes(lo, hi)
         _, perm = _cr.radix_sort_lane(enc, perm, lo, hi)
     if perm is None:
         device = lanes[0].device if lanes else torch.device("cpu")
@@ -149,6 +151,7 @@ def sort_lane(
         COUNTS["declined"] += 1
         return None
     enc, lo, hi, is_lane = planned[0]
+    COUNTS["passes"] += _cr.n_passes(lo, hi)
     skeys, perm = _cr.radix_sort_lane(enc, None, lo, hi)
     return (skeys if is_lane else None), perm
 

@@ -17,7 +17,10 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Sequence
 
 import numpy as np
+import torch
 
+from ..obs import trace as _obstrace
+from ..utils.tracing import span
 from .expr import filter_mask
 from .nodes import (
     Filter,
@@ -117,9 +120,36 @@ def _prepare_join_inputs(lt, rt, l_keys, r_keys, l_shuf: bool, r_shuf: bool, sem
     return lt, rt
 
 
+def plan_order(root: Node) -> Dict[int, int]:
+    """Stable pre-order numbering of a plan's nodes: the ``node_id`` a
+    per-node span carries, and the id ``explain(analyze=True)`` joins
+    spans back to rendered tree lines with. A shared subplan (a DAG) keeps
+    its first-visit id."""
+    order: Dict[int, int] = {}
+
+    def number(n: Node) -> None:
+        if id(n) in order:
+            return
+        order[id(n)] = len(order)
+        for c in n.children:
+            number(c)
+
+    number(root)
+    return order
+
+
 def build_executor(root: Node) -> Callable[[List], "object"]:
     """Compile the plan into ``fn(tables) -> Table``. A node shared by two
-    parents runs once."""
+    parents runs once.
+
+    Every node executes under a ``plan.node.<Type>`` span carrying its
+    pre-order ``node_id``: with tracing off one disabled-path span call a
+    node (a rollup bump); with a query trace active the spans nest into
+    the query's tree and carry ``rows_out`` (the port's counts are
+    host-known). Under ``obs.trace.analyze_mode()`` (set only by
+    ``explain(analyze=True)``) each node waits for its card's work, so its
+    span's time is its own: a diagnostic sync by design."""
+    order = plan_order(root)
 
     def run(tables: List):
         memo: Dict[int, object] = {}
@@ -128,13 +158,26 @@ def build_executor(root: Node) -> Callable[[List], "object"]:
             got = memo.get(id(node))
             if got is not None:
                 return got
-            out = _lower_one(node, ex, tables)
+            with span("plan.node." + type(node).__name__, node_id=order[id(node)]) as sp:
+                out = _lower_one(node, ex, tables)
+                if _obstrace.analyze_active():
+                    _wait_for_devices(out)
+                if sp is not None:
+                    sp.attrs["rows_out"] = int(out._counts.sum())
             memo[id(node)] = out
             return out
 
         return ex(root)
 
     return run
+
+
+def _wait_for_devices(table) -> None:
+    """The analyzed run's per-node wait: every card this process's shards
+    of ``table`` live on."""
+    for d in dict.fromkeys(table.ctx.devices):
+        if d is not None and d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def _lower_one(node: Node, ex, tables):

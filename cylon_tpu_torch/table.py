@@ -38,6 +38,7 @@ JAX package; a groupby output has none.
 from __future__ import annotations
 
 import operator as _op
+import time as _time
 from collections import OrderedDict
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -68,13 +69,18 @@ from .ops.gather import (
     wire_q8_cols, wire_row_bytes,
 )
 from .ops.hash import hash_dictionary_host
+from .ops import radix as _radix
 from .ops.sort import lexsort_rows_payload, orderable_key, prefix_run_lane
 from .ops.partition import _saturating_int
 from .ordering import Ordering
 from .parallel import shuffle as _sh
 from .parallel import spill as _spill
 from .parallel import topo as _topo
-from .utils.tracing import bump, gauge, span
+from .obs import prof as _prof
+from .obs import resource as _obsres
+from .obs import store as _obsstore
+from .obs import trace as _obstrace
+from .utils.tracing import annotate_add, bump, gauge, span
 
 Encoded = Tuple[np.ndarray, Optional[np.ndarray], Any, Optional[np.ndarray]]
 Shard = "OrderedDict[str, Column]"
@@ -269,6 +275,9 @@ class Table:
         # attached them (the shuffle's count phase, ensure_stats): a missed
         # propagation costs a lane-packing chance, never a result
         self._stats: Dict[str, _st.ColStat] = {}
+        # the resource ledger: a no-op unless an ops surface is on; never
+        # a sync (the byte counts are shape properties)
+        _obsres.note_table(self)
 
     def _per_shard(self, fn) -> List[Any]:
         return _per_shard(self.ctx, fn)
@@ -1079,20 +1088,22 @@ class Table:
             ordering = None
         if r_presorted:
             bump("ordering.join_presorted_probe")
-        probes = self._per_shard(lambda s: _j.spec_probe(
-            left._flat_cols(s, l_names), right._flat_cols(s, r_names), right._flat_cols(s), howi,
-            r_presorted=r_presorted, emit_key_order=emit_key, key_fuse=join_fuse,
-        ))
-        bump("host_sync")  # the join's one count read
-        counts = self._gather_counts([probes[s]["total"] for s in self.ctx.local_shards])
-        # every rank checks every shard's count, so all raise alike
-        _j.count_overflow_check(int(counts.max()))
-        if emit_key:
-            bump("ordering.join_key_order_emit")
-        return self._with_shards(self._per_shard(lambda s: _out_shard(
-            out_names, left, right, s,
-            _j.spec_emit(probes[s], left._flat_cols(s), right._flat_cols(s), howi, int(counts[s])),
-        )), counts)._attach_ordering(ordering)
+        with span("join.speculative", rows=int(self._counts.sum())):
+            probes = self._per_shard(lambda s: _j.spec_probe(
+                left._flat_cols(s, l_names), right._flat_cols(s, r_names), right._flat_cols(s),
+                howi, r_presorted=r_presorted, emit_key_order=emit_key, key_fuse=join_fuse,
+            ))
+            bump("host_sync")  # the join's one count read
+            counts = self._gather_counts([probes[s]["total"] for s in self.ctx.local_shards])
+            # every rank checks every shard's count, so all raise alike
+            _j.count_overflow_check(int(counts.max()))
+            if emit_key:
+                bump("ordering.join_key_order_emit")
+            return self._with_shards(self._per_shard(lambda s: _out_shard(
+                out_names, left, right, s,
+                _j.spec_emit(probes[s], left._flat_cols(s), right._flat_cols(s), howi,
+                             int(counts[s])),
+            )), counts)._attach_ordering(ordering)
 
     def _pallas_pk_join(
         self, other: "Table", l_names, r_names, how: str, suffixes: Tuple[str, str]
@@ -1295,14 +1306,28 @@ class Table:
                 ctx, lk_idx, rk_idx, howi, bucket_cap, join_cap, respill, num_slices,
                 quant_l=quant_l, quant_r=quant_r, topo=topo,
             )
+            t0_prof = _time.perf_counter()
+            prof_on = _prof.profiling_active()
+            ev0 = _obstrace.device_event() if prof_on else None
             with span("join.fused", rows=int(left._counts.sum() + right._counts.sum())):
                 out, nout, ov = step(l_in, r_in)
                 mine = torch.stack([
                     torch.cat([n.reshape(1).to(torch.int64), o.to(torch.int64)]).to(dev0)
                     for n, o in zip(nout, ov)
                 ])
+                ev1 = _obstrace.device_event() if ev0 is not None else None  # the read passes it
                 bump("host_sync")
                 stats = ctx.comm.all_gather_counts(mine.cpu().numpy())  # THE host read
+                # the fused step's stage clocks: the read above is this
+                # attempt's end, every unit shape-derived (host math only)
+                if prof_on:
+                    _prof.record_stages(
+                        "fused",
+                        _prof.fused_units(world, bucket_cap, num_slices * (1 + respill),
+                                          int(left._counts.sum()), int(right._counts.sum()),
+                                          join_cap),
+                        world, t0_prof, _time.perf_counter(), (ev0, ev1),
+                    )
             nout_h = stats[:, 0]
             ov_shuffle, ov_join = int(stats[:, 1].sum()), int(stats[:, 2].max())
             if ov_shuffle == 0 and ov_join == 0:
@@ -1400,9 +1425,10 @@ class Table:
                 )
             return cols, ng
 
-        parts = self._per_shard(group)
-        counts = self._gather_counts([parts[s][1] for s in self.ctx.local_shards])
-        res = Table(self.ctx, self._per_shard(lambda s: parts[s][0]), counts)
+        with span("groupby.emit", rows=int(self._counts.sum())):
+            parts = self._per_shard(group)
+            counts = self._gather_counts([parts[s][1] for s in self.ctx.local_shards])
+            res = Table(self.ctx, self._per_shard(lambda s: parts[s][0]), counts)
         res._attach_stats({n: self._stats.get(n) for n in key_names})
         if out_canonical:
             res._attach_ordering(Ordering(
@@ -1530,7 +1556,16 @@ class Table:
         if fuse is not None:
             bump("lane_pack.sort_fused", rows=fuse.n_plain - fuse.n_words)
         mask_free = all(self._ref[n].valid is None for n in names)
-        res = self._with_shards(self._per_shard(sort_shard))._attach_stats(self._stats)
+        t0_prof = _time.perf_counter()
+        ev0 = _obstrace.device_event() if _prof.profiling_active() else None
+        passes0 = _radix.COUNTS["passes"]
+        with span("sort", rows=int(self._counts.sum())):
+            res = self._with_shards(self._per_shard(sort_shard))._attach_stats(self._stats)
+        passes = _radix.COUNTS["passes"] - passes0
+        # the sort's evidence: K1's one-sweep passes over the rows (the
+        # stage clock resolves when its query finishes; host math only)
+        _prof.record_sort("radix", passes, int(self._counts.sum()), self.world_size, t0_prof, ev0)
+        _obsstore.note_sort("radix", _time.perf_counter() - t0_prof, passes, 0)
         return res._attach_ordering(Ordering(
             keys=tuple(names), ascending=asc, nulls_last=True, scope="shard",
             canonical=mask_free and all(asc), lexsort_exact=True,
@@ -1593,8 +1628,21 @@ class Table:
             )
             return lk, sums, ng, reps, vcnt
 
-        parts = self._per_shard(fused)
-        counts = self._gather_counts([parts[s][2] for s in self.ctx.local_shards])
+        t0_prof = _time.perf_counter()
+        prof_on = _prof.profiling_active()
+        ev0 = _obstrace.device_event() if prof_on else None
+        with span("join.sum_pushdown", rows=int(self._counts.sum())):
+            parts = self._per_shard(fused)
+            bump("host_sync")  # the group counts' one read
+            counts = self._gather_counts([parts[s][2] for s in self.ctx.local_shards])
+        # the pushdown's stage clocks: shape-derived units, pending until
+        # the query finishes (host math only)
+        if prof_on:
+            _prof.record_fused(
+                _prof.fused_units(self.world_size, 0, 1, int(self._counts.sum()),
+                                  int(other._counts.sum()), int(counts.max()) if len(counts) else 0),
+                self.world_size, t0_prof, ev0,
+            )
 
         def shard(s):
             lk, sums, _ng, reps, vcnt = parts[s]
@@ -1674,7 +1722,8 @@ class Table:
             emit = _s.setop_emit_sorted if sorted_fast else _s.setop_emit
             return (lc, *emit(lc, rc, op == "intersect"))
 
-        res = a._emit(a._per_shard(setop))
+        with span(f"setop.{op}", rows=int(a._counts.sum())):
+            res = a._emit(a._per_shard(setop))
         # subtract and intersect keep a subset of the left rows in order
         if op == "union":
             return res
@@ -1734,7 +1783,9 @@ class Table:
             return self._flat_cols(s, out_names), idx, total
 
         # a subset of the rows in order: the descriptor survives
-        return self._emit(self._per_shard(dedup), out_names)._attach_ordering(
+        with span("unique", rows=int(self._counts.sum())):
+            res = self._emit(self._per_shard(dedup), out_names)
+        return res._attach_ordering(
             self._ordering
         )._attach_stats(self._stats)
 
@@ -2722,6 +2773,7 @@ def _plan_state(st: dict) -> None:
         unf, filt = st["counts_u"], st["counts_f"]
         tot_u, tot_f = int(unf.sum()), int(filt.sum())
         gauge("shuffle.semi_filter.selectivity", tot_f / max(tot_u, 1))
+        _obsstore.note_semi(sel=tot_f / max(tot_u, 1), built=True)
         cap_u, k_u = _sh.plan_rounds(unf, row_bytes, w, budget)
         cap_f, k_f = _sh.plan_rounds(filt, row_bytes, w, budget)
         st["use_filter"] = cap_f * k_f < cap_u * k_u
@@ -2803,16 +2855,21 @@ def _plan_state(st: dict) -> None:
                                                  cap_o=None if tp is None else tp.cap_o)
         bump("shuffle.coll_bytes.intra", rows=intra_b)
         bump("shuffle.coll_bytes.inter", rows=inter_b)
+        annotate_add(coll_bytes_intra=intra_b, coll_bytes_inter=inter_b)
     if two_hop_ok:
         bump("shuffle.coll_bytes.inter_alt",
              rows=_topo.axis_coll_bytes(tcfg, w, bc, k, int(rb_eff), nh)[1])
     # shipped bytes: flat, K rounds x W^2 bucket blocks x the (narrowed)
     # row bytes; two-hop, both hops' bytes; and the relay's rows at their
     # plain row bytes
-    bump("shuffle.exchanged_bytes",
-         rows=intra_b + inter_b if tp is not None else sched.coll_row_slots(w) * int(rb_eff))
+    coll_bytes = intra_b + inter_b if tp is not None else sched.coll_row_slots(w) * int(rb_eff)
+    # the bytes ride the span that runs the shuffle (a plan node's):
+    # explain(analyze=True) prints them on its line
+    annotate_add(coll_bytes=coll_bytes, shuffle_rounds=int(st["n_rounds"]))
+    bump("shuffle.exchanged_bytes", rows=coll_bytes)
     if sched.adaptive:
         bump("shuffle.spill.relay_bytes", rows=sched.relay_rows() * int(row_bytes))
+        annotate_add(relay_bytes=sched.relay_rows() * int(row_bytes))
     st["new_counts"] = st["send_counts"].sum(axis=0).astype(np.int64)
     bump("shuffle.rounds", rows=k)
 
@@ -2833,7 +2890,9 @@ def _plan_state(st: dict) -> None:
             cap_ri = _topo.ring_cap(intra_m)
             st["ring"], st["relay_host"] = (intra_m, cap_ri), inter_m
             bump("shuffle.relay.ring_rows", rows=int(intra_m.sum()))
-            bump("shuffle.coll_bytes.intra", rows=_topo.ring_bytes(tcfg, cap_ri, int(row_bytes)))
+            ring_b = _topo.ring_bytes(tcfg, cap_ri, int(row_bytes))
+            bump("shuffle.coll_bytes.intra", rows=ring_b)
+            annotate_add(coll_bytes_intra=ring_b)
     st["sink"], st["stage_qsig"] = None, None
     if tier != _spill.TIER_HBM:
         bump("shuffle.spill.shuffles")
@@ -2866,6 +2925,21 @@ def _plan_state(st: dict) -> None:
     st["dev_peak_bytes"] = peak_rows * row_bytes
     if spec.sink is not None:
         spec.sink.device_rows_peak = max(getattr(spec.sink, "device_rows_peak", 0), peak_rows)
+    # this shuffle's planning inputs and decisions for the observation
+    # store (host dict work, only under an active exec record)
+    if _obsstore.recording():
+        m = np.asarray(st["send_counts"], np.int64)
+        _obsstore.note_shuffle(
+            world=w, row_bytes=int(row_bytes), hot=int(m.max()) if m.size else 0,
+            mean_bucket=-(-int(m.sum()) // max(m.size, 1)),
+            staged=int(st["new_counts"].max()) * int(row_bytes) if tier != _spill.TIER_HBM else 0,
+            tier=int(tier), rounds=int(k),
+            coll=coll_bytes,
+            budget=budget, static_budget=int(st["ctx"].shuffle_byte_budget),
+            wire=st["wire"] is not None, relay=sched.adaptive,
+            topo=tuple(tcfg) if tcfg is not None else None, hop2=tp is not None,
+            intra=intra_b, inter=inter_b,
+        )
 
 
 def _send_rows(st: dict, s: int) -> dict:
@@ -2932,9 +3006,13 @@ def _shuffle_many(specs: Sequence[_ShuffleSpec]) -> List[Optional[Table]]:
     engine owns (a caller's sink is the caller's to close), and a raw
     ``OSError`` leaves as ``SpillIOError``.
     """
-    states = [_shuffle_state(s) for s in specs]
+    states = []
+    for spec in specs:
+        with span("shuffle.count", rows=int(spec.table._counts.sum())):
+            st = _shuffle_state(spec)
+            _count_phase(st)
+        states.append(st)
     for st in states:
-        _count_phase(st)
         _plan_state(st)
         st["send"] = {s: _send_rows(st, s) for s in st["local"]}
         st["rounds_out"] = {s: [] for s in st["local"]}
@@ -2967,9 +3045,20 @@ def _stage_round(st: dict) -> None:
 
 
 def _shuffle_many_rounds(states: List[dict]) -> List[Optional[Table]]:
-    """Phases 3-5 of :func:`_shuffle_many`: the relay extraction (and the
-    ring under two hops), the round loop, the deferred fetch and the
-    result."""
+    """Phases 3-5 of :func:`_shuffle_many` under the ``shuffle.exchange``
+    span: the relay extraction (and the ring under two hops), the round
+    loop (``shuffle.round.pack`` / ``.collective`` / ``.compact`` a table
+    and round), the deferred fetch and the result. With the profiler on,
+    the stage clocks (obs/prof.py) take the window between two CUDA events
+    around the rounds (the deferred read passes the later one) or, on the
+    CPU, the host window."""
+    with span("shuffle.exchange", rows=sum(int(st["t"]._counts.sum()) for st in states)):
+        return _exchange_rounds(states)
+
+
+def _exchange_rounds(states: List[dict]) -> List[Optional[Table]]:
+    t0 = _time.perf_counter()
+    ev0 = _obstrace.device_event() if _prof.profiling_active() else None
     for st in states:
         sched = st["sched"]
         st["relay_copies"] = st["ring_out"] = None
@@ -3001,38 +3090,56 @@ def _shuffle_many_rounds(states: List[dict]) -> List[Optional[Table]]:
             w, bc, wplan, tp = st["world"], st["bucket_cap"], st["wire"], st["topo_plan"]
             nh = _sh.wire_header_rows(wplan) if wplan is not None else _sh.HEADER_ROWS
             dev0, local = st["ctx"].device, st["local"]
+            t_pk0 = _time.perf_counter()
             bufs = []
-            for s in local:
-                sh = st["send"][s]
-                dest = _codec.pack_dest(sh["lane"], sh["base"], r, w, bc)
-                rc = _sh.round_counts(sh["cnt"], bc, r)
-                packed, hx = sh["packed"], None
-                if packed is None:  # q8 fields: this round's chunk scales
-                    packed, hx = _sh.round_send(st["flat"][s], wplan, st["bases"], dest, w, bc)
-                bufs.append(_sh.pack_lane_buffer(packed, dest, rc, w, bc, header_extra=hx,
-                                                 n_header=nh))
+            with span("shuffle.round.pack"):
+                for s in local:
+                    sh = st["send"][s]
+                    dest = _codec.pack_dest(sh["lane"], sh["base"], r, w, bc)
+                    rc = _sh.round_counts(sh["cnt"], bc, r)
+                    packed, hx = sh["packed"], None
+                    if packed is None:  # q8 fields: this round's chunk scales
+                        packed, hx = _sh.round_send(st["flat"][s], wplan, st["bases"], dest, w, bc)
+                    bufs.append(_sh.pack_lane_buffer(packed, dest, rc, w, bc, header_extra=hx,
+                                                     n_header=nh))
+            t_pk1 = _time.perf_counter()
             expect = _expected_received(st["send_counts"], bc, r)
             fresh = {}
             if tp is None:
-                for d, g in zip(local, _sh.exchange_buffer(st["ctx"].comm, bufs)):
-                    recv = _sh.header_counts(g, w)
-                    moved = _codec.compact_move(_sh.with_scale_lanes(g, wplan, w, nh), recv, w, bc,
-                                                n_header=nh)
-                    fresh[d] = [moved[: int(expect[d])]]
-                    st["recv"].append(recv.to(dev0, copy=True))
+                with span("shuffle.round.collective"):
+                    got = _sh.exchange_buffer(st["ctx"].comm, bufs)
+                t_cp0 = _time.perf_counter()
+                with span("shuffle.round.compact"):
+                    for d, g in zip(local, got):
+                        recv = _sh.header_counts(g, w)
+                        moved = _codec.compact_move(_sh.with_scale_lanes(g, wplan, w, nh), recv,
+                                                    w, bc, n_header=nh)
+                        fresh[d] = [moved[: int(expect[d])]]
+                        st["recv"].append(recv.to(dev0, copy=True))
             else:
                 # two hops; B3 front-packs the same-group rows (final after
                 # hop 1), then the combined cross-outer chunks: the JAX
                 # package's one compaction over their concatenation
                 topo = st["topo_cfg"]
                 n_self, n_cross = _topo.round_split(st["send_counts"], topo, bc, r)
-                got = _topo.two_hop_exchange(st["ctx"].comm, bufs, local, topo, bc, tp.cap_o, nh)
-                for d, (g2, self_rows, self_cnt) in zip(local, got):
-                    recv2 = _sh.header_counts(g2, tp.outer)
-                    m1 = _codec.compact_move(self_rows, self_cnt, tp.inner, bc, n_header=0)
-                    m2 = _codec.compact_move(g2, recv2, tp.outer, tp.cap_o, n_header=nh)
-                    fresh[d] = [m1[: int(n_self[d])], m2[: int(n_cross[d])]]
-                    st["recv"].append(torch.cat([self_cnt, recv2]).to(dev0))
+                with span("shuffle.round.collective"):
+                    got = _topo.two_hop_exchange(st["ctx"].comm, bufs, local, topo, bc, tp.cap_o,
+                                                 nh)
+                t_cp0 = _time.perf_counter()
+                with span("shuffle.round.compact"):
+                    for d, (g2, self_rows, self_cnt) in zip(local, got):
+                        recv2 = _sh.header_counts(g2, tp.outer)
+                        m1 = _codec.compact_move(self_rows, self_cnt, tp.inner, bc, n_header=0)
+                        m2 = _codec.compact_move(g2, recv2, tp.outer, tp.cap_o, n_header=nh)
+                        fresh[d] = [m1[: int(n_self[d])], m2[: int(n_cross[d])]]
+                        st["recv"].append(torch.cat([self_cnt, recv2]).to(dev0))
+            # the codec's evidence for the observation store: pack and
+            # compact host walls and their row passes (B2a + B2b, B3)
+            if _obsstore.recording():
+                rows_in = sum(int(st["send_counts"][s].sum()) for s in local)
+                _obsstore.note_codec("cuda" if dev0.type == "cuda" else "plain",
+                                     (t_pk1 - t_pk0) + (_time.perf_counter() - t_cp0),
+                                     2 * rows_in + int(sum(int(expect[d]) for d in local)), 0)
             if spilled:
                 st["fresh"] = ({d: p[0] if len(p) == 1 else torch.cat(p) for d, p in fresh.items()},
                                expect)
@@ -3046,6 +3153,9 @@ def _shuffle_many_rounds(states: List[dict]) -> List[Optional[Table]]:
                 _stage_round(st)
                 st["prev"] = fresh
 
+    t_disp = _time.perf_counter()
+    ev1 = _obstrace.device_event() if ev0 is not None else None
+    t_dev = None
     results = []
     for st in states:
         w, bc, k, local = st["world"], st["bucket_cap"], st["n_rounds"], st["local"]
@@ -3058,6 +3168,7 @@ def _shuffle_many_rounds(states: List[dict]) -> List[Optional[Table]]:
             mine = torch.cat([mine, torch.stack([n.to(mine.device) for _r, n in st["ring_out"]])
                               .view(-1, 1).to(mine.dtype)], 1)
         got_all = st["ctx"].comm.all_gather_counts(mine.cpu().numpy())  # [dst, ...]
+        t_dev = t_dev or _time.perf_counter()  # the first read: every round has landed
         width = (got_all.shape[1] - (st["ring_out"] is not None)) // k
         expect_all = [_expected_received(st["send_counts"], bc, r) for r in range(k)]
         for r, expect in enumerate(expect_all):
@@ -3118,6 +3229,19 @@ def _shuffle_many_rounds(states: List[dict]) -> List[Optional[Table]]:
         # the shuffle moves rows, not values: the measured bounds hold
         names = t.column_names
         results.append(res._attach_stats({names[ci]: v for ci, v in st["col_stats"].items()}))
+    # the overlap ledger: the share of the window (open to the deferred
+    # read's return) spent issuing the rounds
+    t_dev = t_dev or t_disp
+    gauge("shuffle.overlap_efficiency", min(max(t_disp - t0, 0.0) / max(t_dev - t0, 1e-9), 1.0))
+    # per-stage per-shard stage clocks (obs/prof.py): host arithmetic over
+    # the count matrices and the window; the read above passed ev1
+    _prof.record_shuffle(
+        [(st["send_counts"], st["n_rounds"], st["bucket_cap"], st["sched"].relay,
+          None if st["topo_plan"] is None else
+          (st["topo_plan"].outer, st["topo_plan"].inner, st["topo_plan"].cap_o))
+         for st in states],
+        states[0]["world"], t0, t_dev, (ev0, ev1),
+    )
     return results
 
 
@@ -3180,6 +3304,7 @@ def _pair_sketches(
         prunable += b.row_count * _sh.exchange_row_bytes(b._flat_cols(b.ctx.local_shards[0]))
     prunable //= max(world, 1)
     if prunable < SEMI_FILTER_MIN_PAYOFF * wire:
+        _obsstore.note_semi(payoff_skip=True)
         return None
     with span("shuffle.semi_filter.sketch", rows=wire):
         hashes = {name: {s: _sketch.key_hashes(t._flat_cols(s, list(keys))) for s in ctx.local_shards}
@@ -3192,6 +3317,7 @@ def _pair_sketches(
         ]
         combined = _sketch.combine_pair(local, ctx.comm)
     bump("semi_filter.sketch_bytes", rows=wire)
+    annotate_add(coll_bytes=int(wire), sketch_bytes=int(wire))
     row_of = {name: i for i, (name, _t, _k) in enumerate(build)}
     probe = {}
     if sides in ("both", "a"):

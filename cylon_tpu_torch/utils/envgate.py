@@ -9,13 +9,16 @@ of the port reads ``os.environ`` outside this file, except the
 ``torchrun`` variables of ``config.py`` (WORLD_SIZE, RANK, LOCAL_RANK),
 which belong to torch's launcher, not to the port.
 
-The port registers only the knobs of features it has: the shuffle tiers,
+The port registers only the knobs of features it has: the observability
+layer (obs/: the tracer, the profiler, the flight ring and its export,
+the ops endpoint, the observation store, the leak grace), the shuffle tiers,
 the skew split and the spill tiers (parallel/spill.py, which the
 out-of-core layers of parallel/ooc.py, task.py and dag.py read and add
 none to), the spill fault seams (fault/inject.py), the two-hop topology
 (parallel/topo.py), the native runtime's kill switch (native/) and the C
 ABI's platform (native/capi.cpp's ``ct_api_init``). Knobs of layers it has
-not ported join with their items (ROADMAP.md A9); the JAX package's
+not ported (the feedback re-coster, serving, SLO rules, streaming) join
+with their items (ROADMAP.md A9); the JAX package's
 knobs that choose between its XLA and Pallas tiers or configure XLA have no
 counterpart (ROADMAP.md A5), nor has its AddressSanitizer build of the
 native runtime (ROADMAP.md, "Left out so far").
@@ -76,6 +79,10 @@ class EnvKnob:
     def get(self) -> str:
         """Current value (read per call: a change takes effect at once)."""
         return os.environ.get(self.var, self.default)
+
+    def truthy(self) -> bool:
+        """Set to anything non-empty and non-'0'."""
+        return self.get() not in ("", "0")
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return f"EnvKnob({self.var!r}, kind={self.kind!r})"
@@ -184,7 +191,8 @@ FAULTS = EnvKnob(
     "CYLON_TPU_TORCH_FAULTS", "", kind="observability",
     note="deterministic fault-injection spec (fault/inject.py): "
     "comma-separated 'seam[:p=0.05][:kind=ENOSPC][:n=3][:seed=7]' clauses "
-    "arming spill.write/spill.read/arena.alloc; read at import and at "
+    "arming spill.write/spill.read/arena.alloc/obs.journal/obs.prof; read at "
+    "import and at "
     "fault.inject.refresh()",
 )
 
@@ -200,4 +208,49 @@ PLATFORM = EnvKnob(
     note="the device of the C ABI's context (native/capi.cpp ct_api_init): "
     "unset = GPUConfig() on cuda:0, which raises without a card; 'cpu' "
     "asks for the CPU; read once, at ct_api_init",
+)
+
+# -- the observability layer (obs/; the JAX package's CYLON_TPU_TRACE,
+# _TRACE_RING, _TRACE_EXPORT, _PROF, _OBS_DIR, _METRICS_PORT and
+# _LEAK_GRACE_S). None alters a plan, a cache key or a result --
+TRACE = EnvKnob(
+    "CYLON_TPU_TORCH_TRACE", "0", kind="observability",
+    note="=1 logs each span as it closes AND records query span trees; any "
+    "other truthy value (e.g. 'tree') records the structured traces without "
+    "the per-span stderr log; on a card spans record CUDA timing events, "
+    "read only once completed or at export (no added host sync)",
+)
+PROF = EnvKnob(
+    "CYLON_TPU_TORCH_PROF", "0", kind="observability",
+    note="truthy enables the critical-path profiler (obs/prof.py): "
+    "per-stage per-shard stage clocks of the shuffle round pipeline from "
+    "the counts the engine already read and the window of its events",
+)
+TRACE_RING = EnvKnob(
+    "CYLON_TPU_TORCH_TRACE_RING", "64", kind="observability",
+    note="flight-recorder capacity: the last N finished query traces kept "
+    "in memory (obs/export.py); read per record",
+)
+TRACE_EXPORT = EnvKnob(
+    "CYLON_TPU_TORCH_TRACE_EXPORT", "", kind="observability",
+    note="when set, the flight ring is written to this path as Chrome "
+    "trace-event JSON at interpreter exit",
+)
+OBS_DIR = EnvKnob(
+    "CYLON_TPU_TORCH_OBS_DIR", "", kind="observability",
+    note="directory of the persistent per-fingerprint observation journal "
+    "(obs/store.py); unset disables the store. No tuned decision reads it "
+    "yet (the feedback re-coster, ROADMAP.md A9b)",
+)
+METRICS_PORT = EnvKnob(
+    "CYLON_TPU_TORCH_METRICS_PORT", "", kind="observability",
+    note="when set, context init starts the ops endpoint on loopback "
+    "(obs/export.OpsServer): /metrics, /healthz, /queries; also turns the "
+    "resource ledger on; '0' picks a free port",
+)
+LEAK_GRACE_S = EnvKnob(
+    "CYLON_TPU_TORCH_LEAK_GRACE_S", "30", kind="observability",
+    note="resource-ledger leak grace (seconds): a table still live this "
+    "long after its owning query trace finished is flagged by "
+    "ResourceLedger.leaks()",
 )

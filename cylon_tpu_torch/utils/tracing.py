@@ -1,86 +1,42 @@
-"""Process-global counters and spans (counterpart of cylon_tpu/utils/tracing.py).
+"""The thin shim over :mod:`cylon_tpu_torch.obs` (counterpart of
+cylon_tpu/utils/tracing.py).
 
-The JAX package's tracer is the rollup dict of its ``obs/`` layer; the port
-keeps only that rollup: ``bump`` counts an event (``rows=`` adds to its
-``rows`` total), ``gauge`` records a measured value (``total_s``/``max_s``/
-``last`` hold its sum, peak and latest), ``span`` times a block,
-``report(prefix)`` and ``get_count`` read them, ``reset_trace`` clears
-them. The planner counts its rule firings here (``plan.rule.<rule>``) and
-its plan cache (``plan.cache.hit`` / ``plan.cache.miss``), and the
-order-descriptor consumers their fast paths (``ordering.*``), the shuffle
-its semi-join filter (``shuffle.semi_filter.*``) and lane packing its
-fusions and wire narrowing (``lane_pack.*``). The one span is the
-semi-join sketch build (``shuffle.semi_filter.sketch``). The structured
-layer (per-query span trees, exporters, latency histograms) is ROADMAP.md
-A9.
+``bump`` counts an event (``rows=`` adds to its ``rows`` total),
+``gauge`` records a measured value (``total_s``/``max_s``/``last`` hold
+its sum, peak and latest), ``span`` times a block, ``report(prefix)``,
+``get_count`` and ``get_trace_report`` read the process-global rollup,
+``reset_trace`` clears it. Each of them also feeds the active query
+trace (``obs/trace.py``) when one is open. The flight ring and the
+latency histograms are separate stores (``obs.export.reset_ring()``,
+``obs.metrics.reset_latency()``).
 """
 from __future__ import annotations
 
-import threading
-import time
-from contextlib import contextmanager
-from typing import Dict, Iterator, Optional
+from typing import Dict
 
-_LOCK = threading.Lock()
-_ROLLUP: Dict[str, Dict[str, float]] = {}
+from ..obs.metrics import get_count, report, reset_rollup, snapshot
+from ..obs.trace import (  # noqa: F401  (the instrumentation surface)
+    annotate_add,
+    bump,
+    gauge,
+    profile,
+    span,
+    trace_enabled,
+    tracing_active,
+)
 
-
-def _entry(name: str) -> Dict[str, float]:
-    e = _ROLLUP.get(name)
-    if e is None:
-        e = _ROLLUP[name] = {"count": 0, "total_s": 0.0, "max_s": 0.0, "rows": 0}
-    return e
-
-
-def bump(name: str, rows: Optional[int] = None) -> None:
-    """Count one ``name`` event; ``rows`` adds to the event's row total."""
-    with _LOCK:
-        e = _entry(name)
-        e["count"] += 1
-        if rows is not None:
-            e["rows"] += int(rows)
+__all__ = [
+    "annotate_add", "bump", "gauge", "get_count", "get_trace_report",
+    "profile", "report", "reset_trace", "span", "trace_enabled",
+    "tracing_active",
+]
 
 
-def gauge(name: str, value: float) -> None:
-    """Record a measured value (a ratio, not a duration)."""
-    with _LOCK:
-        e = _entry(name)
-        e["count"] += 1
-        e["total_s"] += float(value)
-        e["max_s"] = max(e["max_s"], float(value))
-        e["last"] = float(value)
-
-
-@contextmanager
-def span(name: str, rows: Optional[int] = None) -> Iterator[None]:
-    """Time the block on the host clock under ``name`` (``rows`` as in
-    :func:`bump`)."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
-        with _LOCK:
-            e = _entry(name)
-            e["count"] += 1
-            if rows is not None:
-                e["rows"] += int(rows)
-            e["total_s"] += dt
-            e["max_s"] = max(e["max_s"], dt)
-
-
-def get_count(name: str) -> int:
-    with _LOCK:
-        e = _ROLLUP.get(name)
-        return int(e["count"]) if e else 0
-
-
-def report(prefix: str = "") -> Dict[str, Dict[str, float]]:
-    """{name: {count, total_s, max_s}} of every name under ``prefix``."""
-    with _LOCK:
-        return {k: dict(v) for k, v in _ROLLUP.items() if k.startswith(prefix)}
+def get_trace_report() -> Dict[str, Dict[str, float]]:
+    """Aggregated span stats: {name: {count, total_s, max_s, rows, last}}."""
+    return snapshot()
 
 
 def reset_trace() -> None:
-    with _LOCK:
-        _ROLLUP.clear()
+    """Clear the process-global rollup."""
+    reset_rollup()

@@ -6,7 +6,8 @@ and the launcher and comparisons of the tests that start the ranks.
 joins a ``torch.distributed`` group through ``GPUConfig(coordinator_address=
 INIT_URL, num_processes=WORLD, process_id=RANK)``, runs the cases (default:
 all) on its one shard and pickles what each output holds on that shard to
-``OUT_DIR/rankRANK.pkl``. The same case functions run in the test process
+``OUT_DIR/rankRANK.pkl``. A WORLD of ``PxL`` starts P processes of L shards
+each (``GPUConfig(devices=[DEVICE] * L, ...)``), a world of P L shards. The same case functions run in the test process
 on ``LocalCommunicator`` (every shard in one process) and, for the cases in
 ``SHARED``, on the JAX package, so the tests hold rank d's shard against
 shard d of both. This module imports only torch, numpy and cylon_tpu_torch.
@@ -407,16 +408,22 @@ def case_skew8(env):
     return out
 
 
+def rank_config(url, procs, rank, device, backend, per, **kw):
+    """A rank's GPUConfig: one shard on ``device``, or ``per`` shards on it."""
+    where = dict(devices=[device] * per) if per > 1 else dict(device=device)
+    return ctt.GPUConfig(coordinator_address=url, num_processes=procs, process_id=rank,
+                         backend=backend, **where, **kw)
+
+
 def mesh_context(env, mesh):
     """A context over ``env``'s shards declared with a 2-D ``mesh``: under
-    torch.distributed on the same process group (every rank makes its
-    inner and outer groups), else in this process."""
+    torch.distributed on the same process group (the groups' chunks
+    routed through the whole group), else in this process."""
     ctx = env.context
     if RANK_ARGS:
-        url, device, backend = RANK_ARGS
-        return ctt.CylonContext.init_distributed(ctt.GPUConfig(
-            device=device, coordinator_address=url, num_processes=ctx.world_size,
-            process_id=ctx.rank, backend=backend, mesh_shape=mesh))
+        url, device, backend, per = RANK_ARGS
+        return ctt.CylonContext.init_distributed(rank_config(
+            url, ctx.world_size // per, ctx.rank, device, backend, per, mesh_shape=mesh))
     return ctt.CylonContext.init_distributed(ctt.GPUConfig(
         device=ctx.device, world_size=ctx.world_size, mesh_shape=mesh))
 
@@ -424,9 +431,8 @@ def mesh_context(env, mesh):
 def case_topo8(env):
     """The two-hop exchange at 4x2 over eight shards: a shuffle of keys of
     which 80% hash to the shard's own outer group, a one-hot shuffle whose
-    same-group relay tail rides the ring of ``batch_isend_irecv`` steps,
-    and a join; the grouped all_to_alls run on the inner and outer process
-    groups."""
+    same-group relay tail rides the ring of ``ppermute`` steps, and a
+    join; the grouped all_to_alls ride the whole process group."""
     from cylon_tpu_torch.ops.partition import hash_partition_ids
     from cylon_tpu_torch.utils import tracing
 
@@ -451,6 +457,35 @@ def case_topo8(env):
     out = {"locality": t.shuffle(["k"]), "ring": hot.shuffle(["k"]),
            "join": t.distributed_join(b, on="k")}
     out.update({n: rows(n) - before[n] for n in names})
+    ctx.finalize()
+    return out
+
+
+#: the counter of the bytes that cross between outer groups
+INTER_BYTES = "shuffle.coll_bytes.inter"
+
+
+def mesh2x2_calls(T, ctx, enc, report):
+    """A shuffle and a join on a context declared 2x2, through the
+    two-hop exchange, and the cross-outer bytes they ship (``report`` the
+    package's ``tracing.report``); run by the port and by the JAX
+    package."""
+    left, right = _sides(np.random.default_rng(SEED + 16), 800, 500, 300)
+    a, b = T.from_encoded(ctx, enc(left)), T.from_encoded(ctx, enc(right))
+    before = int(report(INTER_BYTES).get(INTER_BYTES, {}).get("rows", 0))
+    out = {"shuffle": a.shuffle(["k"]), "join": a.distributed_join(b, on="k")}
+    out[INTER_BYTES] = int(report(INTER_BYTES).get(INTER_BYTES, {}).get("rows", 0)) - before
+    return out
+
+
+def case_mesh2x2(env):
+    """:func:`mesh2x2_calls` over four shards. With two shards a process
+    an inner group is one process (its hop a local transpose) and both
+    outer groups span the two processes (one exchange carries both)."""
+    from cylon_tpu_torch.utils import tracing
+
+    ctx = mesh_context(env, "2x2")
+    out = mesh2x2_calls(ctt.Table, ctx, port_encode, tracing.report)
     ctx.finalize()
     return out
 
@@ -515,8 +550,10 @@ PORT = OrderedDict([("pk", case_pk), ("ingest", case_ingest), ("env", case_env),
                     ("semi", case_semi), ("fused", case_fused), ("out_of_core", case_out_of_core)])
 CASES = list(SHARED) + list(PORT)
 #: cases run only where a test names them (their own world)
-EXTRA = OrderedDict([("skew8", case_skew8), ("topo8", case_topo8), ("io", case_io)])
-#: (init URL, device, backend) of a rank process, for contexts a case makes
+EXTRA = OrderedDict([("skew8", case_skew8), ("topo8", case_topo8), ("io", case_io),
+                     ("mesh2x2", case_mesh2x2)])
+#: (init URL, device, backend, shards a process) of a rank process, for
+#: contexts a case makes
 RANK_ARGS = ()
 
 
@@ -575,17 +612,24 @@ def run_cases(env, names=CASES):
 # the launcher and the comparisons (used by the tests, not by the ranks)
 # ----------------------------------------------------------------------
 
-def run_ranks(tmp: Path, world: int, cases=(), device="cpu", backend="gloo", limit=120.0,
+#: seconds the other ranks get to exit by themselves after one failed
+GRACE_S = 5.0
+
+
+def run_ranks(tmp: Path, world, cases=(), device="cpu", backend="gloo", limit=120.0,
               wait_all=False):
-    """Start ``world`` ranks of this script; wait until all exit 0, one
-    exits otherwise (``wait_all``: until all exit), or ``limit`` seconds
-    pass; kill what still runs. Returns (exit codes, logs, seconds)."""
+    """Start ``world`` ranks of this script (``"PxL"``: P ranks of L shards
+    each); wait until all exit 0, one exits otherwise (``wait_all``: until
+    all exit), or ``limit`` seconds pass; then give the others
+    ``GRACE_S`` to exit and kill what still runs. Returns (exit codes,
+    logs, seconds)."""
     url = "file://" + str(tmp / "rendezvous")
+    n_procs = int(str(world).split("x")[0])
     env = dict(os.environ, PYTHONPATH=os.path.dirname(HERE), OMP_NUM_THREADS="1")
     procs, logs = [], []
     t0 = time.monotonic()
     try:
-        for r in range(world):
+        for r in range(n_procs):
             logs.append(open(tmp / f"rank{r}.log", "w"))
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), str(r), str(world), url, str(tmp),
@@ -598,6 +642,12 @@ def run_ranks(tmp: Path, world: int, cases=(), device="cpu", backend="gloo", lim
                     not wait_all and any(c not in (None, 0) for c in codes)):
                 break
             time.sleep(0.05)
+        # a rank that failed may still be leaving (its process groups torn
+        # down at exit, which is what ended the others' collectives): a
+        # short grace lets it exit with its own code before the kill
+        grace = time.monotonic() + GRACE_S
+        while time.monotonic() < min(grace, t0 + limit) and any(p.poll() is None for p in procs):
+            time.sleep(0.05)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -606,7 +656,32 @@ def run_ranks(tmp: Path, world: int, cases=(), device="cpu", backend="gloo", lim
         for f in logs:
             f.close()
     codes = [p.returncode for p in procs]
-    return codes, [(tmp / f"rank{r}.log").read_text() for r in range(world)], time.monotonic() - t0
+    return codes, [(tmp / f"rank{r}.log").read_text() for r in range(n_procs)], time.monotonic() - t0
+
+
+def shared_result(tmp_path_factory, key: str, compute):
+    """``compute()``'s result, made once per test session and shared by
+    every pytest-xdist worker through a pickle under the session's base
+    temporary directory, behind an exclusive ``flock`` (the other workers
+    wait for it and load it instead of computing it again). Without xdist
+    the directory is this session's own."""
+    import fcntl
+
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent  # the session's directory, above the workers'
+    d = base / "torch_shared"
+    d.mkdir(exist_ok=True)
+    path = d / f"{key}.pkl"
+    with open(d / f"{key}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            return pickle.loads(path.read_bytes())
+        value = compute()
+        tmp = d / f"{key}.pkl.tmp"
+        tmp.write_bytes(pickle.dumps(value))
+        tmp.replace(path)
+        return value
 
 
 def load_ranks(tmp: Path, world: int):
@@ -687,12 +762,10 @@ def main(argv):
     rank, world, url, out_dir, device, backend = argv[:6]
     names = argv[6:] or CASES
     torch.set_num_threads(1)
-    RANK_ARGS = (url, device, backend)
+    procs, per = (int(x) for x in (world.split("x") if "x" in world else (world, 1)))
+    RANK_ARGS = (url, device, backend, per)
     IO_DIR = out_dir
-    env = ctt.CylonEnv(config=ctt.GPUConfig(
-        device=device, coordinator_address=url, num_processes=int(world),
-        process_id=int(rank), backend=backend,
-    ))
+    env = ctt.CylonEnv(config=rank_config(url, procs, int(rank), device, backend, per))
     if "fail" in names:  # a rank that dies before its first collective
         if env.rank == 1:
             raise RuntimeError("rank 1 fails on purpose")

@@ -77,7 +77,7 @@ def _tables():
 @pytest.mark.parametrize(
     "call",
     [
-        lambda t: t.lazy().explain(analyze=True),
+        lambda t: t.lazy().dispatch(),
         lambda t: t.lazy().collect_async(),
         lambda t: ctt.parallel.spill.plan_schedule(np.full((2, 2), 64, np.int64), 8, 2, 1 << 20,
                                                    trigger=4),

@@ -1024,3 +1024,44 @@ def test_capi_client_on_card_matches_the_python_api(dev, tmp_path):
     ctt.write_csv(want, str(tmp_path / "want.csv"))
     assert f"rows={want.row_count} cols=3" in res.stdout
     assert open(out, "rb").read() == (tmp_path / "want.csv").read_bytes()
+
+
+def test_traced_join_times_spans_with_events_and_reads_no_more(dev, monkeypatch):
+    """A traced and profiled world-4 join -> groupby on the card: every
+    span and the shuffle's stage profile carry completed CUDA events (read
+    at export), the host_sync count equals the untraced call's, and the
+    outputs are equal but for the float sums' add order."""
+    from cylon_tpu_torch.obs import export, prof, trace
+    from cylon_tpu_torch.utils import tracing
+
+    ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=str(dev), world_size=4))
+    rng = np.random.default_rng(12)
+    a = ctt.Table.from_pydict(ctx, {"k": rng.integers(0, 5000, 20000).astype(np.int32),
+                                    "v": rng.normal(size=20000).astype(np.float32)})
+    b = ctt.Table.from_pydict(ctx, {"k": rng.integers(0, 5000, 20000).astype(np.int32),
+                                    "w": rng.normal(size=20000).astype(np.float32)})
+
+    def call():
+        return a.distributed_join(b, on="k").distributed_groupby("k_x", {"w": "count"})
+
+    call()
+    before = tracing.get_count("host_sync")
+    want = call()
+    untraced = tracing.get_count("host_sync") - before
+    monkeypatch.setenv("CYLON_TPU_TORCH_PROF", "1")
+    prof.reset()
+    before = tracing.get_count("host_sync")
+    with trace.query_trace("join", force=True) as q:
+        got = call()
+    assert tracing.get_count("host_sync") - before == untraced > 0
+    spans = list(q.all_spans())
+    assert spans and all(sp.device_ms(wait=True) is not None for sp in spans)
+    profs = q.attrs[prof.PROF_ATTR]
+    assert profs and all(p.on_device() and p.seconds(wait=True) for p in profs)
+    doc = export.chrome_doc([q])
+    assert export.validate_chrome(doc) == []
+    assert all("device_ms" in e["args"] for e in doc["traceEvents"]
+               if e["ph"] == "X" and e.get("cat") == "span")
+    for s in range(4):
+        for c in want.column_names:
+            assert torch.equal(got._shards[s][c].data, want._shards[s][c].data), c

@@ -131,7 +131,8 @@ def test_unported_and_device_rules(monkeypatch):
         td.collect_async()
     assert td.to_arrow().equals(jd.to_arrow())  # ported with the I/O layers (A8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md: A9"):  # lazy: test_torch_plan
-        td.lazy().explain(analyze=True)
+        td.lazy().dispatch()
+    assert "== Analyzed plan (executed) ==" in td.lazy().explain(analyze=True)  # test_torch_obs
     local = ctt.CylonEnv(config=ctt.GPUConfig(device="cpu", world_size=4), distributed=False)
     assert local.world_size == 1 and not local.is_distributed and env.is_distributed
     assert env.rank == 0

@@ -33,6 +33,7 @@ import torch
 import cylon_tpu as ct
 import cylon_tpu_torch as ctt
 from cylon_tpu import native as jnative
+import _torch_mp_worker as W
 from test_torch_compute import tables_equal
 from test_torch_shuffle_slice import _contexts, _encode
 
@@ -227,15 +228,21 @@ def parquet_results(tmp_path_factory):
     segfault there (jaxlib beside pyarrow's parquet I/O, on the CPU), so no
     test worker runs one. The child starts with none of either package's
     knobs set, as a fresh test process does: tests that set them in
-    ``os.environ`` without restoring them leave them to later tests."""
-    code = _CHILD.format(tests=os.path.dirname(os.path.abspath(__file__)),
-                         tmp=str(tmp_path_factory.mktemp("parquet")))
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = {k: v for k, v in os.environ.items() if not k.startswith("CYLON_TPU")}
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=300, cwd=root, env=dict(env, PYTHONPATH=root))
-    assert out.returncode == 0, out.stderr[-3000:]
-    return {int(k): v for k, v in json.loads(out.stdout.strip().splitlines()[-1]).items()}
+    ``os.environ`` without restoring them leave them to later tests. A
+    child that fails gives its error output as each world's result."""
+    def compute():
+        code = _CHILD.format(tests=os.path.dirname(os.path.abspath(__file__)),
+                             tmp=str(tmp_path_factory.mktemp("parquet")))
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = {k: v for k, v in os.environ.items() if not k.startswith("CYLON_TPU")}
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                             timeout=300, cwd=root, env=dict(env, PYTHONPATH=root))
+        if out.returncode != 0:
+            return {w: out.stderr[-3000:] for w in (1, 4)}
+        return {int(k): v for k, v in json.loads(out.stdout.strip().splitlines()[-1]).items()}
+
+    # once per test session, shared by the xdist workers
+    return W.shared_result(tmp_path_factory, "parquet_round_trips", compute)
 
 
 @pytest.mark.parametrize("world", [1, 4])

@@ -55,16 +55,22 @@ def test_registry_holds_the_ports_knobs_and_only_those():
         "CYLON_TPU_TORCH_SPILL_DIR", "CYLON_TPU_TORCH_SPILL_RETRIES", "CYLON_TPU_TORCH_FAULTS",
         "CYLON_TPU_TORCH_NO_TOPO", "CYLON_TPU_TORCH_MESH", "CYLON_TPU_TORCH_OUTER_BUDGET",
         "CYLON_TPU_TORCH_NO_NATIVE", "CYLON_TPU_TORCH_PLATFORM",
+        "CYLON_TPU_TORCH_TRACE", "CYLON_TPU_TORCH_PROF", "CYLON_TPU_TORCH_TRACE_RING",
+        "CYLON_TPU_TORCH_TRACE_EXPORT", "CYLON_TPU_TORCH_OBS_DIR", "CYLON_TPU_TORCH_METRICS_PORT",
+        "CYLON_TPU_TORCH_LEAK_GRACE_S",
     }
     kinds = {k: v.kind for k, v in envgate.REGISTRY.items()}
     assert kinds["CYLON_TPU_TORCH_SHUFFLE_BUDGET"] == kinds["CYLON_TPU_TORCH_SKETCH_BITS"] == "tuning"
     assert kinds["CYLON_TPU_TORCH_QUANT_TOL"] == "dispatch"
-    # the spill, topology and native knobs take their JAX counterparts' kinds and defaults
+    # the spill, topology, native and observability knobs take their JAX
+    # counterparts' kinds and defaults (OBS_DIR is "tuning" there, where it
+    # feeds the feedback re-coster the port does not have yet)
     from cylon_tpu.utils import envgate as jenv
 
     for name in ("SPILL_TIER", "SPILL_DEVICE_BUDGET", "SPILL_HOST_BUDGET", "SPILL_DIR",
                  "SPILL_RETRIES", "FAULTS", "NO_SKEW_SPLIT", "NO_TOPO", "MESH", "OUTER_BUDGET",
-                 "NO_NATIVE", "PLATFORM"):
+                 "NO_NATIVE", "PLATFORM", "TRACE", "PROF", "TRACE_RING", "TRACE_EXPORT",
+                 "METRICS_PORT", "LEAK_GRACE_S"):
         mine, ref = envgate.REGISTRY["CYLON_TPU_TORCH_" + name], jenv.REGISTRY["CYLON_TPU_" + name]
         assert (mine.kind, mine.default) == (ref.kind, ref.default), name
     assert all(v.note or v.keyed_via for v in envgate.REGISTRY.values())

@@ -24,10 +24,18 @@ means are held within rtol 1e-12 (float64) and rtol 1e-5 with atol 1e-4
 (float32): they add in another order across packages and across the
 backends' reductions; everything else is exact.
 
+A layout of 2 processes of 2 shards each (``GPUConfig(devices=[...])``,
+the JAX package's own tests/test_multiprocess.py: 2 processes x 2 CPU
+devices, a mesh of 4) runs the join, the sort, the aggregates and a 2x2
+mesh's shuffle and join; each rank's two shards are held against the same
+shards of the four one-shard ranks, of one process of 4 and of the JAX
+package's world-4 results.
+
 Every run has a wall-clock limit; a rank that exits non-zero ends the run
 at once, and the remaining ranks are killed.
 """
 import pickle
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pandas as pd
@@ -35,12 +43,15 @@ import pytest
 import torch
 import torch.distributed as dist
 
+import jax
+
 import cylon_tpu as ct
 import cylon_tpu_torch as ctt
+from cylon_tpu.utils import tracing as jtr
 from cylon_tpu_torch.context import LocalCommunicator
 
 import _torch_mp_worker as W
-from test_torch_shuffle_slice import _contexts, ref_env  # noqa: F401
+from test_torch_shuffle_slice import NO_TIERS, _contexts, ref_env  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -53,31 +64,45 @@ JAX_WORLDS = (4,)
 LIMIT_S = 120  # per run of W processes
 
 
+#: the layout of several shards a process: 2 processes of 2 shards, and
+#: the cases it runs (one each of the join, the sort, the aggregates and a
+#: 2x2 mesh)
+TWO_BY_TWO = "2x2"
+TWO_BY_TWO_CASES = ("join_groupby", "sort", "aggregates", "mesh2x2")
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """world -> (per rank its results, LocalCommunicator's results), each
-    world run once per module."""
-    cache = {}
+    """world (or ``TWO_BY_TWO``) -> (per rank its results,
+    LocalCommunicator's results at the same world), each run once per
+    test session and shared by the xdist workers (``W.shared_result``)."""
+
+    def compute(world):
+        procs, per = (2, 2) if world == TWO_BY_TWO else (world, 1)
+        cases = TWO_BY_TWO_CASES if world == TWO_BY_TWO else ()
+        tmp = tmp_path_factory.mktemp(f"mp{world}")
+        with pytest.MonkeyPatch.context() as mp:
+            for k in W.PORT_NO_TIERS:
+                mp.setenv(k, "1")
+            # the one-process run while the ranks run (the launcher's thread
+            # only waits on the rank processes)
+            with ThreadPoolExecutor(1) as ex:
+                ranks_run = ex.submit(W.run_ranks, tmp, world, cases=cases, limit=LIMIT_S)
+                local = W.run_cases(ctt.CylonEnv(
+                    config=ctt.GPUConfig(device="cpu", world_size=procs * per)),
+                    cases or W.CASES)
+                codes, logs, _s = ranks_run.result()
+            if codes != [0] * procs:
+                return RuntimeError(f"ranks exited {codes}:\n" + "\n".join(
+                    f"--- rank {r}\n{log[-3000:]}" for r, log in enumerate(logs)))
+            ranks = [pickle.loads((tmp / f"rank{r}.pkl").read_bytes()) for r in range(procs)]
+            return ranks, local
 
     def get(world):
-        if world not in cache:
-            tmp = tmp_path_factory.mktemp(f"mp{world}")
-            with pytest.MonkeyPatch.context() as mp:
-                for k in W.PORT_NO_TIERS:
-                    mp.setenv(k, "1")
-                codes, logs, _s = W.run_ranks(tmp, world, limit=LIMIT_S)
-                if codes != [0] * world:
-                    cache[world] = RuntimeError(f"ranks exited {codes}:\n" + "\n".join(
-                        f"--- rank {r}\n{log[-3000:]}" for r, log in enumerate(logs)))
-                else:
-                    ranks = [pickle.loads((tmp / f"rank{r}.pkl").read_bytes())
-                             for r in range(world)]
-                    local = W.run_cases(ctt.CylonEnv(
-                        config=ctt.GPUConfig(device="cpu", world_size=world)))
-                    cache[world] = (ranks, local)
-        if isinstance(cache[world], Exception):
-            raise cache[world]
-        return cache[world]
+        got = W.shared_result(tmp_path_factory, f"runs_{world}", lambda: compute(world))
+        if isinstance(got, Exception):
+            raise got
+        return got
 
     return get
 
@@ -134,36 +159,112 @@ def _jax_shard(t, s):
     })
 
 
+def _jax_record(value):
+    """A JAX package output as plain values: a table's names, counts and
+    shard frames, or a scalar (tuple) as it is."""
+    if not isinstance(value, ct.Table):
+        return value
+    return {"jax_table": True, "names": value.column_names, "counts": value.row_counts,
+            "frames": {s: _jax_shard(value, s) for s in range(len(value.row_counts))}}
+
+
+@pytest.fixture(scope="module")
+def jax_want(tmp_path_factory):
+    """(world, case) -> the JAX package's outputs of a shared case as
+    plain values, each computed once per test session and shared by the
+    xdist workers (the world-4 rank tests and the 2x2 layout hold against
+    the same ones)."""
+
+    def compute(world, case):
+        enc = lambda cols: {k: ct.Column.encode_host(np.asarray(v))  # noqa: E731
+                            for k, v in cols.items()}
+        with pytest.MonkeyPatch.context() as mp:  # ref_env, for the module
+            if case == "mesh2x2":  # the two-hop exchange on, as the ranks run it
+                for k in NO_TIERS:
+                    if k != "CYLON_TPU_NO_TOPO":
+                        mp.setenv(k, "1")
+                mp.setenv("CYLON_TPU_NO_AUTOTUNE", "1")
+                mp.delenv("CYLON_TPU_MESH", raising=False)
+                jctx = ct.CylonContext.init_distributed(
+                    ct.TPUConfig(devices=jax.devices()[:4], mesh_shape="2x2"))
+                out = W.mesh2x2_calls(ct.Table, jctx, enc, jtr.report)
+            else:
+                for k in NO_TIERS:
+                    mp.setenv(k, "1")
+                out = W.SHARED[case](ct.Table, _contexts(world)[0], enc)
+            return {k: _jax_record(v) for k, v in out.items()}
+
+    return lambda world, case: W.shared_result(
+        tmp_path_factory, f"jax_{world}_{case}", lambda: compute(world, case))
+
+
+def _hold_against_jax(got_case, want, shard, what):
+    """One rank's record of a shared case against the JAX package's
+    outputs on ``shard``: scalars by ``W.scalars_equal``, tables shard for
+    shard (float sums and means within ``W.float_close``)."""
+    for key, w in want.items():
+        got = got_case[key]
+        if not (isinstance(w, dict) and w.get("jax_table")):
+            dtype = W.agg_dtype(key)
+            w = tuple(x.item() if hasattr(x, "item") else x for x in w) if isinstance(w, tuple) \
+                else (w.item() if hasattr(w, "item") else w)
+            if dtype == object:
+                w = tuple(str(x) for x in w) if isinstance(w, tuple) else str(w)
+                got = tuple(str(x) for x in got) if isinstance(got, tuple) else str(got)
+            W.scalars_equal(got, w, key, dtype)
+            continue
+        assert got["names"] == w["names"], (what, key)
+        np.testing.assert_array_equal(got["counts"], w["counts"], err_msg=f"{what} {key}")
+        want_df = w["frames"][shard]
+        for c in w["names"]:
+            g, x = got["shards"][shard][c][2], want_df[c].to_numpy()
+            if c.endswith(("_sum", "_mean")) and x.dtype.kind == "f":
+                assert np.asarray(g).dtype == x.dtype, (what, key, c)
+                W.float_close(g, x, x.dtype, f"{what} {key}.{c}")
+            else:
+                pd.testing.assert_series_equal(pd.Series(g, name=c), pd.Series(x, name=c),
+                                               check_exact=True, obj=f"{what} {key}.{c}")
+
+
 @pytest.mark.parametrize("case", list(W.SHARED))
 @pytest.mark.parametrize("world", JAX_WORLDS)
-def test_rank_shard_equals_jax_mesh_shard(runs, ref_env, world, case):
+def test_rank_shard_equals_jax_mesh_shard(runs, jax_want, world, case):
     ranks, _local = runs(world)
-    jctx, _tctx = _contexts(world)
-    enc = lambda cols: {k: ct.Column.encode_host(np.asarray(v)) for k, v in cols.items()}  # noqa: E731
-    want = W.SHARED[case](ct.Table, jctx, enc)
+    want = jax_want(world, case)
     for r, res in enumerate(ranks):
-        for key, w in want.items():
-            got = res[case][key]
-            if not isinstance(w, ct.Table):
-                dtype = W.agg_dtype(key)
-                w = tuple(x.item() if hasattr(x, "item") else x for x in w) if isinstance(w, tuple) \
-                    else (w.item() if hasattr(w, "item") else w)
-                if dtype == object:
-                    w = tuple(str(x) for x in w) if isinstance(w, tuple) else str(w)
-                    got = tuple(str(x) for x in got) if isinstance(got, tuple) else str(got)
-                W.scalars_equal(got, w, key, dtype)
+        _hold_against_jax(res[case], want, r, f"rank {r}")
+
+
+@pytest.mark.parametrize("case", TWO_BY_TWO_CASES)
+def test_two_shards_a_process_equal_world4_shards(runs, jax_want, case):
+    """Two gloo processes of two shards each (``GPUConfig(devices=[cpu,
+    cpu], coordinator_address=...)``): rank p owns shards 2p and 2p + 1,
+    and each of them equals the same shard of the four one-shard ranks
+    and of one process of 4 bit for bit, with the same round plans, and
+    the JAX package's world-4 result. The 2x2 mesh's shuffle and join
+    (an inner group inside one process, both outer groups across the two)
+    equal one process's 2x2 mesh and the JAX package's 2x2 mesh shard for
+    shard, and ship the JAX package's cross-outer bytes."""
+    ranks, local = runs(TWO_BY_TWO)
+    ranks4, local4 = runs(4) if case != "mesh2x2" else (None, local)
+    jax_case = jax_want(4, case)
+    for p, res in enumerate(ranks):
+        assert res[case]["__plans__"] == local4[case]["__plans__"], (p, case)
+        for key, want in local4[case].items():
+            if key == "__plans__":
                 continue
-            assert got["names"] == w.column_names, key
-            np.testing.assert_array_equal(got["counts"], w.row_counts, err_msg=key)
-            want_df = _jax_shard(w, r)
-            for c in w.column_names:
-                g, x = got["shards"][r][c][2], want_df[c].to_numpy()
-                if c.endswith(("_sum", "_mean")) and x.dtype.kind == "f":
-                    assert np.asarray(g).dtype == x.dtype, (key, c)
-                    W.float_close(g, x, x.dtype, f"{key}.{c}")
-                else:
-                    pd.testing.assert_series_equal(pd.Series(g, name=c), pd.Series(x, name=c),
-                                                   check_exact=True, obj=f"{key}.{c}")
+            for s in (2 * p, 2 * p + 1):
+                if isinstance(want, dict) and want.get("table"):
+                    assert sorted(res[case][key]["shards"]) == [2 * p, 2 * p + 1], (p, key)
+                W.record_equal(res[case][key], want, f"{key} of one process", s)
+                if ranks4 is not None:
+                    W.record_equal(res[case][key], ranks4[s][case][key], f"{key} of rank {s}", s)
+        if case == "mesh2x2":
+            got, want = res[case][W.INTER_BYTES], jax_case[W.INTER_BYTES]
+            assert got == want > 0, (p, got, want)
+        tables = {k: v for k, v in jax_case.items() if k != W.INTER_BYTES}
+        for s in (2 * p, 2 * p + 1):
+            _hold_against_jax(res[case], tables, s, f"rank {p} shard {s}")
 
 
 def test_world8_skew_relay_rank_equals_local_shard(tmp_path, monkeypatch):
@@ -172,8 +273,9 @@ def test_world8_skew_relay_rank_equals_local_shard(tmp_path, monkeypatch):
     one host all_to_all, and rank d's shard equals shard d of one process
     bit for bit, in row order. Then a context at 4x2 on the same process
     group: a locality shuffle, a one-hot shuffle whose same-group tail
-    rides the ring (``batch_isend_irecv``) and a join, over the inner and
-    outer process groups, again rank d's shard shard d of one process."""
+    rides the ring (``ppermute``) and a join, their grouped exchanges
+    routed through the whole process group, again rank d's shard shard d
+    of one process."""
     for k in W.PORT_NO_TIERS:
         monkeypatch.setenv(k, "1")
     codes, logs, _s = W.run_ranks(tmp_path, 8, cases=["skew8", "topo8"], limit=LIMIT_S)
@@ -299,7 +401,7 @@ def test_dist_all_to_all_and_counts_match_local(dist_ctx):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(devices=["cpu"]), ValueError, "owns one shard"),
+    (dict(devices=["cpu"], world_size=1), ValueError, "owns one shard"),
     (dict(device="cpu", world_size=2), ValueError, "owns one shard"),
     (dict(device="cpu", backend="nccl"), ValueError, "needs a CUDA device"),
     (dict(device="cpu", backend="mpi"), ValueError, "backend must be"),

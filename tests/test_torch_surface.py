@@ -242,9 +242,9 @@ def _tuned_trigger(t):
 
 
 @pytest.mark.parametrize("call", [
-    lambda t: t.lazy().explain(analyze=True),
+    lambda t: t.lazy().groupby("k", {"k": "count"}).dispatch(),
     lambda t: t.lazy().dispatch(), _tuned_trigger, lambda t: t.lazy().collect_async(),
-    lambda t: ctt.DataFrame(t).lazy().explain(analyze=True),
+    lambda t: ctt.DataFrame(t).lazy().dispatch(),
     lambda t: ctt.DataFrame(t).lazy().collect_async(), lambda t: ctt.DataFrame(t).collect_async(),
 ])
 def test_left_out_surface_raises_naming_its_item(call):

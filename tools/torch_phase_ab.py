@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the calls of chip_smoke.py's workloads U4, O and TOPO8_loc (its
-4x2 join) alone, for the cylon_tpu_torch package of a given checkout, on
-one card, so that two checkouts can be compared call for call.
+"""Times the calls of chip_smoke.py's workloads A and A4 (join ->
+groupby), L and L4 (q3_lazy), U4, O and TOPO8_loc (its 4x2 join) alone,
+untraced, for the cylon_tpu_torch package of a given checkout, on one
+card, so that two checkouts can be compared call for call.
 
     python3 tools/torch_phase_ab.py --root .              # this checkout
     python3 tools/torch_phase_ab.py --root /path/to/other --label parent
@@ -143,6 +144,20 @@ def main() -> None:
     left2 = smoke.make_left2()
     ctx = ctt.CylonContext.init_distributed(config())
     ctx4 = ctt.CylonContext.init_distributed(config(world_size=smoke.WORLD))
+
+    # A and A4 (join -> groupby) and L and L4 (q3_lazy: the join -> sum of
+    # v by k, the right key renamed rk), at worlds 1 and 4
+    for tag, c in (("", ctx), ("4", ctx4)):
+        ta, tb = ctt.Table.from_pydict(c, left), ctt.Table.from_pydict(c, right)
+
+        def a_call(ta=ta, tb=tb):
+            j = ta.distributed_join(tb, on="k", how="inner")
+            return j, j.distributed_groupby("k_x", {"v": "sum", "w": "sum"})
+
+        measure(f"A{tag} join_groupby", a_call)
+        q3 = ta.lazy().join(tb.rename({"k": "rk"}).lazy(), left_on="k", right_on="rk")
+        measure(f"L{tag} q3_lazy", q3.groupby("k", {"v": "sum"}).collect)
+        del ta, tb, q3
 
     # U4 (chip_smoke.py's u4_calls)
     tl4, tl4b = ctt.Table.from_pydict(ctx4, left), ctt.Table.from_pydict(ctx4, left2)
