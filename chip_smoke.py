@@ -120,6 +120,19 @@
             the key of A's right row 0 and the rest uniform, with A's
             right side: the same numbers, the rows of the reference count,
             equal as row multisets a shard;
+     FB: the feedback re-coster (plan/feedback.py) at world 8: an 8M-row
+            lazy join with 30% of the left rows on one key, under an
+            observation directory and the profiler, repeated until its
+            decisions settle (the skew trigger must flip to 2, one new
+            executor a flip, the rows' digest equal to the NO_AUTOTUNE
+            run's every time), beside that oracle: each run's decisions,
+            shipped bytes and ms;
+     SERVE: q3_lazy over A's sides for eight bindings, serially and from
+            eight threads through ``collect_async`` into the context's
+            scheduler: every threaded result bit-equal to its serial one,
+            no shed, no batch fallen back, no failed query, at least one
+            stacked batch; the executions run, shed and backpressure
+            counters, the SLO states, latency and queries/s, launches;
      SPILL4: spill_bench.py's bench_tier1_join at A4_K4's scale: A4's join
             at the 4 MiB budget forced through tiers 1 and 2
             (``CYLON_TPU_TORCH_SPILL_TIER``, the spill dir under a
@@ -271,6 +284,17 @@ OOC_BUCKETS = 16  # ... and 16 buckets
 REPS_OOC = 2  # timed calls of OOC and OOC4 after a warm-up (tier 2: one)
 DAG_CHUNKS = 8  # chunks a side of DAG4's graphs
 SKEW_WORLD = 8  # at W = 4 a hot bucket can reach only 4x the mean: the 4x trigger never fires
+#: FB: the share of the left rows on one key (the right side's keys are a
+#: permutation). At world 8 its bucket holds 1 + 7 x 0.3 = 3.1x the mean,
+#: which the static 4x trigger ignores, and the hot shard receives
+#: (0.3 + 0.7 / 8 + 1 / 8) / (2 / 8) = 2.05x the mean rows: the straggler
+#: ratio the re-coster asks for (2.0)
+FB_HOT = 0.3
+FB_MAX_RUNS = 12  # collects of FB until its decisions settle
+REPS_FB = 3  # timed collects of FB before (NO_AUTOTUNE) and after the flip
+SERVE_THREADS = 8  # SERVE's submitting threads, one binding each
+REPS_SERVE = 3  # timed rounds of SERVE, serial and threaded, after a warm-up
+SERVE_INFLIGHT = 32 << 30  # SERVE's admission budget: eight A-sized queries fit
 
 # peak memory bandwidth by card (NVIDIA data sheets); SXM5 H100 otherwise
 _PEAK_BW = {"PCIe": 2.0e12, "NVL": 3.9e12, "H200": 4.8e12}
@@ -1040,6 +1064,248 @@ def phase_obs(tl, tr, reset_counts, counts, require_launches, kernels, smi) -> d
     print(text)
     return {"workload": "OBS", "world": tl.world_size, "smi": smi, "cells": cells,
             "explain_ms": explain_ms, "explain_lines": len(text.splitlines())}
+
+
+def fb_digest(t, order_col: str) -> str:
+    """A digest of a table's rows independent of their shard and order:
+    every column, gathered, in the order of ``order_col`` (unique values)."""
+    import torch
+
+    cols = {c: torch.cat([t._shards[s][c].data for s in range(t.world_size)])
+            for c in t.column_names}
+    order = torch.argsort(cols[order_col])
+    h = hashlib.sha256()
+    for c in t.column_names:
+        h.update(cols[c][order].cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def phase_fb(ctt, ctx8, reset_counts, counts, require_launches, kernels, smi) -> dict:
+    """FB: the feedback re-coster's skew-trigger flip on the card. One
+    process holds SKEW_WORLD shards on cuda:0; the left side has FB_HOT of
+    its 8M rows on one key (a bucket 3.1x the mean: the static 4x trigger
+    ignores it), the right side's keys are a permutation. With the
+    observation store on a temporary directory and the profiler on, the
+    same lazy join repeats until its decisions settle: each run's
+    Decisions, the executors built, the shipped bytes and the median time
+    before (the NO_AUTOTUNE oracle) and after the flip, and a digest of the
+    rows equal to the oracle's."""
+    import torch
+    from cylon_tpu_torch.obs import prof as _prof
+    from cylon_tpu_torch.obs import store as _store
+    from cylon_tpu_torch.plan import feedback as _fb
+    from cylon_tpu_torch.plan.lazy import gated_fingerprint
+    from cylon_tpu_torch.utils import tracing as _tr
+
+    rng = np.random.default_rng(SEED + 17)
+    k = rng.integers(0, N_SKEW, N_SKEW).astype(np.int32)
+    k[rng.random(N_SKEW) < FB_HOT] = 7
+    left = {"k": k, "v": np.arange(N_SKEW, dtype=np.float32)}
+    right = {"rk": rng.permutation(N_SKEW).astype(np.int32),
+             "w": rng.normal(size=N_SKEW).astype(np.float32)}
+    names = ("shuffle.exchanged_bytes", "shuffle.spill.relay_bytes", "shuffle.skew_split")
+
+    def rows(name):
+        return int(_tr.get_trace_report().get(name, {}).get("rows", 0))
+
+    def run():
+        reset_counts()
+        before = {n: rows(n) for n in names}
+        t0 = time.perf_counter()
+        out = lf.collect()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        moved = {n: rows(n) - before[n] for n in names}
+        return out, {"ms": ms, "shipped_bytes": moved["shuffle.exchanged_bytes"]
+                     + moved["shuffle.spill.relay_bytes"],
+                     "relay_rows": moved["shuffle.skew_split"], "launches": counts()}
+
+    env = {"CYLON_TPU_TORCH_OBS_DIR": None, "CYLON_TPU_TORCH_AUTOTUNE_MIN_OBS": "2",
+           "CYLON_TPU_TORCH_PROF": "1"}
+    saved = {v: os.environ.get(v) for v in env}
+    with tempfile.TemporaryDirectory(prefix="fb_obs_") as obs_dir:
+        try:
+            _prof.reset()
+            tl, tr = ctt.Table.from_pydict(ctx8, left), ctt.Table.from_pydict(ctx8, right)
+            lf = tl.lazy().join(tr.lazy(), left_on="k", right_on="rk")
+            # the oracle first, with no store (so its runs journal nothing)
+            # and the re-coster off: the static decisions
+            with _fb.autotune_disabled():
+                out, _c = run()  # warm-up
+                digest_oracle = fb_digest(out, "v")
+                rows_out = out.row_count
+                static = [run()[1] for _ in range(REPS_FB)]
+            env["CYLON_TPU_TORCH_OBS_DIR"] = obs_dir
+            os.environ.update(env)
+            _store.reset_stores()
+            m0 = _tr.get_count("plan.cache.miss")
+            runs, prev = [], None
+            for i in range(FB_MAX_RUNS):
+                out, cell = run()
+                dec = gated_fingerprint(lf.plan, ctx8)[-1][1]
+                cell["decisions_after"] = dec._asdict()
+                cell["digest"] = fb_digest(out, "v")
+                if cell["digest"] != digest_oracle or out.row_count != rows_out:
+                    fail(f"FB run {i}: rows differ from the NO_AUTOTUNE oracle's")
+                runs.append(cell)
+                if dec == prev and dec.skew_trigger is not None:
+                    break
+                prev = dec
+            if runs[-1]["decisions_after"]["skew_trigger"] != _fb.SKEW_TRIGGER_TUNED:
+                fail(f"FB: the skew trigger never flipped: {[r['decisions_after'] for r in runs]}")
+            executors = _tr.get_count("plan.cache.miss") - m0
+            flips = sum(p.get("flips", 0) for p in _store.store().profiles.values())
+            if executors != 1 + flips:
+                fail(f"FB: {executors} executors built for {flips} flips")
+            tuned = [run()[1] for _ in range(REPS_FB)]
+            require_launches(tuned[0]["launches"], "FB tuned", kernels)
+            strag = [p.get("strag_sum", 0.0) / max(p.get("strag_n", 1), 1)
+                     for p in _store.store().profiles.values()]
+        finally:
+            for v, x in saved.items():
+                if x is None:
+                    os.environ.pop(v, None)
+                else:
+                    os.environ[v] = x
+            _store.reset_stores()
+    med = {m: float(np.median([c["ms"] for c in cells]))
+           for m, cells in (("static", static), ("tuned", tuned))}
+    ship = {m: cells[0]["shipped_bytes"] for m, cells in (("static", static), ("tuned", tuned))}
+    if ship["tuned"] >= ship["static"]:
+        fail(f"FB: the tuned trigger shipped no fewer bytes: {ship}")
+    return {"workload": "FB", "world": SKEW_WORLD, "rows_per_side": N_SKEW, "hot_share": FB_HOT,
+            "join_rows": rows_out, "budget_bytes": ctx8.shuffle_byte_budget,
+            "runs": [{k_: v_ for k_, v_ in r.items() if k_ != "launches"} for r in runs],
+            "executors_built": executors, "flips": flips, "straggler_ratio_mean": strag,
+            "digest": digest_oracle, "shipped_bytes": ship, "median_ms": med,
+            "ms_all": {"static": [c["ms"] for c in static], "tuned": [c["ms"] for c in tuned]},
+            "cells": {"static": static[0], "tuned": tuned[0]}}
+
+
+def phase_serve(ctt, ctx, left, right, reset_counts, counts, require_launches, kernels,
+                smi) -> dict:
+    """SERVE: q3_lazy over A's 8M-row sides through the serving scheduler.
+    SERVE_THREADS bindings (A's keys shifted by binding, integer-valued
+    float32 values, so every sum is exact in any order) run serially by
+    ``collect()``, then from as many threads at once by ``collect_async``
+    into the context's one scheduler; every threaded result is bit-equal
+    to its serial one. The stacked batches and single executions the
+    scheduler ran (a batch that fell back to singles, or a failed query,
+    fails the phase), the shed and backpressure counters, the SLO state,
+    the median latency and the throughput of both, and each one's kernel
+    launches."""
+    import threading
+
+    import torch
+    from cylon_tpu_torch import serve
+    from cylon_tpu_torch.obs import slo as _slo
+    from cylon_tpu_torch.utils import tracing as _tr
+
+    rng = np.random.default_rng(SEED + 23)
+    plans = []
+    for i in range(SERVE_THREADS):
+        tl = ctt.Table.from_pydict(ctx, {"k": (left["k"] + i * 7919) % N_A,
+                                         "v": rng.integers(-50, 50, N_A).astype(np.float32)})
+        tr = ctt.Table.from_pydict(ctx, {"rk": right["k"],
+                                         "w": rng.integers(-50, 50, N_A).astype(np.float32)})
+        plans.append(tl.lazy().join(tr.lazy(), left_on="k", right_on="rk")
+                     .groupby("k", {"v": "sum"}))
+    counters = ("serve.shed.admission_budget", "serve.shed.queue_depth",
+                "serve.shed.unconsumed_cap", "serve.backpressure.wait", "serve.budget_overflow",
+                "serve.batches", "serve.singles", "serve.batch_cache.miss",
+                "serve.batch_fallback", "serve.errors")
+
+    def executed():
+        """The executions the scheduler ran so far: stacked batches, the
+        queries they held, and single executions."""
+        rep = _tr.get_trace_report()
+        return (_tr.get_count("serve.batches"), int(rep.get("serve.batches", {}).get("rows", 0)),
+                _tr.get_count("serve.singles"))
+
+    saved = os.environ.get("CYLON_TPU_TORCH_SERVE_INFLIGHT_BYTES")
+    os.environ["CYLON_TPU_TORCH_SERVE_INFLIGHT_BYTES"] = str(SERVE_INFLIGHT)
+    serve.scheduler(ctx)
+    try:
+        def serial_round():
+            reset_counts()
+            lat, outs = [], []
+            t0 = time.perf_counter()
+            for lf in plans:
+                t1 = time.perf_counter()
+                outs.append(lf.collect())
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t1) * 1e3)
+            return outs, lat, (time.perf_counter() - t0) * 1e3, counts()
+
+        def threaded_round():
+            reset_counts()
+            lat, outs = [None] * SERVE_THREADS, [None] * SERVE_THREADS
+            barrier = threading.Barrier(SERVE_THREADS)
+
+            def client(i):
+                barrier.wait()
+                t1 = time.perf_counter()
+                outs[i] = plans[i].collect_async().result(timeout=600)
+                lat[i] = (time.perf_counter() - t1) * 1e3
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_THREADS)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall = (time.perf_counter() - t0) * 1e3
+            if any(o is None for o in outs):
+                fail("SERVE: a threaded query returned nothing")
+            return outs, lat, wall, counts()
+
+        want, _lat, _w, _c = serial_round()  # warm-up, and the serial results
+        before = {c: _tr.get_count(c) for c in counters}
+        threaded_round()  # warm-up: builds the batched executor
+        cells = {"serial": [], "threads8": []}
+        for _ in range(REPS_SERVE):
+            for name, fn in (("serial", serial_round), ("threads8", threaded_round)):
+                ex0 = executed()
+                outs, lat, wall, launches = fn()
+                batches, batched, singles = (b - a for a, b in zip(ex0, executed()))
+                for i, (o, w) in enumerate(zip(outs, want)):
+                    for c in w.column_names:
+                        if not torch.equal(o.column(c).data, w.column(c).data):
+                            fail(f"SERVE {name}: binding {i} column {c} differs from serial")
+                if name == "threads8" and batched + singles != SERVE_THREADS:
+                    fail(f"SERVE: {batched} batched and {singles} single executions "
+                         f"for {SERVE_THREADS} queries")
+                cells[name].append({"latency_ms": lat, "wall_ms": wall,
+                                    "queries_per_s": SERVE_THREADS / (wall / 1e3),
+                                    "launches": launches,
+                                    "executed": {"batches": batches, "batched_queries": batched,
+                                                 "singles": singles}})
+        moved = {c: _tr.get_count(c) - before[c] for c in counters}
+        states = _slo.monitor().evaluate()
+    finally:
+        if saved is None:
+            os.environ.pop("CYLON_TPU_TORCH_SERVE_INFLIGHT_BYTES", None)
+        else:
+            os.environ["CYLON_TPU_TORCH_SERVE_INFLIGHT_BYTES"] = saved
+    require_launches(cells["threads8"][0]["launches"], "SERVE threads8", kernels)
+    if any(moved[c] for c in counters if c.startswith("serve.shed.")):
+        fail(f"SERVE: queries shed: {moved}")
+    # a stacked execution that fails falls back to singles with the same
+    # results: only these counters show it
+    if moved["serve.batch_fallback"] or moved["serve.errors"]:
+        fail(f"SERVE: a batch fell back or a query failed: {moved}")
+    if not moved["serve.batches"]:
+        fail("SERVE: no stacked batch ran in the threaded rounds")
+    summary = {name: {"median_latency_ms": float(np.median([x for c in cs for x in c["latency_ms"]])),
+                      "median_queries_per_s": float(np.median([c["queries_per_s"] for c in cs])),
+                      "executed": [c["executed"] for c in cs]}
+               for name, cs in cells.items()}
+    return {"workload": "SERVE", "world": ctx.world_size, "rows_per_side": N_A,
+            "bindings": SERVE_THREADS, "inflight_budget": SERVE_INFLIGHT,
+            "counters": moved, "slo_states": states, "summary": summary,
+            "rounds": {n: [{k_: v_ for k_, v_ in c.items() if k_ != "launches"} for c in cs]
+                       for n, cs in cells.items()},
+            "cells": {n: cs[0] for n, cs in cells.items()}}
 
 
 def widen(cols: dict) -> dict:
@@ -2761,6 +3027,14 @@ def main(mp4_only: bool = False) -> None:
     del tj8_l, tj8_r, outs
     print(json.dumps({"smi": smi, **work_skew_j}))
 
+    # FB and SERVE: the feedback re-coster's skew-trigger flip at world 8,
+    # and q3_lazy served to eight threads through collect_async
+    work_fb = phase_fb(ctt, ctx8, reset_counts, counts, require_launches, all_kernels, smi)
+    print(json.dumps({"smi": smi, **work_fb}))
+    work_serve = phase_serve(ctt, ctx, left, right, reset_counts, counts, require_launches,
+                             list(cuda_radix.LAUNCHES), smi)
+    print(json.dumps({"smi": smi, **work_serve}))
+
     # SPILL4: spill_bench.py's bench_tier1_join at A4_K4's scale: A4's join
     # at the 4 MiB budget, forced through tiers 1 and 2, beside tier 0
     spill_names = ("shuffle.spill.staged_rounds", "shuffle.spill.staged_bytes",
@@ -3615,7 +3889,8 @@ def main(mp4_only: bool = False) -> None:
                        ("topo8_loc", work_topo), ("topo8_ring", work_ring),
                        ("fused4_2x2", work_fused22), ("ooc", work_ooc), ("ooc4", work_ooc4),
                        ("task4", work_task4), ("dag4", work_dag4), ("io", work_io),
-                       ("io4", work_io4), ("b_io4", work_bio4), ("capi", work_capi)):
+                       ("io4", work_io4), ("b_io4", work_bio4), ("capi", work_capi),
+                       ("fb", work_fb), ("serve", work_serve)):
             cells = w["cells"].items()
             if tag == "semi4":
                 cells = [(f"{sel}_{mode}", m) for sel, c in w["cells"].items() for mode, m in c.items()]

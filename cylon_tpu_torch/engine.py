@@ -5,8 +5,9 @@ The port's tables hold exact-length shards, so these capacities size only
 the shuffle's exchange buffers (``parallel/shuffle.py``) and the row split
 of a table loaded from the host, exactly as the JAX package computes them.
 The port compiles no kernels per shape, so the JAX package's jit cache has
-no counterpart; its per-context cache of optimized and lowered query plans
-does (:func:`plan_executable`).
+no counterpart; its per-context caches of optimized and lowered query
+plans (:func:`plan_executable`) and of the serving scheduler's batched
+executors (:func:`serve_batch_executable`) do.
 """
 from __future__ import annotations
 
@@ -35,15 +36,24 @@ def shard_caps(total_rows: int, world: int) -> Tuple[np.ndarray, int]:
 # plan-fingerprint executable cache (plan/lazy.py)
 # ----------------------------------------------------------------------
 _PLAN_CACHE_MAX = 256
-_CACHE_LOCK = threading.Lock()
+_BATCH_CACHE_MAX = 64
+_CACHE_LOCK = threading.RLock()
+
+
+def cache_lock(ctx) -> "threading.RLock":
+    """The lock guarding the executor caches and the serving scheduler
+    held in ``ctx.__dict__`` (one lock for every context: compiles are
+    host work of a few milliseconds)."""
+    return _CACHE_LOCK
 
 
 class PlanEntry(NamedTuple):
     """One cached optimize + lower product. ``hist_key`` is the plan's
     latency-histogram key (``obs.metrics.fingerprint_key``), hashed once,
     when the entry is made, not on every collect; ``obs_key`` is the
-    observation store's profile key (the same fingerprint's key: the port
-    has no feedback component to leave out)."""
+    observation store's profile key (``feedback.base_key`` of the
+    fingerprint without its feedback component, so a tuned decision's
+    flip keeps feeding one profile)."""
 
     opt: Any                  # the optimized (detached) plan
     fired: Tuple[str, ...]    # the optimizer's rule firings, in order
@@ -55,26 +65,48 @@ class PlanEntry(NamedTuple):
 def plan_executable(ctx, fingerprint, compile_fn: Callable[[], PlanEntry]):
     """Per-context cache of optimized and lowered plans, keyed by the plan's
     gated fingerprint (node shapes, schemas, world size, scan order
-    descriptors, the ordering, semi-filter and lane-packing gates; not row
-    counts). A hit skips optimize
-    and lower. Returns ``(entry, hit)`` and counts ``plan.cache.hit`` /
-    ``plan.cache.miss``. A miss compiles under a lock, so racing threads
-    compile one plan once; the oldest entry goes past 256 (literal values
-    are part of fingerprints, so a sweep of literals must not grow the
-    cache without bound)."""
-    cache = ctx.__dict__.setdefault("_plan_cache", {})
-    entry = cache.get(fingerprint)
+    descriptors, the gates and the tuned decisions; not row counts). A hit
+    skips optimize and lower. Returns ``(entry, hit)`` and counts
+    ``plan.cache.hit`` / ``plan.cache.miss``."""
+    return _cached_compile(ctx, "_plan_cache", fingerprint, compile_fn, "plan.cache",
+                           _PLAN_CACHE_MAX)
+
+
+def serve_batch_executable(ctx, key, compile_fn: Callable):
+    """Per-context cache of the serving scheduler's batched executors,
+    keyed by ``(fingerprint..., "serve_batch", bucket)``: ``bucket`` is the
+    group size rounded up to a power of two, so a fingerprint holds at
+    most log2(``CYLON_TPU_TORCH_SERVE_BATCH_MAX``) entries however the
+    arrivals mix group sizes. An executor stacks exactly the bindings it
+    is given; the bucket only names its cache entry. Counts
+    ``serve.batch_cache.hit`` / ``serve.batch_cache.miss``."""
+    return _cached_compile(ctx, "_serve_batch_cache", key, compile_fn, "serve.batch_cache",
+                           _BATCH_CACHE_MAX)
+
+
+def _cached_compile(ctx, attr: str, key, compile_fn, counter: str, cap: int):
+    """The one copy of the executor-cache discipline of the plan and the
+    serving batch tiers: lock-free hits of fully published entries, a
+    miss compiled under the lock (so racing threads of a stampede build
+    one executor, the others wait and hit), and the oldest entry dropped
+    past ``cap`` (literal values are part of fingerprints, so a sweep of
+    literals must not grow the cache without bound)."""
+    cache = ctx.__dict__.get(attr)
+    if cache is None:
+        with _CACHE_LOCK:
+            cache = ctx.__dict__.setdefault(attr, {})
+    entry = cache.get(key)
     if entry is not None:
-        bump("plan.cache.hit")
+        bump(counter + ".hit")
         return entry, True
     with _CACHE_LOCK:
-        entry = cache.get(fingerprint)
+        entry = cache.get(key)
         if entry is not None:
-            bump("plan.cache.hit")
+            bump(counter + ".hit")
             return entry, True
-        bump("plan.cache.miss")
+        bump(counter + ".miss")
         entry = compile_fn()
-        if len(cache) >= _PLAN_CACHE_MAX:
+        if len(cache) >= cap:
             cache.pop(next(iter(cache)))
-        cache[fingerprint] = entry
+        cache[key] = entry
         return entry, False

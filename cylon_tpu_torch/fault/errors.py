@@ -15,9 +15,11 @@ The invariant every error path upholds: a failure ends in exactly one of
 {the oracle's result, a typed CylonError}, with every host arena and
 ledger entry released, and never kills the process.
 
-The port raises ``SpillIOError`` (the spill tiers, parallel/spill.py);
-the serving and streaming errors keep the JAX package's names for the
-layers that raise them (ROADMAP.md A9). Dependency-free, so every layer
+The port raises ``SpillIOError`` (the spill tiers, parallel/spill.py)
+and the serving errors (serve/: ``QueryExecError``, ``QueryTimeoutError``,
+``WorkerDiedError``, ``SchedulerClosedError``); the streaming error keeps
+the JAX package's name for the layer that will raise it (ROADMAP.md
+A9d). Dependency-free, so every layer
 can raise through it without import cycles.
 """
 from __future__ import annotations

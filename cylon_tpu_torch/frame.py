@@ -11,8 +11,8 @@ num_processes=W, process_id=r)`` every rank runs the same program on its
 own shard, as under ``mpirun``. Selection, the operators, null handling,
 ``set_index`` / ``loc`` / ``iloc``, ``concat`` and ``lazy`` are the JAX
 package's, ``merge``/``join`` with ``mode="fused"`` under a distributed env
-too. Left out, each raising NotImplementedError naming its ROADMAP item:
-``collect_async`` (A9), ``to_arrow`` and ``to_csv`` (A8).
+too, and ``collect_async`` submits the frame to the serving scheduler
+(``serve/``).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from .column import Column
 from .config import GPUConfig
 from .context import CylonContext
 from .dtypes import DataType, numpy_dtype
-from .table import Table, _concat_tables, _not_ported
+from .table import Table, _concat_tables
 
 
 class CylonEnv:
@@ -154,7 +154,12 @@ class DataFrame:
         return self._table.lazy()
 
     def collect_async(self, block: bool = True):
-        raise _not_ported("DataFrame.collect_async (the serving scheduler)", "A9c")
+        """Submit this frame's (identity) plan to the serving scheduler: a
+        :class:`~cylon_tpu_torch.serve.QueryFuture` whose ``result()`` is a
+        DataFrame (see ``LazyFrame.collect_async``)."""
+        from .serve.scheduler import submit as _serve_submit
+
+        return _serve_submit(self._table.lazy(), block=block, wrap=DataFrame)
 
     def to_arrow(self):
         """Typed pyarrow.Table (reference frame.py:217; Table.to_arrow)."""

@@ -1,6 +1,5 @@
 """Exporters: the flight-recorder ring, Chrome trace-event JSON, and the
-live ops endpoint (counterpart of cylon_tpu/obs/export.py, without its
-SLO rules: ``/healthz`` reports no rule).
+live ops endpoint (counterpart of cylon_tpu/obs/export.py).
 
 FLIGHT RING
     A bounded deque of the last N finished :class:`~.trace.QueryTrace`
@@ -25,10 +24,10 @@ OPS ENDPOINT
     (:func:`ensure_ops_server`):
 
     - ``/metrics``: Prometheus text exposition (version 0.0.4) of the
-      rollup, the per-fingerprint latency quantiles and the resource
-      ledger's device/host/disk watermarks;
-    - ``/healthz``: ``{"ok": true, "reasons": []}`` (the port has no SLO
-      rules yet);
+      rollup, the per-fingerprint latency quantiles, the resource
+      ledger's device/host/disk/lease watermarks and the SLO rule states;
+    - ``/healthz``: 200 while no SLO rule (obs/slo.py) is in BREACH, 503
+      otherwise, with the breached rules as ``reasons``;
     - ``/queries``: the flight-recorder ring as JSON.
 
     Every request is host dict work; a scrape never touches a device.
@@ -315,9 +314,11 @@ def prometheus_text() -> str:
     (format version 0.0.4): rollup counters/spans/gauges (prefixed
     ``cylon_tpu_torch_``; spans render count + seconds-total, gauges
     render current value + ``_peak``), per-fingerprint latency quantile
-    summaries and resource-ledger watermarks. Pure host reads."""
+    summaries, resource-ledger watermarks and SLO rule states. Pure host
+    reads."""
     from . import metrics as _metrics
     from . import resource as _resource
+    from . import slo as _slo
 
     lines: List[str] = []
 
@@ -327,9 +328,10 @@ def prometheus_text() -> str:
 
     # ---- the rollup: counters / spans / gauges -----------------------
     for raw, s in sorted(_metrics.snapshot().items()):
-        if raw.startswith("ledger."):
-            # re-exposed by the dedicated ledger section below (with
-            # peaks): the rollup copies would duplicate the family
+        if raw.startswith(("ledger.", "slo.state.")):
+            # re-exposed by the dedicated ledger and SLO sections below
+            # (with peaks, with rule labels): the rollup copies would
+            # duplicate the family
             continue
         base = "cylon_tpu_torch_" + _prom_name(raw)
         if s.get("last") is not None:
@@ -386,12 +388,22 @@ def prometheus_text() -> str:
             "host_peak_bytes": snaps[0]["host_peak"],
             "disk_bytes": snaps[0]["disk_bytes"],
             "disk_peak_bytes": snaps[0]["disk_peak"],
+            "serve_lease_bytes": sum(s["serve_lease_bytes"] for s in snaps),
+            "serve_lease_count": sum(s["serve_lease_count"] for s in snaps),
             "leaked_tables": sum(len(led.leaks()) for led in leds),
         }
         for k, v in agg.items():
             name = f"cylon_tpu_torch_ledger_{k}"
             fam(name, "gauge", f"resource ledger: {k.replace('_', ' ')}")
             lines.append(f"{name} {_fmt_val(v)}")
+
+    # ---- SLO rule states ---------------------------------------------
+    states = _slo.state_gauges()
+    if states:
+        name = "cylon_tpu_torch_slo_state"
+        fam(name, "gauge", "SLO rule state: 0=OK 1=WARN 2=BREACH")
+        for rule, st in sorted(states.items()):
+            lines.append(f'{name}{{rule="{_prom_escape(rule)}"}} {_fmt_val(st)}')
 
     return "\n".join(lines) + "\n"
 
@@ -506,14 +518,20 @@ class OpsServer:
 
             def do_GET(self):
                 path = self.path.split("?", 1)[0]
+                from . import slo as _slo
+
                 try:
                     if path == "/metrics":
+                        # a scrape drives the SLO evaluation cadence
+                        _slo.monitor().evaluate()
                         self._reply(
                             200, prometheus_text(),
                             "text/plain; version=0.0.4; charset=utf-8",
                         )
                     elif path == "/healthz":
-                        self._reply(200, json.dumps({"ok": True, "reasons": []}),
+                        ok, reasons = _slo.monitor().healthy()
+                        self._reply(200 if ok else 503,
+                                    json.dumps({"ok": ok, "reasons": reasons}),
                                     "application/json")
                     elif path == "/queries":
                         self._reply(

@@ -252,6 +252,15 @@ def bucket_quantile(buckets: Dict[int, int], q: float) -> float:
     return 0.0
 
 
+def bucket_snapshot() -> Dict[str, Dict]:
+    """Raw per-key histogram buckets: ``{key: {label, n, b: {bucket:
+    count}}}``. Bucket counts only grow, so two snapshots DIFF into the
+    window's distribution: the SLO monitor's rolling p99 (obs/slo.py)."""
+    with _lock:
+        return {k: {"label": _HIST_LABELS.get(k, ""), "n": h.n, "b": dict(h.buckets)}
+                for k, h in _HISTS.items()}
+
+
 def reset_latency() -> None:
     with _lock:
         _HISTS.clear()
@@ -346,6 +355,30 @@ STABLE_METRICS: Dict[str, Tuple[str, str]] = {
         "registry LRU evictions, rows=entries flushed); "
         "journal_degraded (a journal write failed — the store flipped "
         "to in-memory-only telemetry; queries unaffected)"),
+    "serve.": (
+        "mixed", "query serving (serve/): queue_depth / inflight_bytes / "
+        "leases / batch_occupancy gauges; submitted / completed / "
+        "backpressure.wait / budget_overflow / batches / singles counters; "
+        "batch_cache.hit/miss; the serve.stack and serve.split spans; "
+        "batch_fallback, batch_quarantined, worker_died, worker_respawn, "
+        "close_orphans"),
+    "serve.errors": (
+        "counter", "typed query failures (one a future failed with a "
+        "CylonError; by scope under serve.errors.<scope>): the error-rate "
+        "SLO rule's evidence"),
+    "serve.errors.": ("counter", "serve.errors split by failure scope"),
+    "serve.shed.": (
+        "counter", "admission sheds by reason: admission_budget (one "
+        "estimate above the budget), queue_depth (full queue or a "
+        "worker-less nowait submit), unconsumed_cap (held results past "
+        "twice the budget: a consumer leak)"),
+    "autotune.": (
+        "counter", "feedback re-coster applications (plan/feedback.py): "
+        "semi_forced / semi_skipped / tier_promoted / footprint_admit"),
+    "slo.": (
+        "mixed", "SLO monitor (obs/slo.py): state.<rule> gauges (0=OK "
+        "1=WARN 2=BREACH) and the transitions counter (each transition "
+        "also lands a kind='slo' record in the flight ring)"),
     "fault.injected.": (
         "counter", "fault injections delivered per seam "
         "(fault/inject.py; armed via CYLON_TPU_TORCH_FAULTS — zero "

@@ -1,6 +1,6 @@
 """The resource ledger: live memory accounting of the tiers the engine
-touches (counterpart of cylon_tpu/obs/resource.py, without the serving
-leases, which come with the scheduler).
+touches (counterpart of cylon_tpu/obs/resource.py): device tensors, host
+and disk arenas, and the serving scheduler's admission leases.
 
 DEVICE
     Every :class:`~cylon_tpu_torch.table.Table` registers its shards'
@@ -255,6 +255,13 @@ class ResourceLedger:
         gauge("ledger.device_bytes", dev)
         gauge("ledger.live_tables", ntab)
         host, host_peak, disk, disk_peak = _spill.arena_bytes()
+        lease = lease_count = 0
+        ctx = self._ctx_ref()
+        if ctx is not None:
+            sched = ctx.__dict__.get("_serve_sched")
+            if sched is not None:
+                st = sched.stats()
+                lease, lease_count = st["inflight_bytes"], st["leases"]
         return {
             "device_bytes": dev,
             "device_peak": peak,
@@ -263,6 +270,11 @@ class ResourceLedger:
             "host_peak": host_peak,
             "disk_bytes": disk,
             "disk_peak": disk_peak,
+            # the serving scheduler's admitted, unreleased leases: their
+            # bytes and their number (a failure path that forgets a
+            # release shows here)
+            "serve_lease_bytes": lease,
+            "serve_lease_count": lease_count,
         }
 
     def leaks(self, grace_s: Optional[float] = None) -> List[Dict[str, Any]]:

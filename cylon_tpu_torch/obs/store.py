@@ -3,10 +3,11 @@ measures, keyed by plan fingerprint, surviving across runs (counterpart
 of cylon_tpu/obs/store.py).
 
 It persists per-node wall/rows/coll-MB, the gate decisions (semi-filter
-selectivity, wire plan, spill tier, skew split), stage clocks and the
-plan-fingerprint latencies, the evidence a feedback re-coster tunes the
-engine's adaptive gates from (ROADMAP.md A9b; the port keeps the
-evidence and no tuned decision yet).
+selectivity, wire plan, spill tier, skew split, serve batch size), stage
+clocks and the plan-fingerprint latencies: the evidence the feedback
+re-coster (``plan/feedback.py``) tunes the engine's adaptive gates from.
+Every absorbed ``exec`` or ``lat`` record re-costs its profile's tuned
+decisions under hysteresis (``feedback.update_profile_decisions``).
 
 LAYOUT (under ``CYLON_TPU_TORCH_OBS_DIR``; unset = the store is off and
 every hook here is a cheap no-op):
@@ -26,12 +27,17 @@ every hook here is a cheap no-op):
     The compacted store: bounded per-fingerprint PROFILES (count,
     geometric latency buckets, mean selectivity, observed bytes/row,
     hottest bucket, staged bytes, footprint distribution, per-node
-    aggregates) and a per-writer ``jseqs`` map of the journal record ids
-    already folded in. Every ``COMPACT_EVERY`` own-journal records the
+    aggregates), the current tuned decisions and their hysteresis state,
+    and a per-writer ``jseqs`` map of the journal record ids already
+    folded in. Every ``COMPACT_EVERY`` own-journal records the
     owner re-reads the whole directory under a cross-process ``flock``,
     writes the merged snapshot (atomic tmp+rename) and truncates ITS OWN
     journal only, so concurrent writers never lose each other's records.
     The profile set is LRU-bounded (``PROFILE_CAP``).
+
+KEYING: profiles are keyed by the plan's BASE gated fingerprint, without
+the feedback component (``plan/feedback.base_key``), so a decision flip
+re-keys the executor but keeps feeding the same profile.
 
 THREADING + SYNC DISCIPLINE: all mutation is lock-serialized; the store
 is host-only file I/O and dict math: it never touches a device.
@@ -130,7 +136,15 @@ def new_profile() -> Dict[str, Any]:
         "payoff_skip": 0,    # static size gate declined the sketch
         "static_budget": 0,  # the ctx's untuned budget (proposal baseline)
         "lat": _new_lat(),
+        # serving-only latency window (samples carrying a batch size B):
+        # the serve-bucket proposer judges this, never the pooled `lat`,
+        # which also holds serial collect latencies no bucket can change
+        "serve_lat": _new_lat(),
+        "serve_b": {},       # str(B) -> count of batched resolutions
         "nodes": {},         # node name -> [count, wall_ms, rows, coll]
+        "dec": {},           # tuned decisions (plan/feedback.py)
+        "pend": {},          # hysteresis: field -> [candidate, streak]
+        "flips": 0,
         "seq": 0,            # LRU clock
     }
 
@@ -338,12 +352,20 @@ def _absorb_record(profiles: Dict, hists: Dict, rec: Dict, seq: int) -> int:
             ev[2] += int(passes)
             ev[3] += int(alt)
         # footprint: device bytes the resource ledger attributed to this
-        # execution
+        # execution (a batched exec divides by its query count, so the
+        # distribution stays per query)
         dev = rec.get("dev")
         if dev:
-            lat_record(p.setdefault("foot", _new_lat()), float(dev))
+            qn = max(int(rec.get("qn") or 1), 1)
+            lat_record(p.setdefault("foot", _new_lat()), float(dev) / qn)
     elif kind == "lat":
         lat_record(p["lat"], float(rec.get("s", 0.0)))
+        b = rec.get("b")
+        if b:
+            key = str(int(b))
+            p.setdefault("serve_b", {})
+            p["serve_b"][key] = p["serve_b"].get(key, 0) + 1
+            lat_record(p.setdefault("serve_lat", _new_lat()), float(rec.get("s", 0.0)))
     elif kind == "trace":
         for name, wall_ms, rows, coll in rec.get("nodes", []):
             agg = p["nodes"].setdefault(name, [0, 0.0, 0, 0])
@@ -355,6 +377,16 @@ def _absorb_record(profiles: Dict, hists: Dict, rec: Dict, seq: int) -> int:
         return seq
     seq += 1
     p["seq"] = seq
+    # re-cost the tuned decisions from the updated evidence (the
+    # hysteresis lives with the proposers in plan/feedback). The record
+    # kind scopes which gates re-propose, so a streak counts
+    # gate-relevant observations: one exec record a query for the
+    # shuffle-side gates, one latency sample for the serve bucket; trace
+    # records advance nothing
+    if kind in ("exec", "lat"):
+        from ..plan import feedback as _fb
+
+        _fb.update_profile_decisions(p, kind)
     return seq
 
 
@@ -474,6 +506,11 @@ class ObsStore:
         )
         self._rec_seq = self._jseqs.get(self.writer_id, 0)
         self._jlines = lines.get(self.writer_id, 0)
+        # prime the decision caches for the feedback layer
+        from ..plan import feedback as _fb
+
+        for p in self.profiles.values():
+            p["_dec"] = _fb.effective_decisions(p)
 
     def _journal_file(self):
         if self._jf is None:
@@ -604,6 +641,8 @@ class ObsStore:
                         os.unlink(tmp)
                     return
             # adopt the merged view (includes concurrent writers' records)
+            from ..plan import feedback as _fb
+
             self.profiles = profiles
             self.hists = hists
             self._jseqs = jseqs
@@ -612,6 +651,8 @@ class ObsStore:
             )
             self._jlines = 0
             self._since_flush = 0
+            for p in self.profiles.values():
+                p["_dec"] = _fb.effective_decisions(p)
 
     def _evict(self) -> None:
         _evict_caps(self.profiles, self.hists)
@@ -653,6 +694,23 @@ class ObsStore:
             self._evict()
 
     # -- read side ------------------------------------------------------
+    def dec_tuple(self, fp: str) -> Optional[tuple]:
+        """The profile's cached effective-decision tuple (Decisions field
+        order): a lock-free read for the fingerprint hot path; None when
+        the fingerprint has no profile yet."""
+        p = self.profiles.get(fp)
+        if p is None:
+            return None
+        return p.get("_dec")
+
+    def profile_snapshot(self, fp: str) -> Optional[Dict[str, Any]]:
+        with self._lock:
+            p = self.profiles.get(fp)
+            if p is None:
+                return None
+            return json.loads(json.dumps(
+                {k: v for k, v in p.items() if not k.startswith("_")}))
+
     def summary(self) -> Dict[str, Dict[str, Any]]:
         """{fingerprint: flat profile summary}."""
         out: Dict[str, Dict[str, Any]] = {}
@@ -695,6 +753,9 @@ class ObsStore:
                     "foot_p95": int(
                         lat_quantile(p.get("foot") or _new_lat(), 0.95)
                     ),
+                    "serve_b": dict(p.get("serve_b", {})),
+                    "dec": {k: v for k, v in p.get("dec", {}).items() if v is not None},
+                    "flips": p.get("flips", 0),
                     "nodes": {
                         name: {
                             "count": a[0],
@@ -885,15 +946,29 @@ def note_dev_bytes(n: int) -> None:
     rec["dev"] = rec.get("dev", 0) + int(n)
 
 
-def observe_latency(obs_key: Optional[str], seconds: float) -> None:
+def note_batch_queries(qn: int) -> None:
+    """Stamp the active exec record with the number of queries a batched
+    execution served, so its footprint absorbs as per-query bytes."""
+    rec = _EXEC.get()
+    if rec is not None:
+        rec["qn"] = int(qn)
+
+
+def observe_latency(obs_key: Optional[str], seconds: float,
+                    batch_b: Optional[int] = None) -> None:
     """Journal one resolved query latency (called from
-    ``obs.trace.attach_result``; file I/O only, never a sync)."""
+    ``obs.trace.attach_result``; file I/O only, never a sync). A served
+    query carries its batch size ``batch_b``, the serve-bucket proposer's
+    evidence."""
     if not obs_key:
         return
     s = store()
     if s is None:
         return
-    s.record({"k": "lat", "fp": obs_key, "s": round(seconds, 6)})
+    rec: Dict[str, Any] = {"k": "lat", "fp": obs_key, "s": round(seconds, 6)}
+    if batch_b:
+        rec["b"] = int(batch_b)
+    s.record(rec)
 
 
 def record_trace(q) -> None:

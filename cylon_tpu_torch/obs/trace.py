@@ -376,10 +376,12 @@ def attach_result(
     t0: Optional[float] = None,
     hist_key: Optional[str] = None,
     obs_key: Optional[str] = None,
+    batch_b: Optional[int] = None,
 ) -> None:
     """Bind a result Table to the active trace and the latency histogram:
     observe ``now - t0`` under ``hist_key`` (or the key of
-    ``fingerprint``), and in the observation store under ``obs_key``.
+    ``fingerprint``), and in the observation store under ``obs_key``
+    (with ``batch_b``, the serving batch size, where a scheduler ran it).
     The port's result counts are host-known, so the record resolves at
     once; nothing is fetched. ``table`` is the result (kept for the JAX
     package's signature: there a deferred count fetch resolves it)."""
@@ -399,17 +401,17 @@ def attach_result(
             t0 = q.t0
     if q is None and key is None and obs_key is None:
         return
-    _resolve_record((q, key, label, t0 if t0 is not None else time.perf_counter(), obs_key),
-                    time.perf_counter())
+    _resolve_record((q, key, label, t0 if t0 is not None else time.perf_counter(), obs_key,
+                     batch_b), time.perf_counter())
 
 
 def _resolve_record(rec, now: float) -> None:
-    q, key, label, t0, obs_key = rec
+    q, key, label, t0, obs_key, batch_b = rec
     if key is not None:
         _metrics.observe_latency(key, max(now - t0, 0.0), label=label)
     if obs_key is not None:
         # the persistent store's latency journal: host file I/O only
-        _obsstore.observe_latency(obs_key, max(now - t0, 0.0))
+        _obsstore.observe_latency(obs_key, max(now - t0, 0.0), batch_b)
     if q is not None:
         q.resolved = now
         _maybe_finish(q)

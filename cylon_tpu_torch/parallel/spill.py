@@ -233,16 +233,25 @@ def gate_state() -> tuple:
     return (_envgate.SPILL_TIER.get(), skew_enabled())
 
 
-def choose_tier(staged_bytes: int) -> int:
+def choose_tier(staged_bytes: int, tuned: Optional[int] = None) -> int:
     """The tier of a shuffle whose received rows stage ``staged_bytes`` per
     shard: the forced knob wins; else tier 0 while the device spill budget
     (unset: unlimited) holds, tier 1 beyond it. Tier-1 arenas promote
-    themselves to disk past the host budget (:meth:`HostArena._alloc`)."""
+    themselves to disk past the host budget (:meth:`HostArena._alloc`).
+
+    ``tuned`` is the feedback re-coster's decision (plan/feedback.py, from
+    observed staged bytes near the budget line): it only PROMOTES past
+    the measured tier (spilling early is a memory policy; demoting below
+    the measured need would run the device out of memory)."""
     f = forced_tier()
     if f is not None:
         return f
     budget = device_spill_budget()
-    return TIER_HBM if budget is None or staged_bytes <= budget else TIER_HOST
+    tier = TIER_HBM if budget is None or staged_bytes <= budget else TIER_HOST
+    if tuned is not None and tuned > tier:
+        bump("autotune.tier_promoted")
+        tier = tuned
+    return tier
 
 
 # ----------------------------------------------------------------------
@@ -298,10 +307,12 @@ def plan_schedule(
     re-plan the rounds against the cold histogram and relay their tails,
     but only where that cuts the cost (collective slots +
     ``RELAY_COST_FACTOR`` x relayed rows) by ``SKEW_MIN_SAVINGS``.
-    ``trigger`` (the feedback re-coster's tuned ratio) is A9's."""
-    if trigger is not None:
-        raise NotImplementedError(
-            "plan_schedule(trigger=...): the feedback re-coster is not ported yet (ROADMAP.md: A9)")
+
+    ``trigger`` is the feedback re-coster's tuned engagement ratio
+    (``Decisions.skew_trigger``, plan/feedback.py) in place of the static
+    ``SKEW_MIN_RATIO``: straggler evidence lowers it, so mild skew sheds
+    its padded slots through the relay too. Relayed rows reach the same
+    destinations, so results are the same either way."""
     cap0, k0 = _sh.plan_rounds(send_counts, row_bytes, world, byte_budget, max_rounds)
     base = RoundSchedule(cap0, k0, None)
     if not skew_enabled():
@@ -310,7 +321,8 @@ def plan_schedule(
     if m.size == 0 or m.max() == 0:
         return base
     mean_bucket = -(-int(m.sum()) // m.size)
-    heavy_thresh = max(SKEW_MIN_RATIO * mean_bucket, 8)
+    heavy_thresh = max(max(int(trigger), 1) if trigger else SKEW_MIN_RATIO, 1) * mean_bucket
+    heavy_thresh = max(heavy_thresh, 8)
     heavy_cols = m.max(axis=0) > heavy_thresh
     if not heavy_cols.any() or heavy_cols.all():
         return base  # all heavy is uniformly large: nothing to rebalance

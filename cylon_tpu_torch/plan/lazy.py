@@ -12,11 +12,17 @@ collective bytes, critical-path share and the adaptive gates it took.
 
 Telemetry: each ``collect()`` opens a query trace when tracing is on
 (``CYLON_TPU_TORCH_TRACE``) and always observes its latency into the
-plan-fingerprint histogram (``obs.metrics``).
+plan-fingerprint histogram (``obs.metrics``). Under
+``CYLON_TPU_TORCH_OBS_DIR`` the feedback re-coster (``plan/feedback.py``)
+tunes the adaptive gates from the journaled evidence: its decisions ride
+the fingerprint and apply around execution.
 
-Not ported: ``collect_async`` and ``dispatch`` (ROADMAP.md A9c), the plan
-feedback component of the fingerprint (A9b). :func:`gate_report` reads the
-counters of the engine's adaptive decisions (``GATE_PREFIXES``).
+``collect_async`` submits the plan to the context's serving scheduler
+(``serve/``) and returns a future; ``dispatch`` runs it in the calling
+thread. The port's row counts are host-known once an op returns, so
+``dispatch`` is ``collect`` (the JAX package's defers one count fetch).
+:func:`gate_report` reads the counters of the engine's adaptive decisions
+(``GATE_PREFIXES``).
 """
 from __future__ import annotations
 
@@ -34,8 +40,8 @@ from ..obs import metrics as _obsmetrics
 from ..obs import prof as _prof
 from ..obs import store as _obsstore
 from ..obs import trace as _obstrace
-from ..table import _not_ported
 from ..utils.tracing import bump, report, span
+from . import feedback as _feedback
 from . import lower as _lower
 from . import rules as _rules
 from .expr import Col, Expr
@@ -64,17 +70,26 @@ def gate_report() -> Dict[str, Dict[str, float]]:
     return out
 
 
-def gated_fingerprint(plan: Node) -> tuple:
-    """The executable identity of a plan: its structural fingerprint and
-    the ordering, semi-filter, lane-packing, quantized-wire, spill (the
-    forced spill tier and the skew split, ``spill.gate_state``) and
-    topology gates (the kill switch and the raw mesh request,
-    ``topo.gate_state``), which decide which rewrites fire and which paths
-    the lowered ops take, so a gate flip re-optimizes instead of reusing
-    an executor built under the other state. The JAX package adds a
-    feedback component (A9)."""
-    return (plan.fingerprint(), _ord.enabled(), _sketch.enabled(), _stats.enabled(),
+def gated_fingerprint(plan: Node, ctx=None) -> tuple:
+    """The executable identity of a plan: its structural fingerprint, the
+    ordering, semi-filter, lane-packing, quantized-wire, spill (the forced
+    spill tier and the skew split, ``spill.gate_state``) and topology
+    gates (the kill switch and the raw mesh request, ``topo.gate_state``),
+    which decide which rewrites fire and which paths the lowered ops take,
+    and last the feedback component ``(active, Decisions)``
+    (``feedback.fingerprint_component`` of the rest, the BASE, by which
+    the observation store keys its profile). A gate flip or a tuned
+    decision's flip re-optimizes instead of reusing an executor built
+    under the other state. With ``ctx`` (the plan's context) the ranks of
+    a ``torch.distributed`` world agree on the decisions
+    (``feedback.agree``). The one copy of this recipe: the plan cache and
+    the serving scheduler's groups and batch cache key through it."""
+    base = (plan.fingerprint(), _ord.enabled(), _sketch.enabled(), _stats.enabled(),
             _quant.gate_state(), _spill.gate_state(), _topo.gate_state())
+    comp = _feedback.fingerprint_component(base)
+    if ctx is not None:
+        comp = _feedback.agree(ctx, comp)
+    return base + (comp,)
 
 
 def _normalize_aggs(agg: Dict[str, TUnion[str, Sequence[str]]]) -> List[Tuple[str, str]]:
@@ -215,13 +230,16 @@ class LazyFrame:
         ])
 
     def _executable(self):
-        """(scan tables, the PlanEntry, hit) through the plan cache: the one
-        copy of the compile recipe of ``collect()`` and
-        ``explain(analyze=True)``. The entry carries the histogram key, so a
+        """(scan tables, the gated fingerprint, the PlanEntry, hit) through
+        the plan cache: the one copy of the compile recipe of ``collect()``,
+        ``explain(analyze=True)`` and the serving scheduler's single runs.
+        The entry carries the histogram key and the store's profile key
+        (``feedback.base_key`` of the fingerprint without its feedback
+        component, so a decision flip keeps feeding one profile), so a
         cache hit hashes nothing."""
         ctx = self._ctx
         tables = _lower.scan_tables(self._plan)
-        fingerprint = gated_fingerprint(self._plan)
+        fingerprint = gated_fingerprint(self._plan, ctx)
 
         def compile_plan():
             with span("plan.optimize"):
@@ -230,21 +248,31 @@ class LazyFrame:
                 # the cached executor holds frozen scan stubs, no tables
                 opt = _lower.detach_scans(opt)
                 fn = _lower.build_executor(opt)
-            key = _obsmetrics.fingerprint_key(fingerprint)
-            return PlanEntry(opt, tuple(fired), fn, key, key)
+            return PlanEntry(opt, tuple(fired), fn, _obsmetrics.fingerprint_key(fingerprint),
+                             _feedback.base_key(fingerprint[:-1]))
 
         entry, hit = plan_executable(ctx, fingerprint, compile_plan)
-        return tables, entry, hit
+        return tables, fingerprint, entry, hit
 
     def collect(self):
         """Optimize, lower (both cached) and run the plan: an eager Table.
         Under a query trace (``plan.optimize``, ``plan.lower``,
         ``plan.execute`` and a ``plan.node.*`` span a node) when tracing is
         on; the latency lands in the plan-fingerprint histogram either
-        way. The result's counts are host-known: no read is added."""
+        way. The tuned decisions the executor was keyed under apply around
+        its execution. The result's counts are host-known: no read is
+        added."""
+        return self.dispatch()
+
+    def dispatch(self):
+        """Run the plan in the calling thread: the execution
+        ``collect()`` and the serving scheduler's single runs share (the
+        JAX package's ``dispatch`` defers the result's one count fetch; the
+        port's counts are host-known when an op returns, so the two
+        calls are one)."""
         t_q = _time.perf_counter()
         with _obstrace.query_trace(type(self._plan).__name__, kind="plan"):
-            tables, entry, hit = self._executable()
+            tables, fingerprint, entry, hit = self._executable()
             if hit:
                 # a cached optimize + lower: the spans anyway, so every
                 # collect shows in tracing.report() (at about no cost)
@@ -254,43 +282,62 @@ class LazyFrame:
                     pass
             for f in entry.fired:
                 bump(f"plan.rule.{f}")
-            with _obsstore.exec_obs(entry.obs_key):
+            # the tuned decisions the executor was keyed under, and this
+            # execution's gate observations for the store (both nothing
+            # while autotune or the store is off)
+            with _feedback.applying(fingerprint[-1]), _obsstore.exec_obs(entry.obs_key):
                 with span("plan.execute"):
                     out = entry.fn(tables)
             _obstrace.attach_result(out, hist_key=entry.hist_key, obs_key=entry.obs_key,
                                     label=entry.opt.label(), t0=t_q)
             return out
 
+    def collect_async(self, block: bool = True):
+        """Submit this plan to the context's serving scheduler
+        (``serve.scheduler``) and return a
+        :class:`~cylon_tpu_torch.serve.QueryFuture` at once: the scheduler's
+        worker runs it, batching same-fingerprint plans over different
+        bindings into one stacked execution, and ``result()`` hands the
+        table to the caller::
+
+            futs = [q.collect_async() for q in queries]   # admission-gated
+            tables = [f.result() for f in futs]
+
+        ``block=False`` sheds with
+        :class:`~cylon_tpu_torch.serve.ServeOverloadError` instead of
+        waiting when admission (``CYLON_TPU_TORCH_SERVE_INFLIGHT_BYTES``,
+        ``_QUEUE_DEPTH``) is at capacity."""
+        from ..serve.scheduler import submit as _serve_submit
+
+        return _serve_submit(self, block=block)
+
     def _explain_analyze(self) -> str:
         """Run the plan through the cached executor under a forced query
-        trace in ``analyze_mode``, then render the optimized tree annotated
-        from the measured span tree."""
+        trace in ``analyze_mode``, under the tuned decisions it was keyed
+        with, then render the optimized tree annotated from the measured
+        span tree and the tuned gates (``feedback.describe``)."""
         t_q = _time.perf_counter()
-        tables, entry, hit = self._executable()
+        tables, fingerprint, entry, hit = self._executable()
         with _obstrace.analyze_mode():
             with _obstrace.query_trace(type(self._plan).__name__, kind="explain",
                                        force=True) as q:
-                with _obsstore.exec_obs(entry.obs_key):
+                with _feedback.applying(fingerprint[-1]), _obsstore.exec_obs(entry.obs_key):
                     with span("plan.execute"):
                         out = entry.fn(tables)
                 # no histogram key: a diagnostic run's latency must not land
                 # in the fingerprint histogram collect() fills
                 _obstrace.attach_result(out, label=entry.opt.label(), t0=t_q)
+        tuned = _feedback.describe(fingerprint[:-1])
         return "\n".join([
             "== Logical plan ==", self._plan.render(), "",
             "== Analyzed plan (executed) ==",
             _render_analyzed(entry.opt, q), "",
             _fired_line(entry.fired),
-            "Tuned gates: (none)",
+            "Tuned gates:" + ("" if tuned else " (none)"),
+            *(f"  {t}" for t in tuned),
             f"Plan fingerprint: {entry.hist_key}  plan-cache {'hit' if hit else 'miss'}"
             f"  total {q.wall_s() * 1e3:.1f} ms  rows out {out.row_count}",
         ])
-
-    def collect_async(self, block: bool = True):
-        raise _not_ported("LazyFrame.collect_async (the serving scheduler)", "A9c")
-
-    def dispatch(self):
-        raise _not_ported("LazyFrame.dispatch (the serving scheduler's deferred count)", "A9c")
 
 
 def _fired_line(fired) -> str:

@@ -1277,8 +1277,13 @@ class Table:
             # the eager engine's byte budget caps the per-round buffer; an
             # undersized first attempt is recovered by the retry
             row_bytes = max(_sh.exchange_row_bytes(lref), _sh.exchange_row_bytes(rref))
+            from .plan import feedback as _feedback
+
+            # the re-coster's tuned budget overrides the context's here as
+            # in _plan_state
             bucket_cap = min(bucket_cap, _sh.budget_bucket_cap(
-                row_bytes, world, ctx.shuffle_byte_budget, bucket_cap))
+                row_bytes, world, _feedback.tuned_shuffle_budget() or ctx.shuffle_byte_budget,
+                bucket_cap))
             join_cap = round_cap(2 * (1 + respill) * world * bucket_cap)
         else:
             join_cap = round_cap(cap_l + cap_r)
@@ -2765,8 +2770,17 @@ def _plan_state(st: dict) -> None:
        buffers, at the plain row bytes. The port's buffers are
        exact-length, so the value departs from the JAX package's, which
        counts padded capacities."""
+    from .plan import feedback as _feedback
+
     w = st["world"]
-    budget = int(st["spec"].byte_budget or st["ctx"].shuffle_byte_budget)
+    # an explicit per-call budget wins; then the feedback re-coster's
+    # tuned budget of the running plan (only inside a plan execution whose
+    # fingerprint carries it); then the context's
+    budget = int(st["spec"].byte_budget or _feedback.tuned_shuffle_budget()
+                 or st["ctx"].shuffle_byte_budget)
+    # the skew split's engagement ratio: the re-coster's tuned trigger
+    # where the straggler evidence earned one, else the static 4x mean
+    skew_trigger = _feedback.tuned_skew_trigger()
     row_bytes = st["row_bytes"]
     st["use_filter"] = False
     if st["counts_f"] is not None:
@@ -2786,7 +2800,7 @@ def _plan_state(st: dict) -> None:
             st["send_counts"] = unf
     else:
         st["send_counts"] = st["counts_u"]
-    sched = _spill.plan_schedule(st["send_counts"], row_bytes, w, budget)
+    sched = _spill.plan_schedule(st["send_counts"], row_bytes, w, budget, trigger=skew_trigger)
     st["wire"] = st["bases"] = None
     if st["col_stats"] or any(c is not None for c in st["quant_sig"]):
         stats_list: List[Optional[Tuple[str, int]]] = [None] * len(st["ref"])
@@ -2795,7 +2809,8 @@ def _plan_state(st: dict) -> None:
         wplan = wire_plan(wire_lane_plan(st["ref"]), stats_list, quant=st["quant_sig"])
         if wplan is not None:
             rb_w = wire_row_bytes(wplan)
-            sched_w = _spill.plan_schedule(st["send_counts"], rb_w, w, budget)
+            sched_w = _spill.plan_schedule(st["send_counts"], rb_w, w, budget,
+                                           trigger=skew_trigger)
             relay_rb = _spill.RELAY_COST_FACTOR * row_bytes
             total_wire = sched_w.coll_row_slots(w) * rb_w + sched_w.relay_rows() * relay_rb
             total_plain = sched.coll_row_slots(w) * row_bytes + sched.relay_rows() * relay_rb
@@ -2823,13 +2838,13 @@ def _plan_state(st: dict) -> None:
     # routes the exchange as an inner hop and a dense cross-outer hop. It
     # needs word lanes for the headers and exactly one header row (a
     # q8-widened wire keeps the flat path: its per-chunk scale blocks do
-    # not survive the hop-2 repack). The feedback autopilot's hop mode is
-    # A9's; without it a declared topology always takes two hops.
+    # not survive the hop-2 repack). The re-coster's tuned hop mode can
+    # force "1hop" for the shape; None takes two hops on a declared mesh.
     tcfg = st["topo_cfg"]
     two_hop_ok = (tcfg is not None and (st["has_lanes"] or st["wire"] is not None) and nh == 1
                   and not wire_q8_cols(st["wire"]))
     tp = None
-    if two_hop_ok:
+    if two_hop_ok and _feedback.tuned_hop_mode() != "1hop":
         ob = _topo.outer_budget()
         while True:
             tp = _topo.plan_two_hop(st["send_counts"], tcfg, st["bucket_cap"], st["n_rounds"], nh)
@@ -2838,7 +2853,8 @@ def _plan_state(st: dict) -> None:
             if not ob or st["bucket_cap"] <= 8 or tcfg.outer * (tp.cap_o + nh) * int(rb_eff) <= ob:
                 break
             budget //= 2
-            sched = _spill.plan_schedule(st["send_counts"], int(rb_eff), w, budget)
+            sched = _spill.plan_schedule(st["send_counts"], int(rb_eff), w, budget,
+                                         trigger=skew_trigger)
             st["sched"] = sched
             st["bucket_cap"], st["n_rounds"] = sched.bucket_cap, sched.n_rounds
     st["topo_plan"] = tp
@@ -2856,9 +2872,15 @@ def _plan_state(st: dict) -> None:
         bump("shuffle.coll_bytes.intra", rows=intra_b)
         bump("shuffle.coll_bytes.inter", rows=inter_b)
         annotate_add(coll_bytes_intra=intra_b, coll_bytes_inter=inter_b)
+    # the other hop mode's cross-outer bytes from the same counts (flat
+    # where two hops ran, two hops where the flat exchange was forced), so
+    # one run carries both modes' evidence for the hop-mode proposer
+    inter_alt = -1
     if two_hop_ok:
-        bump("shuffle.coll_bytes.inter_alt",
-             rows=_topo.axis_coll_bytes(tcfg, w, bc, k, int(rb_eff), nh)[1])
+        alt_cap_o = None if tp is not None else _topo.plan_two_hop(
+            st["send_counts"], tcfg, bc, k, nh).cap_o
+        inter_alt = _topo.axis_coll_bytes(tcfg, w, bc, k, int(rb_eff), nh, cap_o=alt_cap_o)[1]
+        bump("shuffle.coll_bytes.inter_alt", rows=inter_alt)
     # shipped bytes: flat, K rounds x W^2 bucket blocks x the (narrowed)
     # row bytes; two-hop, both hops' bytes; and the relay's rows at their
     # plain row bytes
@@ -2876,7 +2898,10 @@ def _plan_state(st: dict) -> None:
     # the tier: choose_tier's; a caller-owned sink takes at least tier 1
     # (the rows' destination is the host)
     spec = st["spec"]
-    tier = _spill.choose_tier(int(st["new_counts"].max()) * row_bytes)
+    staged = int(st["new_counts"].max()) * row_bytes
+    # the re-coster may promote the tier before the budget line from the
+    # staged bytes it observed (never below the measured decision)
+    tier = _spill.choose_tier(staged, tuned=_feedback.tuned_spill_tier())
     if spec.sink is not None and tier == _spill.TIER_HBM:
         tier = _spill.TIER_HOST
     # the relay under two hops: same-outer-group tails ride the device
@@ -2932,13 +2957,13 @@ def _plan_state(st: dict) -> None:
         _obsstore.note_shuffle(
             world=w, row_bytes=int(row_bytes), hot=int(m.max()) if m.size else 0,
             mean_bucket=-(-int(m.sum()) // max(m.size, 1)),
-            staged=int(st["new_counts"].max()) * int(row_bytes) if tier != _spill.TIER_HBM else 0,
+            staged=int(staged),
             tier=int(tier), rounds=int(k),
             coll=coll_bytes,
             budget=budget, static_budget=int(st["ctx"].shuffle_byte_budget),
             wire=st["wire"] is not None, relay=sched.adaptive,
             topo=tuple(tcfg) if tcfg is not None else None, hop2=tp is not None,
-            intra=intra_b, inter=inter_b,
+            intra=intra_b, inter=inter_b, inter_alt=int(inter_alt),
         )
 
 
@@ -3260,6 +3285,7 @@ def _expected_received(send_counts: np.ndarray, bucket_cap: int, round_idx: int)
 
 def _pair_sketches(
     a: Table, a_keys: Sequence[str], b: Table, b_keys: Sequence[str], sides: str,
+    force: bool = False,
 ) -> Optional[dict]:
     """The combined semi-join key sketches of a shuffle pair
     (ops/sketch.py): each side named in ``sides`` ('both'/'a'/'b', the
@@ -3303,7 +3329,7 @@ def _pair_sketches(
     if sides in ("both", "b"):
         prunable += b.row_count * _sh.exchange_row_bytes(b._flat_cols(b.ctx.local_shards[0]))
     prunable //= max(world, 1)
-    if prunable < SEMI_FILTER_MIN_PAYOFF * wire:
+    if not force and prunable < SEMI_FILTER_MIN_PAYOFF * wire:
         _obsstore.note_semi(payoff_skip=True)
         return None
     with span("shuffle.semi_filter.sketch", rows=wire):
@@ -3339,10 +3365,21 @@ def _shuffle_pair(
     other side's sketch in the count phase, and provably partnerless rows
     never enter the exchange. The output equals the unfiltered shuffle's
     (CYLON_TPU_TORCH_NO_SEMI_FILTER=1 turns it off)."""
+    from .plan import feedback as _feedback
+
     sa = _ShuffleSpec(a, tuple(a_keys), byte_budget)
     sb = _ShuffleSpec(b, tuple(b_keys), byte_budget)
-    if semi is not None and a.world_size > 1 and _sketch.enabled():
-        got = _pair_sketches(a, a_keys, b, b_keys, semi)
+    # the re-coster's semi decision (None outside a plan execution or with
+    # autotune off): "off" skips even the sketch, the observed selectivity
+    # too high to repay its collective; "on" and "explore" build it past
+    # the static size gate ("explore": measure, then decide)
+    mode = _feedback.tuned_semi_mode()
+    if semi is not None and a.world_size > 1 and mode == "off":
+        bump("autotune.semi_skipped")
+    if semi is not None and a.world_size > 1 and _sketch.enabled() and mode != "off":
+        if mode in ("on", "explore"):
+            bump("autotune.semi_forced")
+        got = _pair_sketches(a, a_keys, b, b_keys, semi, force=mode in ("on", "explore"))
         if got is not None:
             if "a" in got["probe"]:
                 sa = sa._replace(sketch=got["sketch"], probe_row=got["probe"]["a"],

@@ -11,14 +11,16 @@ which belong to torch's launcher, not to the port.
 
 The port registers only the knobs of features it has: the observability
 layer (obs/: the tracer, the profiler, the flight ring and its export,
-the ops endpoint, the observation store, the leak grace), the shuffle tiers,
+the ops endpoint, the observation store, the leak grace, the SLO window),
+the feedback re-coster (plan/feedback.py), query serving (serve/), the
+shuffle tiers,
 the skew split and the spill tiers (parallel/spill.py, which the
 out-of-core layers of parallel/ooc.py, task.py and dag.py read and add
 none to), the spill fault seams (fault/inject.py), the two-hop topology
 (parallel/topo.py), the native runtime's kill switch (native/) and the C
 ABI's platform (native/capi.cpp's ``ct_api_init``). Knobs of layers it has
-not ported (the feedback re-coster, serving, SLO rules, streaming) join
-with their items (ROADMAP.md A9); the JAX package's
+not ported (streaming) join with their items (ROADMAP.md A9d); the JAX
+package's
 knobs that choose between its XLA and Pallas tiers or configure XLA have no
 counterpart (ROADMAP.md A5), nor has its AddressSanitizer build of the
 native runtime (ROADMAP.md, "Left out so far").
@@ -123,7 +125,8 @@ def env_gate(var: str, keyed_via: str = "", note: str = ""):
 # CYLON_TPU_TORCH_NO_ORDERING in ordering.py, CYLON_TPU_TORCH_NO_SEMI_FILTER
 # in ops/sketch.py, CYLON_TPU_TORCH_NO_LANE_PACK in ops/stats.py,
 # CYLON_TPU_TORCH_NO_QUANT in ops/quant.py, CYLON_TPU_TORCH_NO_SKEW_SPLIT in
-# parallel/spill.py, CYLON_TPU_TORCH_NO_TOPO in parallel/topo.py)
+# parallel/spill.py, CYLON_TPU_TORCH_NO_TOPO in parallel/topo.py,
+# CYLON_TPU_TORCH_NO_AUTOTUNE in plan/feedback.py)
 # ----------------------------------------------------------------------
 SHUFFLE_BUDGET = EnvKnob(
     "CYLON_TPU_TORCH_SHUFFLE_BUDGET", "", kind="tuning",
@@ -190,9 +193,9 @@ SPILL_RETRIES = EnvKnob(
 FAULTS = EnvKnob(
     "CYLON_TPU_TORCH_FAULTS", "", kind="observability",
     note="deterministic fault-injection spec (fault/inject.py): "
-    "comma-separated 'seam[:p=0.05][:kind=ENOSPC][:n=3][:seed=7]' clauses "
-    "arming spill.write/spill.read/arena.alloc/obs.journal/obs.prof; read at "
-    "import and at "
+    "comma-separated 'seam[:p=0.05][:kind=ENOSPC][:n=3][:seed=7][:match=s]' "
+    "clauses arming spill.write/spill.read/arena.alloc/obs.journal/obs.prof/"
+    "serve.batch_exec/serve.single_exec/serve.worker; read at import and at "
     "fault.inject.refresh()",
 )
 
@@ -211,8 +214,9 @@ PLATFORM = EnvKnob(
 )
 
 # -- the observability layer (obs/; the JAX package's CYLON_TPU_TRACE,
-# _TRACE_RING, _TRACE_EXPORT, _PROF, _OBS_DIR, _METRICS_PORT and
-# _LEAK_GRACE_S). None alters a plan, a cache key or a result --
+# _TRACE_RING, _TRACE_EXPORT, _PROF, _OBS_DIR, _METRICS_PORT, _LEAK_GRACE_S
+# and _SLO_WINDOW_S). None alters a result; OBS_DIR turns the feedback
+# re-coster on, whose decisions ride the plan fingerprint --
 TRACE = EnvKnob(
     "CYLON_TPU_TORCH_TRACE", "0", kind="observability",
     note="=1 logs each span as it closes AND records query span trees; any "
@@ -237,10 +241,68 @@ TRACE_EXPORT = EnvKnob(
     "trace-event JSON at interpreter exit",
 )
 OBS_DIR = EnvKnob(
-    "CYLON_TPU_TORCH_OBS_DIR", "", kind="observability",
+    "CYLON_TPU_TORCH_OBS_DIR", "", kind="tuning",
+    keyed_via="presence of the observation store; the autotune state it "
+    "enables rides the plan fingerprint as the (active, Decisions) "
+    "component plan/feedback.fingerprint_component appends in "
+    "plan/lazy.gated_fingerprint, so a store flip re-enters the plan cache",
     note="directory of the persistent per-fingerprint observation journal "
-    "(obs/store.py); unset disables the store. No tuned decision reads it "
-    "yet (the feedback re-coster, ROADMAP.md A9b)",
+    "(obs/store.py); unset disables the store and every tuned decision of "
+    "the feedback re-coster (plan/feedback.py)",
+)
+SLO_WINDOW_S = EnvKnob(
+    "CYLON_TPU_TORCH_SLO_WINDOW_S", "60", kind="observability",
+    note="rolling evaluation window (seconds) of the SLO monitor "
+    "(obs/slo.py): the p99, shed, error and headroom rules judge only the "
+    "samples inside it, so /healthz recovers once a breach ages out",
+)
+
+# -- the feedback re-coster (plan/feedback.py; the JAX package's
+# CYLON_TPU_AUTOTUNE_MIN_OBS, _AUTOTUNE_MARGIN, _SERVE_P99_TARGET_MS) --
+AUTOTUNE_MIN_OBS = EnvKnob(
+    "CYLON_TPU_TORCH_AUTOTUNE_MIN_OBS", "8", kind="tuning",
+    note="observations a candidate decision must win consecutively before "
+    "the feedback re-coster flips a gate (hysteresis depth); the flipped "
+    "decision, not this knob, rides the plan fingerprint",
+)
+AUTOTUNE_MARGIN = EnvKnob(
+    "CYLON_TPU_TORCH_AUTOTUNE_MARGIN", "0.2", kind="tuning",
+    note="relative modeled-cost margin a candidate decision must beat the "
+    "incumbent by before the feedback re-coster flips",
+)
+SERVE_P99_TARGET_MS = EnvKnob(
+    "CYLON_TPU_TORCH_SERVE_P99_TARGET_MS", "", kind="tuning",
+    note="per-fingerprint serving p99 target (ms): an observed p99 above it "
+    "halves the tuned serve batch bucket, under half of it doubles the "
+    "bucket back toward CYLON_TPU_TORCH_SERVE_BATCH_MAX; also the SLO "
+    "monitor's p99 rule (unset = neither)",
+)
+
+# -- query serving (serve/; the JAX package's CYLON_TPU_SERVE_*). Host
+# admission and batching policy read per call by the scheduler; none
+# reaches a kernel --
+SERVE_INFLIGHT_BYTES = EnvKnob(
+    "CYLON_TPU_TORCH_SERVE_INFLIGHT_BYTES", "", kind="tuning",
+    note="serving in-flight byte budget (default 1 GiB): bounds the "
+    "estimated bytes of admitted queries until their results are consumed; "
+    "a single query estimated above it is shed with ServeOverloadError",
+)
+SERVE_QUEUE_DEPTH = EnvKnob(
+    "CYLON_TPU_TORCH_SERVE_QUEUE_DEPTH", "256", kind="tuning",
+    note="pending-query cap of a scheduler: a full queue backpressures "
+    "blocking submitters and sheds block=False ones",
+)
+SERVE_BATCH_MAX = EnvKnob(
+    "CYLON_TPU_TORCH_SERVE_BATCH_MAX", "16", kind="tuning",
+    note="most same-fingerprint bindings stacked into one batched "
+    "execution (1 disables batching and keeps the asynchronous submit); the "
+    "batched executor is cached per power-of-two bucket of the group size",
+)
+SERVE_DEADLINE_MS = EnvKnob(
+    "CYLON_TPU_TORCH_SERVE_DEADLINE_MS", "", kind="tuning",
+    note="per-query serving deadline (ms from submit): an expired query "
+    "fails with QueryTimeoutError at batch formation or in its future's "
+    "wait, its lease released (unset = no deadline)",
 )
 METRICS_PORT = EnvKnob(
     "CYLON_TPU_TORCH_METRICS_PORT", "", kind="observability",

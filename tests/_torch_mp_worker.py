@@ -545,13 +545,53 @@ def case_io(env):
     return out
 
 
+def case_feedback_plan(ctx):
+    """The lazy join -> groupby-sum of ``case_feedback`` (a join shuffle
+    pair whose semi filter the re-coster's semi mode decides)."""
+    rng = np.random.default_rng(SEED + 20)
+    left = {"k": rng.integers(0, 400, 3000).astype(np.int32),
+            "v": rng.normal(size=3000).astype(np.float32)}
+    right = {"rk": rng.integers(0, 400, 1500).astype(np.int32),
+             "w": rng.normal(size=1500).astype(np.float32)}
+    a = ctt.Table.from_encoded(ctx, port_encode(left)).lazy()
+    b = ctt.Table.from_encoded(ctx, port_encode(right)).lazy()
+    return a.join(b, left_on="k", right_on="rk").groupby("k", {"v": "sum"})
+
+
+def case_feedback(env):
+    """Each rank journals to a store of its own; rank 0's holds two
+    observations of high selectivity (its semi decision is "off": no
+    sketch), rank 1's none (its own is "explore": build the sketch, a
+    collective). The ranks agree on rank 0's decisions
+    (``feedback.agree``), so both skip the sketch and the collect
+    completes."""
+    from cylon_tpu_torch.obs import store as obs_store
+    from cylon_tpu_torch.plan import feedback as fb
+    from cylon_tpu_torch.plan.lazy import gated_fingerprint
+
+    ctx = env.context
+    os.environ["CYLON_TPU_TORCH_OBS_DIR"] = os.path.join(IO_DIR, f"obs{env.rank}")
+    os.environ["CYLON_TPU_TORCH_AUTOTUNE_MIN_OBS"] = "2"
+    obs_store.reset_stores()
+    lf = case_feedback_plan(ctx)
+    base = gated_fingerprint(lf.plan)[:-1]
+    if env.rank == 0:
+        for _ in range(2):
+            obs_store.store().record({"k": "exec", "fp": fb.base_key(base), "world": 2,
+                                      "row_bytes": 8, "hot": 0, "sel": [0.97, 0.97],
+                                      "sketch_built": 2})
+    own = fb.decisions_for(base).semi_mode
+    component = gated_fingerprint(lf.plan, ctx)[-1]
+    return {"own": own, "component": component, "result": lf.collect()}
+
+
 PORT = OrderedDict([("pk", case_pk), ("ingest", case_ingest), ("env", case_env),
                     ("frame", case_frame), ("surface", case_surface), ("lazy", case_lazy),
                     ("semi", case_semi), ("fused", case_fused), ("out_of_core", case_out_of_core)])
 CASES = list(SHARED) + list(PORT)
 #: cases run only where a test names them (their own world)
 EXTRA = OrderedDict([("skew8", case_skew8), ("topo8", case_topo8), ("io", case_io),
-                     ("mesh2x2", case_mesh2x2)])
+                     ("mesh2x2", case_mesh2x2), ("feedback", case_feedback)])
 #: (init URL, device, backend, shards a process) of a rank process, for
 #: contexts a case makes
 RANK_ARGS = ()

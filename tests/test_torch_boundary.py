@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import cylon_tpu_torch as ctt
+import _torch_jax_native as J
 
 torch.set_num_threads(1)
 
@@ -78,15 +79,30 @@ def _tables():
     "call",
     [
         lambda t: t.lazy().dispatch(),
-        lambda t: t.lazy().collect_async(),
+        lambda t: t.lazy().collect_async().result(60),
         lambda t: ctt.parallel.spill.plan_schedule(np.full((2, 2), 64, np.int64), 8, 2, 1 << 20,
                                                    trigger=4),
     ],
 )
 def test_unported_arguments_raise(call):
+    """The calls that raised until the feedback re-coster and serving were
+    ported (A9b, A9c), against the JAX package's same call: ``dispatch``,
+    ``collect_async().result()``, ``plan_schedule(trigger=4)``."""
+    import jax
+
+    import cylon_tpu as ct
+    from cylon_tpu.parallel import spill as jspill
+
     _ctx, t = _tables()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(t)
+    jt = ct.Table.from_pydict(
+        ct.CylonContext.init_distributed(ct.TPUConfig(devices=jax.devices()[:1])), t.to_pydict())
+    got = call(t)
+    if isinstance(got, ctt.Table):
+        assert got.to_pandas().equals(jt.lazy().collect().to_pandas())
+    else:
+        want = jspill.plan_schedule(np.full((2, 2), 64, np.int64), 8, 2, 1 << 20, trigger=4)
+        assert (got.bucket_cap, got.n_rounds, got.relay) == (want.bucket_cap, want.n_rounds,
+                                                             want.relay)
 
 
 @pytest.mark.parametrize("call", ["from_arrow", "to_arrow", "to_csv"])
@@ -107,6 +123,7 @@ def test_arrow_and_csv_calls_give_the_jax_packages_results(tmp_path, call):
     elif call == "to_arrow":
         assert t.to_arrow().equals(jt.to_arrow())
     else:
+        J.require_jax_native()
         t.to_csv(str(tmp_path / "t.csv"))
         jt.to_csv(str(tmp_path / "j.csv"))
         assert (tmp_path / "t.csv").read_bytes() == (tmp_path / "j.csv").read_bytes()
@@ -162,14 +179,17 @@ def test_pandas_round_trip_and_errors():
 
 
 PLANNER = ("ordering.py", "utils/tracing.py", "plan/__init__.py", "plan/expr.py",
-           "plan/nodes.py", "plan/rules.py", "plan/lower.py", "plan/lazy.py")
+           "plan/nodes.py", "plan/rules.py", "plan/lower.py", "plan/lazy.py",
+           "plan/feedback.py", "obs/slo.py", "serve/__init__.py", "serve/future.py",
+           "serve/batch.py", "serve/scheduler.py")
 
 
 @pytest.mark.parametrize("rel", PLANNER)
 def test_planner_modules_import_neither_jax_nor_the_jax_package(rel):
-    """The order descriptors and the planner keep their own copies of the
-    JAX package's modules (none of which imports JAX itself), and import
-    it nowhere, not even inside a function."""
+    """The order descriptors, the planner, the feedback re-coster, the SLO
+    monitor and the serving layer keep their own copies of the JAX
+    package's modules (none of which imports JAX itself), and import it
+    nowhere, not even inside a function."""
     path = PKG / rel
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):

@@ -31,8 +31,10 @@ import cylon_tpu as ct
 import cylon_tpu_torch as ctt
 from cylon_tpu_torch import native
 from test_torch_shuffle_slice import _contexts
+import _torch_jax_native as J
 
 torch.set_num_threads(1)
+J.load_jax_native()  # one xdist worker's first build at a time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -90,6 +92,7 @@ def test_c_client_equals_the_python_api(tmp_path, capi):
                          env=client_env())
     assert res.returncode == 0, f"stdout={res.stdout}\nstderr={res.stderr[-2000:]}"
     jctx = _contexts(1)[0]
+    J.require_jax_native()
     jwant = (ct.read_csv(jctx, lp).distributed_join(ct.read_csv(jctx, rp), on="k", how="inner")
              .distributed_sort("k_x").project(["k_x", "x", "y"]))
     ct.write_csv(jwant, str(tmp_path / "jax.csv"))
@@ -129,6 +132,7 @@ def test_java_abi_harness_equals_the_python_api(tmp_path, capi):
     assert res.returncode == 0, f"stdout={res.stdout}\nstderr={res.stderr[-2000:]}"
     got = dict(line.split("=", 1) for line in res.stdout.splitlines()
                if "=" in line and not line.startswith("Table("))
+    J.require_jax_native()
     assert got == _harness_counts(ct, _contexts(1)[0], lp, rp, tmp_path, "jax")
     assert open(out, "rb").read() == (tmp_path / "jax.csv").read_bytes()
     assert got == _harness_counts(ctt, ctx, lp, rp, tmp_path, "want")
@@ -271,6 +275,7 @@ def test_capi_calls_equal_the_jax_package(tmp_path, inproc, case):
     abi, py = _abi_calls(lib)[case]
     handles = abi(hl, hr)
     jctx = _contexts(1)[0]
+    J.require_jax_native()
     want = py(ct, ct.read_csv(jctx, lp), ct.read_csv(jctx, rp))
     assert len(handles) == len(want)
     for i, (h, w) in enumerate(zip(handles, want)):

@@ -584,6 +584,92 @@ def test_lazy_plans_on_card_match_cpu(dev, world):
                     np.testing.assert_allclose(xg[c][0], xc[c][0], rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("world", [1, 4])
+def test_served_queries_on_card_match_cpu(dev, world):
+    """Eight threads submit a q3 binding each through ``collect_async`` to
+    the card context's paused scheduler, which then runs them as one
+    stacked batch (its worker thread launches the kernels and records the
+    events ``result()`` waits on): every result equals the CPU's serial
+    collect of its binding, rows and exact integer-valued sums. No batch
+    fell back to singles and no query failed: the fallback would give the
+    same results, so only the counters show it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cylon_tpu_torch import serve
+    from cylon_tpu_torch.utils import tracing
+
+    rng = np.random.default_rng(33)
+    bindings = []
+    for i in range(8):
+        n = 20_000 + 1000 * i
+        bindings.append(({"k": rng.integers(0, 5000, n).astype(np.int32),
+                          "v": rng.integers(-50, 50, n).astype(np.float32)},
+                         {"rk": rng.integers(0, 5000, n).astype(np.int32),
+                          "w": rng.integers(-50, 50, n).astype(np.float32)}))
+
+    def plans(device):
+        ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=device, world_size=world))
+        return [ctt.Table.from_pydict(ctx, a).lazy().join(
+            ctt.Table.from_pydict(ctx, b).lazy(), left_on="k", right_on="rk")
+            .groupby("k", {"v": "sum"}) for a, b in bindings]
+
+    def frame(t):
+        return t.to_pandas().sort_values("k").reset_index(drop=True)
+
+    def executed():
+        return ({c: tracing.get_count(c) for c in ("serve.batches", "serve.singles",
+                                                   "serve.batch_fallback", "serve.errors")},
+                int(tracing.get_trace_report().get("serve.batches", {}).get("rows", 0)))
+
+    want = [frame(p.collect()) for p in plans("cpu")]
+    card = plans(dev)
+    sched = serve.scheduler(card[0]._ctx)
+    (c0, r0) = executed()
+    sched.pause()
+    try:
+        with ThreadPoolExecutor(max_workers=8) as ex:
+            futs = list(ex.map(lambda p: p.collect_async(), card))
+    finally:
+        sched.resume()
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        got = list(ex.map(lambda f: frame(f.result(timeout=300)), futs))
+    for g, w in zip(got, want):
+        pd.testing.assert_frame_equal(g, w)
+    (c1, r1) = executed()
+    assert {c: c1[c] - c0[c] for c in c0} == {"serve.batches": 1, "serve.singles": 0,
+                                              "serve.batch_fallback": 0, "serve.errors": 0}
+    assert r1 - r0 == 8
+
+
+def test_served_query_waits_for_inputs_built_on_a_side_stream(dev):
+    """A caller uploads its tables on a side stream queued behind a long
+    kernel and submits from under that stream: the scheduler's worker
+    orders its own stream after the event ``submit`` recorded there, so
+    it reads the uploaded inputs and the result equals the CPU's."""
+    rng = np.random.default_rng(34)
+    n = 300_000
+    a = {"k": rng.integers(0, 50_000, n).astype(np.int32),
+         "v": rng.integers(-50, 50, n).astype(np.float32)}
+    b = {"rk": rng.integers(0, 50_000, n).astype(np.int32),
+         "w": rng.integers(-50, 50, n).astype(np.float32)}
+
+    def plan(device):
+        ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=device))
+        return (ctt.Table.from_pydict(ctx, a).lazy()
+                .join(ctt.Table.from_pydict(ctx, b).lazy(), left_on="k", right_on="rk")
+                .groupby("k", {"v": "sum"}))
+
+    def frame(t):
+        return t.to_pandas().sort_values("k").reset_index(drop=True)
+
+    want = frame(plan("cpu").collect())
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(500_000_000)  # a few hundred ms of the card's clock
+        fut = plan(dev).collect_async()
+    pd.testing.assert_frame_equal(frame(fut.result(timeout=300)), want)
+
+
 @pytest.mark.parametrize("cap", [4097, 70_001])
 def test_pack_hist_pid_mode_on_semi_filter_sentinels(dev, cap):
     """B2a in pid mode on the lane the semi filter gives it: a real key

@@ -127,11 +127,11 @@ def test_unported_and_device_rules(monkeypatch):
     with pytest.raises(ValueError, match="unknown join mode"):
         td.join(td, on="k", mode="lazy")
     # std/var/nunique: test_torch_groupby_aggs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        td.collect_async()
+    # collect_async and the lazy dispatch, ported with serving (A9c): the
+    # JAX package's collect
+    assert td.collect_async().result(60).to_pandas().equals(jd.lazy().collect().to_pandas())
     assert td.to_arrow().equals(jd.to_arrow())  # ported with the I/O layers (A8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md: A9"):  # lazy: test_torch_plan
-        td.lazy().dispatch()
+    assert td.lazy().dispatch().to_pandas().equals(jd.lazy().dispatch().to_pandas())
     assert "== Analyzed plan (executed) ==" in td.lazy().explain(analyze=True)  # test_torch_obs
     local = ctt.CylonEnv(config=ctt.GPUConfig(device="cpu", world_size=4), distributed=False)
     assert local.world_size == 1 and not local.is_distributed and env.is_distributed

@@ -33,11 +33,13 @@ import torch
 import cylon_tpu as ct
 import cylon_tpu_torch as ctt
 from cylon_tpu import native as jnative
+import _torch_jax_native as J
 import _torch_mp_worker as W
 from test_torch_compute import tables_equal
 from test_torch_shuffle_slice import _contexts, _encode
 
 torch.set_num_threads(1)
+J.load_jax_native()  # one xdist worker's first build at a time
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
@@ -63,6 +65,7 @@ def both(world, cols):
 @pytest.mark.parametrize("world", [1, 4])
 def test_write_csv_bytes_equal_the_jax_writer(tmp_path, world):
     jt, tt = both(world, _cols(np.random.default_rng(1), 203))
+    J.require_jax_native()
     for i, opts in enumerate((None, ("|", ["K", "L", "X", "F", "S", "B", "U"]))):
         jo = to = None
         if opts is not None:
@@ -112,6 +115,7 @@ def test_read_csv_equals_the_jax_read(tmp_path, world, layout):
     paths = _write_files(tmp_path, np.random.default_rng(2 + world), n_files)
     arg = paths[0] if layout == "one" else paths
     jctx, tctx = _contexts(world)
+    J.require_jax_native()
     jt, tt = ct.read_csv(jctx, arg), ctt.read_csv(tctx, arg)
     tables_equal(jt, tt)
     if n_files > 1:  # m: int64 in one file, float64 in another -> float64

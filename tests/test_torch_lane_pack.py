@@ -57,20 +57,28 @@ def test_registry_holds_the_ports_knobs_and_only_those():
         "CYLON_TPU_TORCH_NO_NATIVE", "CYLON_TPU_TORCH_PLATFORM",
         "CYLON_TPU_TORCH_TRACE", "CYLON_TPU_TORCH_PROF", "CYLON_TPU_TORCH_TRACE_RING",
         "CYLON_TPU_TORCH_TRACE_EXPORT", "CYLON_TPU_TORCH_OBS_DIR", "CYLON_TPU_TORCH_METRICS_PORT",
-        "CYLON_TPU_TORCH_LEAK_GRACE_S",
+        "CYLON_TPU_TORCH_LEAK_GRACE_S", "CYLON_TPU_TORCH_SLO_WINDOW_S",
+        "CYLON_TPU_TORCH_NO_AUTOTUNE", "CYLON_TPU_TORCH_AUTOTUNE_MIN_OBS",
+        "CYLON_TPU_TORCH_AUTOTUNE_MARGIN", "CYLON_TPU_TORCH_SERVE_P99_TARGET_MS",
+        "CYLON_TPU_TORCH_SERVE_INFLIGHT_BYTES", "CYLON_TPU_TORCH_SERVE_QUEUE_DEPTH",
+        "CYLON_TPU_TORCH_SERVE_BATCH_MAX", "CYLON_TPU_TORCH_SERVE_DEADLINE_MS",
     }
     kinds = {k: v.kind for k, v in envgate.REGISTRY.items()}
     assert kinds["CYLON_TPU_TORCH_SHUFFLE_BUDGET"] == kinds["CYLON_TPU_TORCH_SKETCH_BITS"] == "tuning"
     assert kinds["CYLON_TPU_TORCH_QUANT_TOL"] == "dispatch"
-    # the spill, topology, native and observability knobs take their JAX
-    # counterparts' kinds and defaults (OBS_DIR is "tuning" there, where it
-    # feeds the feedback re-coster the port does not have yet)
+    # the spill, topology, native, observability, feedback and serving
+    # knobs take their JAX counterparts' kinds and defaults
+    from cylon_tpu.plan import feedback as _jfb  # noqa: F401 - registers NO_AUTOTUNE
     from cylon_tpu.utils import envgate as jenv
+    from cylon_tpu_torch.plan import feedback as _tfb  # noqa: F401
 
     for name in ("SPILL_TIER", "SPILL_DEVICE_BUDGET", "SPILL_HOST_BUDGET", "SPILL_DIR",
                  "SPILL_RETRIES", "FAULTS", "NO_SKEW_SPLIT", "NO_TOPO", "MESH", "OUTER_BUDGET",
                  "NO_NATIVE", "PLATFORM", "TRACE", "PROF", "TRACE_RING", "TRACE_EXPORT",
-                 "METRICS_PORT", "LEAK_GRACE_S"):
+                 "METRICS_PORT", "LEAK_GRACE_S", "OBS_DIR", "SLO_WINDOW_S", "NO_AUTOTUNE",
+                 "AUTOTUNE_MIN_OBS", "AUTOTUNE_MARGIN", "SERVE_P99_TARGET_MS",
+                 "SERVE_INFLIGHT_BYTES", "SERVE_QUEUE_DEPTH", "SERVE_BATCH_MAX",
+                 "SERVE_DEADLINE_MS"):
         mine, ref = envgate.REGISTRY["CYLON_TPU_TORCH_" + name], jenv.REGISTRY["CYLON_TPU_" + name]
         assert (mine.kind, mine.default) == (ref.kind, ref.default), name
     assert all(v.note or v.keyed_via for v in envgate.REGISTRY.values())

@@ -17,8 +17,12 @@ from cylon_tpu import table as jtable
 from cylon_tpu_torch import native
 from cylon_tpu_torch import table as ttable
 from cylon_tpu_torch.ops.hash import hash_dictionary_host, murmur3_bytes
+import _torch_jax_native as J
 
 torch.set_num_threads(1)
+# every xdist worker collects this module: its JAX reference codec loads
+# here, one worker's first build at a time, before any test runs
+J.load_jax_native()
 
 
 @pytest.fixture(autouse=True)
@@ -64,6 +68,7 @@ def test_read_csv_equals_the_jax_codec(tmp_path, case):
     n = 30_000 if kw.get("num_threads", 0) > 1 else 400  # past 1 MiB: the threaded tokenizer
     path = tmp_path / "t.csv"
     _write_mixed(path, rng, n, **fmt)
+    J.require_jax_native()
     got, want = native.read_csv(str(path), **kw), jnative.read_csv(str(path), **kw)
     assert [c.name for c in got] == [c.name for c in want]
     assert [c.ctype for c in got] == [c.ctype for c in want] == [
@@ -91,6 +96,7 @@ def test_write_csv_equals_the_jax_writer(tmp_path):
          np.array(["a,b", 'q"x', "plain"])),
     ]
     names = ["i", "f", "b", "s"]
+    J.require_jax_native()
     for sep in (",", "|"):
         native.write_csv(str(tmp_path / "t.csv"), names, cols, delimiter=sep)
         jnative.write_csv(str(tmp_path / "j.csv"), names, cols, delimiter=sep)
@@ -115,6 +121,7 @@ def test_pool_alloc_reset_stats():
     c = pool.alloc_array((100,), np.int64)
     c[:] = 7
     assert pool.bytes_reserved == reserved  # the same arena, no growth
+    J.require_jax_native()
     ref = jnative.MemoryPool(block_bytes=4096)
     for shape, dt in (((100,), np.int64), ((8, 4), np.float64)):
         ref.alloc_array(shape, dt)
@@ -148,6 +155,7 @@ def test_murmur3_known_vectors_and_twins():
     got = native.murmur3_strings(vals)
     assert got.dtype == np.uint32
     assert got.tolist() == [murmur3_bytes(s.encode()) for s in vals]
+    J.require_jax_native()
     assert got.tolist() == jnative.murmur3_strings(vals).tolist()
     assert got.tolist() == [jnative._murmur3_32_py(s.encode()) for s in vals]
     assert native.murmur3_strings(vals, seed=7).tolist() == [
@@ -180,6 +188,7 @@ def test_dict_union_equals_union1d(na, nb):
     assert union.tolist() == want.tolist()
     np.testing.assert_array_equal(map_a, np.searchsorted(want, a))
     np.testing.assert_array_equal(map_b, np.searchsorted(want, b))
+    J.require_jax_native()
     jgot = jnative.dict_union(a, b)
     assert jgot is None or jgot[0].tolist() == union.tolist()
 
@@ -220,6 +229,7 @@ def test_unify_encoded_shards_equals_the_jax_unification(monkeypatch, merge):
     rng = np.random.default_rng(9)
     ref = shards(JDataType(JType.STRING))
     ttable.unify_encoded_shards(mine)
+    J.require_jax_native()
     jtable.unify_encoded_shards(ref)
     assert len(merged) == 3  # one fold a shard after the first
     assert all((m is not None) == (merge == "native") for m in merged)
@@ -250,6 +260,7 @@ def test_write_csv_stages_through_the_context_pool(tmp_path):
     assert in_use >= 3000 * 16
     ctt.write_csv(t, str(tmp_path / "b.csv"))
     assert (pool.bytes_in_use, pool.bytes_reserved) == (in_use, reserved)
+    J.require_jax_native()
     ct.write_csv(ct.Table.from_encoded(jctx, enc), str(tmp_path / "j.csv"))
     want = (tmp_path / "j.csv").read_bytes()
     assert (tmp_path / "a.csv").read_bytes() == (tmp_path / "b.csv").read_bytes() == want

@@ -123,8 +123,19 @@ def test_plan_schedule_gate_and_trigger(monkeypatch):
     assert tsp.plan_schedule(m, 8, 8, 1 << 40).adaptive
     with tsp.skew_disabled():
         assert tsp.plan_schedule(m, 8, 8, 1 << 40) == (*tsh.plan_rounds(m, 8, 8, 1 << 40), None)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tsp.plan_schedule(m, 8, 8, 1 << 40, trigger=2)
+    # the feedback re-coster's tuned trigger (A9b): the JAX package's plan
+    from cylon_tpu.parallel import spill as jsp
+
+    mild = np.full((8, 8), 32, np.int64)
+    mild[:, 3] = 96  # 2.8x the mean: only a tuned trigger below 4 engages
+    for mat, trigger in ((m, 2), (mild, 2), (mild, None), (mild, 3)):
+        got, want = (mod.plan_schedule(mat, 8, 8, 1 << 12, trigger=trigger) for mod in (tsp, jsp))
+        assert (got.bucket_cap, got.n_rounds, got.adaptive) == \
+            (want.bucket_cap, want.n_rounds, want.adaptive)
+        if got.adaptive:
+            np.testing.assert_array_equal(got.relay, want.relay)
+    assert tsp.plan_schedule(mild, 8, 8, 1 << 12, trigger=2).adaptive
+    assert not tsp.plan_schedule(mild, 8, 8, 1 << 12).adaptive
 
 
 def test_relay_send_slots_match_reference():

@@ -234,8 +234,9 @@ def test_spill_write_retry_heals(defaults, tmp_path):
     sink.close()
     with pytest.raises(tfault.FaultSpecError):
         tfault.parse_spec("spill.read:kind=die")
+    assert tfault.parse_spec("serve.worker:n=1")["serve.worker"].kind == "die"  # A9c's seam
     with pytest.raises(tfault.FaultSpecError):
-        tfault.parse_spec("serve.worker:n=1")  # not a seam of the port (A9)
+        tfault.parse_spec("stream.append:n=1")  # not a seam of the port (A9d)
 
 
 def test_spill_read_failure_types_and_closes_arenas(defaults, tmp_path):

@@ -233,25 +233,54 @@ def test_dataframe_surface_matches_reference(rng, ref_env, world):
         td[3]
 
 
-def _tuned_trigger(t):
+def _tuned_trigger(t, jt):
     """The round schedule under the feedback re-coster's tuned skew
-    trigger (A9)."""
+    trigger, the port's and the JAX package's, on a mildly skewed count
+    matrix (a bucket about 3x the mean: the tuned trigger 2 relays its
+    tail, the static 4x does not)."""
+    from cylon_tpu.parallel import spill as jspill
     from cylon_tpu_torch.parallel import spill
 
-    spill.plan_schedule(np.full((2, 2), 64, np.int64), 8, 2, 1 << 20, trigger=4)
+    m = np.full((4, 4), 64, np.int64)
+    m[:, 1] = 250
+    got, want = (mod.plan_schedule(m, 8, 4, 1 << 12, trigger=2) for mod in (spill, jspill))
+    assert got.adaptive and want.adaptive and not spill.plan_schedule(m, 8, 4, 1 << 12).adaptive
+    return ((got.bucket_cap, got.n_rounds, got.relay.tolist()),
+            (want.bucket_cap, want.n_rounds, want.relay.tolist()))
+
+
+def _pydicts(got, want):
+    """Both packages' results (a Table, or a DataFrame's table) as host
+    columns."""
+    got, want = (x.to_table() if hasattr(x, "to_table") else x for x in (got, want))
+    return got.to_pydict(), want.to_pydict()
 
 
 @pytest.mark.parametrize("call", [
-    lambda t: t.lazy().groupby("k", {"k": "count"}).dispatch(),
-    lambda t: t.lazy().dispatch(), _tuned_trigger, lambda t: t.lazy().collect_async(),
-    lambda t: ctt.DataFrame(t).lazy().dispatch(),
-    lambda t: ctt.DataFrame(t).lazy().collect_async(), lambda t: ctt.DataFrame(t).collect_async(),
+    lambda t, jt: _pydicts(t.lazy().groupby("k", {"k": "count"}).dispatch(),
+                           jt.lazy().groupby("k", {"k": "count"}).dispatch()),
+    lambda t, jt: _pydicts(t.lazy().dispatch(), jt.lazy().dispatch()),
+    _tuned_trigger,
+    lambda t, jt: _pydicts(t.lazy().collect_async().result(60), jt.lazy().collect()),
+    lambda t, jt: _pydicts(ctt.DataFrame(t).lazy().dispatch(), jt.lazy().dispatch()),
+    lambda t, jt: _pydicts(ctt.DataFrame(t).lazy().collect_async().result(60),
+                           jt.lazy().collect()),
+    lambda t, jt: _pydicts(ctt.DataFrame(t).collect_async().result(60), jt.lazy().collect()),
 ])
 def test_left_out_surface_raises_naming_its_item(call):
-    tctx = _contexts(1)[1]
-    t = ctt.Table.from_pydict(tctx, {"k": np.arange(4, dtype=np.int32)})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md: A[4-9]"):
-        call(t)
+    """The calls that raised until the feedback re-coster (A9b) and serving
+    (A9c) were ported, now against the JAX package's on the same table:
+    ``dispatch``, ``collect_async`` (a future whose result is the
+    collect's), ``DataFrame.collect_async`` and ``plan_schedule(trigger=)``."""
+    jctx, tctx = _contexts(1)
+    cols = {"k": np.arange(4, dtype=np.int32)}
+    got, want = call(ctt.Table.from_pydict(tctx, cols), ct.Table.from_pydict(jctx, cols))
+    if isinstance(got, dict):
+        assert list(got) == list(want)
+        for c in want:
+            np.testing.assert_array_equal(np.asarray(got[c]), np.asarray(want[c]), err_msg=c)
+    else:
+        assert got == want
 
 
 def _same_files(tmp, write_j, write_t, world=None):
