@@ -295,6 +295,14 @@ REPS_FB = 3  # timed collects of FB before (NO_AUTOTUNE) and after the flip
 SERVE_THREADS = 8  # SERVE's submitting threads, one binding each
 REPS_SERVE = 3  # timed rounds of SERVE, serial and threaded, after a warm-up
 SERVE_INFLIGHT = 32 << 30  # SERVE's admission budget: eight A-sized queries fit
+#: STREAM: benchmarks/stream_bench.py's shape at A's scale: 8M appendable
+#: left rows (k in [0, 512)), a static right side of rows // 32, 1% appends
+N_STREAM = N_A
+STREAM_KEYS = 512
+STREAM_SEED = 11
+STREAM_DELTA = N_STREAM // 100
+STREAM_ROUNDS = 5  # measured rounds of STREAM_q3 at each world, after the warm-up
+STREAM_JOIN_ROUNDS = 4  # STREAM_join's rounds, appends to the left and right in turn
 
 # peak memory bandwidth by card (NVIDIA data sheets); SXM5 H100 otherwise
 _PEAK_BW = {"PCIe": 2.0e12, "NVL": 3.9e12, "H200": 4.8e12}
@@ -1066,14 +1074,21 @@ def phase_obs(tl, tr, reset_counts, counts, require_launches, kernels, smi) -> d
             "explain_ms": explain_ms, "explain_lines": len(text.splitlines())}
 
 
-def fb_digest(t, order_col: str) -> str:
+def fb_digest(t, order_col) -> str:
     """A digest of a table's rows independent of their shard and order:
-    every column, gathered, in the order of ``order_col`` (unique values)."""
+    every column, gathered, in the order of ``order_col`` (unique values),
+    or of a list of columns, sorted by each in turn (the first most
+    significant: rows equal in all of them are equal rows)."""
     import torch
 
     cols = {c: torch.cat([t._shards[s][c].data for s in range(t.world_size)])
             for c in t.column_names}
-    order = torch.argsort(cols[order_col])
+    if isinstance(order_col, str):
+        order = torch.argsort(cols[order_col])
+    else:
+        order = torch.arange(t.row_count, device=cols[order_col[0]].device)
+        for c in reversed(order_col):
+            order = order[torch.sort(cols[c][order], stable=True).indices]
     h = hashlib.sha256()
     for c in t.column_names:
         h.update(cols[c][order].cpu().numpy().tobytes())
@@ -1306,6 +1321,248 @@ def phase_serve(ctt, ctx, left, right, reset_counts, counts, require_launches, k
             "rounds": {n: [{k_: v_ for k_, v_ in c.items() if k_ != "launches"} for c in cs]
                        for n, cs in cells.items()},
             "cells": {n: cs[0] for n, cs in cells.items()}}
+
+
+def make_stream():
+    """stream_bench.py's data (seed 11): the appendable left side, the static
+    right side (rows // 32) and the batch maker the appends draw from, in
+    the bench's order of draws."""
+    rng = np.random.default_rng(STREAM_SEED)
+
+    def lbatch(n):
+        return {"k": rng.integers(0, STREAM_KEYS, n).astype(np.int32),
+                "v": rng.integers(-50, 50, n).astype(np.float32)}
+
+    left = lbatch(N_STREAM)
+    n_r = max(N_STREAM // 32, 256)
+    right = {"rk": rng.integers(0, STREAM_KEYS, n_r).astype(np.int32),
+             "w": rng.integers(-50, 50, n_r).astype(np.float32)}
+    return left, right, lbatch
+
+
+def q3_rows(t):
+    """A q3 view result's (keys, sums) on the host, in key order."""
+    d = t.to_pydict()
+    order = np.argsort(d["k"], kind="stable")
+    return d["k"][order], d["v_sum"][order]
+
+
+def phase_stream(ctt, ctx, ctx4, left_a, right_a, reset_counts, counts, require_launches,
+                 smi) -> dict:
+    """STREAM: incremental views (cylon_tpu_torch/stream/) on the card.
+
+    STREAM_q3, at worlds 1 and 4: benchmarks/stream_bench.py's view (an
+    8M-row appendable left side joined to a static 250,000-row right side,
+    summed by key, through the q3 pushdown) warmed as the bench warms it,
+    then STREAM_ROUNDS rounds of a 1% append, each refresh split into its
+    snapshot build, its plan (the delta's upload), the delta collect and
+    the host merge, beside a fresh NO_IVM view's full recompute on the same
+    generation: equal exactly (integer-valued float32 sums below 2^24),
+    one pushdown each, no emit. STREAM_join: A's two sides, both
+    appendable, a filter on the left then an inner join with no aggregate,
+    appends to each side in turn: every refresh's rows equal the
+    recompute's by an order-free digest, and K2 launches. Then two
+    subscriptions of the world-1 q3 view resolve through the scheduler
+    after an append, both equal to the refresh and the recompute, with no
+    serving error and no batch fallen back."""
+    import torch
+    from cylon_tpu_torch import stream
+    from cylon_tpu_torch.utils import tracing as _tr
+
+    def sync_ms(t0):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def spread(xs):
+        return {"median": float(np.median(xs)), "min": float(min(xs)), "max": float(max(xs))}
+
+    def q3(ctx_, what):
+        left, right, lbatch = make_stream()
+        src = stream.AppendableTable(ctx_, left)
+        tr_ = ctt.Table.from_pydict(ctx_, right)
+
+        def build(lt):
+            return lt.lazy().join(tr_.lazy(), left_on="k", right_on="rk").groupby("k", {"v": "sum"})
+
+        snap = []
+        orig_table = src.table
+
+        def timed_table(at_gen=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig_table(at_gen)
+            snap.append(sync_ms(t0))
+            return out
+
+        src.table = timed_table  # the view's snapshot builds, timed apart
+        view = stream.view(build, src)
+        # the bench's warm-up: the full refresh, one incremental round and
+        # one NO_IVM recompute
+        view.refresh()
+        src.append(lbatch(STREAM_DELTA))
+        view.refresh()
+        with stream.ivm_disabled():
+            stream.view(build, src).refresh()
+        if view.stats != {"noop": 0, "full": 1, "fallback": 0, "inc": 1}:
+            fail(f"{what}: the warm-up round was not incremental: {view.stats}")
+        rounds = []
+        for r in range(STREAM_ROUNDS):
+            src.append(lbatch(STREAM_DELTA))
+            inc0 = view.stats["inc"]
+            reset_counts()
+            p0 = _tr.get_count("join.sum_pushdown")
+            snap.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mode, lf, commit = view._plan_refresh()
+            plan_ms = sync_ms(t0)
+            t1 = time.perf_counter()
+            part = lf.collect()
+            collect_ms = sync_ms(t1)
+            t2 = time.perf_counter()
+            got = commit(part)
+            merge_ms = sync_ms(t2)
+            inc_ms = sync_ms(t0)
+            launches_inc, push_inc = counts(), _tr.get_count("join.sum_pushdown") - p0
+            reset_counts()
+            p0 = _tr.get_count("join.sum_pushdown")
+            with stream.ivm_disabled():
+                t3 = time.perf_counter()
+                want = stream.view(build, src).refresh()
+                full_ms = sync_ms(t3)
+            launches_full, push_full = counts(), _tr.get_count("join.sum_pushdown") - p0
+            if mode != "inc" or view.stats["inc"] != inc0 + 1 or view.stats["fallback"]:
+                fail(f"{what} round {r}: mode {mode}, stats {view.stats}")
+            gk, gs = q3_rows(got)
+            wk, ws = q3_rows(want)
+            if gk.dtype != wk.dtype or gs.dtype != ws.dtype or not (
+                    np.array_equal(gk, wk) and np.array_equal(gs, ws)):
+                fail(f"{what} round {r}: the refresh differs from the NO_IVM recompute")
+            max_abs = float(np.abs(ws).max())
+            if max_abs >= 2.0 ** 24:
+                fail(f"{what} round {r}: max |sum| {max_abs} >= 2^24: float32 sums inexact")
+            # the q3 pushdown on both paths: one pushdown a plan, no emit
+            # (without it the full join emits about 3.9e9 rows)
+            if push_inc != 1 or push_full != 1:
+                fail(f"{what} round {r}: pushdowns {push_inc} incremental, {push_full} full")
+            for name, c in (("incremental", launches_inc), ("full", launches_full)):
+                if c["expand_rows"]:
+                    fail(f"{what} round {r} {name}: the join emitted rows (K2 launched)")
+            rounds.append({"inc_ms": inc_ms, "snapshot_ms": snap[0], "plan_ms": plan_ms,
+                           "collect_ms": collect_ms, "merge_ms": merge_ms, "full_ms": full_ms,
+                           "max_abs_sum": max_abs, "rows": src.row_count,
+                           "launches_inc": launches_inc, "launches_full": launches_full})
+        kernels = ["radix_lane_hist", "radix_onesweep"]
+        if ctx_.world_size > 1:
+            kernels += ["pack_hist", "pack_dest", "compact_move"]
+        require_launches(rounds[0]["launches_inc"], f"{what} incremental", kernels)
+        require_launches(rounds[0]["launches_full"], f"{what} full", kernels)
+        src.table = orig_table
+        summary = {m: spread([r_[m] for r_ in rounds])
+                   for m in ("inc_ms", "snapshot_ms", "plan_ms", "collect_ms", "merge_ms",
+                             "full_ms")}
+        summary["inc_over_full"] = summary["inc_ms"]["median"] / summary["full_ms"]["median"]
+        summary["snapshot_share"] = (summary["snapshot_ms"]["median"]
+                                     / summary["inc_ms"]["median"])
+        return {"world": ctx_.world_size, "budget_bytes": ctx_.shuffle_byte_budget,
+                "rows": N_STREAM, "right_rows": len(right["rk"]),
+                "delta_rows": STREAM_DELTA, "stats": dict(view.stats), "groups": len(q3_rows(got)[0]),
+                "summary": summary,
+                "rounds": [{k_: v_ for k_, v_ in r_.items() if not k_.startswith("launches")}
+                           for r_ in rounds],
+                "launches": {"inc": rounds[0]["launches_inc"],
+                             "full": rounds[0]["launches_full"]}}, view, src, build, lbatch
+
+    out = {"workload": "STREAM", "smi": smi}
+    q3_w4 = q3(ctx4, "STREAM_q3 w4")[0]
+    q3_w1, view1, src1, build1, lbatch1 = q3(ctx, "STREAM_q3 w1")
+    out["q3"] = {"w1": q3_w1, "w4": q3_w4}
+
+    # subscriptions of the world-1 view, resolved through the scheduler
+    counters = ("serve.errors", "serve.batch_fallback", "serve.batches", "serve.singles")
+    s1, s2 = stream.subscribe(view1), stream.subscribe(view1)
+    src1.append(lbatch1(STREAM_DELTA))
+    if not (s1.stale() and s2.stale()):
+        fail("STREAM subscriptions: the append did not mark them stale")
+    before = {c: _tr.get_count(c) for c in counters}
+    reset_counts()
+    t0 = time.perf_counter()
+    f1, f2 = s1.refresh_async(), s2.refresh_async()
+    r1, r2 = f1.result(timeout=600), f2.result(timeout=600)
+    subs_ms = sync_ms(t0)
+    launches_subs = counts()
+    moved = {c: _tr.get_count(c) - before[c] for c in counters}
+    refreshed = view1.refresh()
+    with stream.ivm_disabled():
+        full = stream.view(build1, src1).refresh()
+    want = q3_rows(full)
+    for name, t in (("subscription 1", r1), ("subscription 2", r2), ("view.refresh()", refreshed)):
+        got = q3_rows(t)
+        if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+            fail(f"STREAM subscriptions: {name} differs from the NO_IVM recompute")
+    if moved["serve.errors"] or moved["serve.batch_fallback"]:
+        fail(f"STREAM subscriptions: a query failed or a batch fell back: {moved}")
+    if not (s1.done() and s2.done()):
+        fail("STREAM subscriptions: not resolved after their refresh")
+    require_launches(launches_subs, "STREAM subscriptions", ["radix_lane_hist", "radix_onesweep"])
+    out["subs"] = {"ms": subs_ms, "counters": moved, "stats": dict(view1.stats)}
+    del view1, src1, s1, s2, r1, r2, refreshed, full
+
+    # STREAM_join: A's sides, both appendable; a filter, a join, no aggregate
+    rng = np.random.default_rng(SEED + 29)
+    lt_src = stream.AppendableTable(ctx, {"k": left_a["k"], "v": left_a["v"]})
+    rt_src = stream.AppendableTable(ctx, {"rk": right_a["k"], "w": right_a["w"]})
+
+    def build_join(lt, rt):
+        return lt.lazy().filter(ctt.col("v") >= 0.0).join(rt.lazy(), left_on="k", right_on="rk")
+
+    jview = stream.view(build_join, lt_src, rt_src)
+    jview.refresh()
+    join_rounds = []
+    order = ["k", "v", "rk", "w"]
+    for r in range(STREAM_JOIN_ROUNDS):
+        if r % 2 == 0:
+            lt_src.append({"k": rng.integers(0, N_A, STREAM_DELTA).astype(np.int32),
+                           "v": rng.normal(size=STREAM_DELTA).astype(np.float32)})
+        else:
+            rt_src.append({"rk": rng.integers(0, N_A, STREAM_DELTA).astype(np.int32),
+                           "w": rng.normal(size=STREAM_DELTA).astype(np.float32)})
+        reset_counts()
+        t0 = time.perf_counter()
+        got = jview.refresh()
+        inc_ms = sync_ms(t0)
+        launches_inc = counts()
+        reset_counts()
+        with stream.ivm_disabled():
+            t1 = time.perf_counter()
+            want = stream.view(build_join, lt_src, rt_src).refresh()
+            full_ms = sync_ms(t1)
+        launches_full = counts()
+        if got.row_count != want.row_count or fb_digest(got, order) != fb_digest(want, order):
+            fail(f"STREAM_join round {r}: the refresh differs from the NO_IVM recompute")
+        if jview.stats["inc"] != r + 1 or jview.stats["fallback"]:
+            fail(f"STREAM_join round {r}: stats {jview.stats}")
+        require_launches(launches_inc, f"STREAM_join round {r} incremental",
+                         ["radix_lane_hist", "radix_onesweep", "expand_rows"])
+        join_rounds.append({"side": "left" if r % 2 == 0 else "right", "inc_ms": inc_ms,
+                            "full_ms": full_ms, "rows": got.row_count,
+                            "launches_inc": launches_inc, "launches_full": launches_full})
+    out["join"] = {"rows_per_side": N_A, "delta_rows": STREAM_DELTA, "stats": dict(jview.stats),
+                   "inc_ms": spread([r_["inc_ms"] for r_ in join_rounds]),
+                   "full_ms": spread([r_["full_ms"] for r_ in join_rounds]),
+                   "rounds": [{k_: v_ for k_, v_ in r_.items() if not k_.startswith("launches")}
+                              for r_ in join_rounds]}
+    del jview, lt_src, rt_src, got, want
+    out["cells"] = {
+        "q3_w1_inc": {"launches": q3_w1["launches"]["inc"]},
+        "q3_w1_full": {"launches": q3_w1["launches"]["full"]},
+        "q3_w4_inc": {"launches": q3_w4["launches"]["inc"]},
+        "q3_w4_full": {"launches": q3_w4["launches"]["full"]},
+        "subs": {"launches": launches_subs},
+        "join_inc": {"launches": join_rounds[0]["launches_inc"]},
+        "join_full": {"launches": join_rounds[0]["launches_full"]},
+    }
+    return out
 
 
 def widen(cols: dict) -> dict:
@@ -3034,6 +3291,11 @@ def main(mp4_only: bool = False) -> None:
     work_serve = phase_serve(ctt, ctx, left, right, reset_counts, counts, require_launches,
                              list(cuda_radix.LAUNCHES), smi)
     print(json.dumps({"smi": smi, **work_serve}))
+    # STREAM: incremental views over appendable tables (stream/)
+    t_stream = time.perf_counter()
+    work_stream = phase_stream(ctt, ctx, ctx4, left, right, reset_counts, counts,
+                               require_launches, smi)
+    work_stream["phase_s"] = time.perf_counter() - t_stream
 
     # SPILL4: spill_bench.py's bench_tier1_join at A4_K4's scale: A4's join
     # at the 4 MiB budget, forced through tiers 1 and 2, beside tier 0
@@ -3890,7 +4152,7 @@ def main(mp4_only: bool = False) -> None:
                        ("fused4_2x2", work_fused22), ("ooc", work_ooc), ("ooc4", work_ooc4),
                        ("task4", work_task4), ("dag4", work_dag4), ("io", work_io),
                        ("io4", work_io4), ("b_io4", work_bio4), ("capi", work_capi),
-                       ("fb", work_fb), ("serve", work_serve)):
+                       ("fb", work_fb), ("serve", work_serve), ("stream", work_stream)):
             cells = w["cells"].items()
             if tag == "semi4":
                 cells = [(f"{sel}_{mode}", m) for sel, c in w["cells"].items() for mode, m in c.items()]
@@ -3917,6 +4179,7 @@ def main(mp4_only: bool = False) -> None:
     for w in (work_s, work_s4, work_s4k, work_u, work_u4, work_o, work_f, work_f4, work_l, work_l4,
               work_semi, work_pack, work_pack4):
         print(json.dumps(w))
+    print(json.dumps({k_: v_ for k_, v_ in work_stream.items() if k_ != "cells"}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

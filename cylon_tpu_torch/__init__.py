@@ -26,6 +26,11 @@ C++ codec (``native/``), ``write_csv(table, path or paths)``,
 ``CSVReadOptions``, ``CSVWriteOptions`` and ``ParquetOptions``; and
 ``Table.to_arrow`` / ``from_arrow``. A foreign language drives the same
 calls through the C ABI of ``native/capi.cpp`` (``native.build_capi()``).
+
+Streams: ``AppendableTable(ctx, columns)`` grows by ``append(batch)``;
+``stream.view(lambda t: t.lazy()...groupby(...), tab).refresh()`` keeps a
+plan's result up to date on the appended rows only, and
+``stream.subscribe(view)`` refreshes it through the serving scheduler.
 """
 from . import compute, indexing
 from .config import GPUConfig
@@ -39,8 +44,11 @@ from .join_config import JoinConfig
 from .plan import LazyFrame, col, lit
 from .series import Series
 from .table import Table, concat
+from . import stream
+from .stream import AppendableTable, IncrementalView, Subscription
 
-__all__ = ["CSVReadOptions", "CSVWriteOptions", "CylonContext", "CylonEnv", "DataFrame",
-           "GPUConfig", "JoinConfig", "LazyFrame", "ParquetOptions", "Series", "Table", "col",
-           "compute", "concat", "indexing", "lit", "read_csv", "read_parquet", "write_csv",
+__all__ = ["AppendableTable", "CSVReadOptions", "CSVWriteOptions", "CylonContext", "CylonEnv",
+           "DataFrame", "GPUConfig", "IncrementalView", "JoinConfig", "LazyFrame",
+           "ParquetOptions", "Series", "Subscription", "Table", "col", "compute", "concat",
+           "indexing", "lit", "read_csv", "read_parquet", "stream", "write_csv",
            "write_parquet"]

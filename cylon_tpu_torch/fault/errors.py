@@ -15,11 +15,10 @@ The invariant every error path upholds: a failure ends in exactly one of
 {the oracle's result, a typed CylonError}, with every host arena and
 ledger entry released, and never kills the process.
 
-The port raises ``SpillIOError`` (the spill tiers, parallel/spill.py)
-and the serving errors (serve/: ``QueryExecError``, ``QueryTimeoutError``,
-``WorkerDiedError``, ``SchedulerClosedError``); the streaming error keeps
-the JAX package's name for the layer that will raise it (ROADMAP.md
-A9d). Dependency-free, so every layer
+The port raises ``SpillIOError`` (the spill tiers, parallel/spill.py),
+the serving errors (serve/: ``QueryExecError``, ``QueryTimeoutError``,
+``WorkerDiedError``, ``SchedulerClosedError``) and the streaming error
+(stream/ingest.py: ``StreamIngestError``). Dependency-free, so every layer
 can raise through it without import cycles.
 """
 from __future__ import annotations
@@ -100,7 +99,7 @@ class WorkerDiedError(CylonError):
 class StreamIngestError(CylonError, RuntimeError):
     """A streaming append failed past the state-store's degradation
     paths: the host-arena write raised through its ladder, the
-    state-store byte budget would be exceeded (A9), or
+    ``CYLON_TPU_TORCH_STREAM_STATE_BUDGET`` byte budget would be exceeded, or
     the batch failed schema validation. The append is ROLLED BACK — the
     table's prior generation (watermark, arena rows, snapshots) is
     untouched and still queryable; only the offered batch is lost.

@@ -1,9 +1,10 @@
 """Deterministic, seeded fault injection on the spill tier's host paths,
-the observability layer and the serving scheduler (counterpart of the
-spill, obs and serve seams of cylon_tpu/fault/inject.py), armed from
+the observability layer, the serving scheduler and streaming ingest
+(counterpart of cylon_tpu/fault/inject.py), armed from
 ``CYLON_TPU_TORCH_FAULTS``.
 
-SEAMS (``check(seam)`` sites in parallel/spill.py, obs/ and serve/):
+SEAMS (``check(seam)`` sites in parallel/spill.py, obs/, serve/ and
+stream/):
 
 =====================  ================================================
 ``spill.write``        arena append path (fires only while the arena
@@ -23,9 +24,14 @@ SEAMS (``check(seam)`` sites in parallel/spill.py, obs/ and serve/):
 ``serve.batch_exec``   the stacked execution of a batch of bindings
 ``serve.single_exec``  one binding's single execution
 ``serve.worker``       the scheduler's worker loop (thread death)
+``stream.append``      an append, between its validation and budget
+                       admission and the first arena write (inside the
+                       append's ``except OSError`` rollback: errno kinds
+                       only)
+``stream.refresh``     a view refresh, before any plan runs or retained
+                       state is touched (surfaces typed through the
+                       refresh's wrapper)
 =====================  ================================================
-
-The streaming seams come with their layer (ROADMAP.md A9d).
 
 SPEC GRAMMAR: comma-separated seam clauses, ``:``-separated fields::
 
@@ -36,9 +42,10 @@ SPEC GRAMMAR: comma-separated seam clauses, ``:``-separated fields::
                   only kinds the I/O seams take (their sites sit inside
                   ``except OSError`` degradation ladders); or exec |
                   timeout | die: the typed CylonError family, the serve
-                  seams only. Default per seam: spill.write and
-                  arena.alloc ENOSPC, spill.read and the obs seams EIO,
-                  serve.*_exec exec, serve.worker die
+                  seams and stream.refresh only. Default per seam:
+                  spill.write, arena.alloc and stream.append ENOSPC,
+                  spill.read and the obs seams EIO, serve.*_exec and
+                  stream.refresh exec, serve.worker die
     n=<int>       total injection cap (default unlimited)
     seed=<int>    RNG seed of this seam's draw sequence (default 0)
     match=<str>   inject only when the check's key contains this
@@ -69,7 +76,7 @@ from .errors import QueryExecError, QueryTimeoutError, WorkerDiedError
 
 #: the seam catalog; check() accepts only these names
 SEAMS = ("spill.write", "spill.read", "arena.alloc", "serve.batch_exec", "serve.single_exec",
-         "serve.worker", "obs.journal", "obs.prof")
+         "serve.worker", "obs.journal", "obs.prof", "stream.append", "stream.refresh")
 
 #: seams whose check() sites pass a key (a binding label): the only ones a
 #: ``match=`` clause can select on
@@ -80,12 +87,14 @@ _ERRNO_KINDS = {"ENOSPC": errno.ENOSPC, "EIO": errno.EIO, "ENOMEM": errno.ENOMEM
 #: default fault kind per seam: the failure that path sees in the wild
 _DEFAULT_KIND = {"spill.write": "ENOSPC", "spill.read": "EIO", "arena.alloc": "ENOSPC",
                  "serve.batch_exec": "exec", "serve.single_exec": "exec",
-                 "serve.worker": "die", "obs.journal": "EIO", "obs.prof": "EIO"}
+                 "serve.worker": "die", "obs.journal": "EIO", "obs.prof": "EIO",
+                 "stream.append": "ENOSPC", "stream.refresh": "exec"}
 
 #: seams whose sites surface typed CylonError kinds (the scheduler fails
-#: the affected futures with them); every other seam sits inside an
-#: ``except OSError`` ladder, so only errno kinds are valid there
-_TYPED_KIND_SEAMS = frozenset(s for s in SEAMS if s.startswith("serve."))
+#: the affected futures with them; a view's refresh raises them through
+#: its typed wrapper); every other seam sits inside an ``except OSError``
+#: ladder, so only errno kinds are valid there
+_TYPED_KIND_SEAMS = frozenset({s for s in SEAMS if s.startswith("serve.")} | {"stream.refresh"})
 
 
 class FaultSpec:
@@ -196,7 +205,7 @@ def _check_noop(seam: str, key: Optional[str] = None) -> None:
 def _check_armed(seam: str, key: Optional[str] = None) -> None:
     """The armed hook: the seam's seeded RNG decides whether this check
     injects, raising the armed kind (an ``OSError`` with the armed errno,
-    or a typed CylonError on the serve seams). ``key`` is the site's
+    or a typed CylonError on the typed seams). ``key`` is the site's
     binding label, which ``match=`` selects on."""
     spec = _SPECS.get(seam)
     if spec is None:

@@ -383,6 +383,16 @@ STABLE_METRICS: Dict[str, Tuple[str, str]] = {
         "counter", "fault injections delivered per seam "
         "(fault/inject.py; armed via CYLON_TPU_TORCH_FAULTS — zero "
         "in production)"),
+    "stream.": (
+        "mixed", "streaming ingest and incremental views (stream/): append "
+        "counter (rows=batch rows) with append.chunks / append.rejected / "
+        "append.rollback; state_bytes gauge (the host state arena after "
+        "each append); refresh counter with the refresh.{noop,full,"
+        "fallback,inc} mode split and refresh.delta_rows (rows=delta size), "
+        "the refresh-against-recompute evidence beside the journaled "
+        "latencies; subs / subs.stale / subs.refresh.* subscription "
+        "counters; the stream.refresh latency histogram via "
+        "observe_latency"),
 }
 
 

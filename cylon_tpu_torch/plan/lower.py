@@ -60,9 +60,10 @@ def scan_tables(root: Node) -> list:
 
 def detach_scans(root: Node) -> Node:
     """Copy the plan with table-less Scan stubs (frozen ordinals, schema,
-    order descriptor and range stats). The plan cache stores executors built over the
-    detached plan: live Scans belong to the user's LazyFrame, and their
-    tables would otherwise stay alive as long as the context."""
+    order descriptor, range stats and stream generation). The plan cache
+    stores executors built over the detached plan: live Scans belong to the
+    user's LazyFrame, and their tables would otherwise stay alive as long as
+    the context."""
     memo: Dict[int, Node] = {}
 
     def walk(n: Node) -> Node:
@@ -76,6 +77,7 @@ def detach_scans(root: Node) -> Node:
             stub.schema = n.schema
             stub.table_ordering = n.ordering()  # frozen compile-time claim
             stub.table_stats = dict(n.col_stats())  # frozen likewise
+            stub.table_stream_gen = n.stream_gen()  # frozen likewise
             out: Node = stub
         elif n.children:
             out = n.with_children([walk(c) for c in n.children])

@@ -125,6 +125,7 @@ class Scan(Node):
         # stats follow the same live-read / frozen-stub rule
         self.table_ordering: Optional[Ordering] = None
         self.table_stats: Dict[str, object] = {}
+        self.table_stream_gen = None
         self.schema = tuple(
             (n, int(table._ref[n].dtype.type), str(numpy_dtype(table._ref[n].data.dtype)))
             for n in table.column_names
@@ -144,11 +145,25 @@ class Scan(Node):
             return dict(self.table_stats)
         return dict(self.table._stats)
 
+    def stream_gen(self):
+        """The bound table's streaming identity: ``(source_token,
+        generation)`` on a snapshot, ``(source_token, since, current)`` on a
+        delta (both stamped by ``stream/ingest.py``), None on an ordinary
+        table. Read live (frozen on a detached stub), so the generation
+        rides :func:`~cylon_tpu_torch.plan.lazy.gated_fingerprint`: a cached
+        executor and its observation profile never alias across refreshes
+        of a growing table."""
+        if self.table is None:  # detached stub
+            return self.table_stream_gen
+        return getattr(self.table, "_stream_gen", None)
+
     def _params(self) -> tuple:
         # the descriptor is part of the plan identity: an executor whose
         # rewrites used (or ignored) the input's order must not serve an
-        # input with another order property
-        return (self.ordinal, self.schema, self.table.world_size, self.ordering())
+        # input with another order property; the stream generation is read
+        # the same way, at the same time
+        return (self.ordinal, self.schema, self.table.world_size, self.ordering(),
+                self.stream_gen())
 
     def label(self) -> str:
         return f"Scan [{', '.join(self.names)}]"

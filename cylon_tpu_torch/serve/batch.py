@@ -64,13 +64,14 @@ class Unbatchable(CylonError):
 # ----------------------------------------------------------------------
 def _qid_scan_stub(scan: Scan) -> Scan:
     """A detached Scan stub over the STACKED table: the original schema
-    plus the qid column, the frozen ordinal, no order or stats claims
-    (the stacked table makes none)."""
+    plus the qid column, the frozen ordinal, no order, stats or stream
+    generation claims (the stacked table makes none)."""
     stub = Scan.__new__(Scan)
     stub.table = None
     stub.ordinal = scan.ordinal
     stub.table_ordering = None
     stub.table_stats = {}
+    stub.table_stream_gen = None
     stub.schema = tuple(scan.schema) + ((QID, int(Type.INT32), "int32"),)
     return stub
 

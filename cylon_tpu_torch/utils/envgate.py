@@ -12,18 +12,16 @@ which belong to torch's launcher, not to the port.
 The port registers only the knobs of features it has: the observability
 layer (obs/: the tracer, the profiler, the flight ring and its export,
 the ops endpoint, the observation store, the leak grace, the SLO window),
-the feedback re-coster (plan/feedback.py), query serving (serve/), the
-shuffle tiers,
-the skew split and the spill tiers (parallel/spill.py, which the
-out-of-core layers of parallel/ooc.py, task.py and dag.py read and add
-none to), the spill fault seams (fault/inject.py), the two-hop topology
-(parallel/topo.py), the native runtime's kill switch (native/) and the C
-ABI's platform (native/capi.cpp's ``ct_api_init``). Knobs of layers it has
-not ported (streaming) join with their items (ROADMAP.md A9d); the JAX
-package's
-knobs that choose between its XLA and Pallas tiers or configure XLA have no
-counterpart (ROADMAP.md A5), nor has its AddressSanitizer build of the
-native runtime (ROADMAP.md, "Left out so far").
+the feedback re-coster (plan/feedback.py), query serving (serve/),
+streaming ingest and incremental views (stream/), the shuffle tiers, the
+skew split and the spill tiers (parallel/spill.py, which the out-of-core
+layers of parallel/ooc.py, task.py and dag.py read and add none to), the
+fault seams (fault/inject.py), the two-hop topology (parallel/topo.py),
+the native runtime's kill switch (native/) and the C ABI's platform
+(native/capi.cpp's ``ct_api_init``). The JAX package's knobs that choose
+between its XLA and Pallas tiers or configure XLA have no counterpart
+(ROADMAP.md A5), nor has its AddressSanitizer build of the native runtime
+(ROADMAP.md, "Left out so far").
 """
 from __future__ import annotations
 
@@ -126,7 +124,8 @@ def env_gate(var: str, keyed_via: str = "", note: str = ""):
 # in ops/sketch.py, CYLON_TPU_TORCH_NO_LANE_PACK in ops/stats.py,
 # CYLON_TPU_TORCH_NO_QUANT in ops/quant.py, CYLON_TPU_TORCH_NO_SKEW_SPLIT in
 # parallel/spill.py, CYLON_TPU_TORCH_NO_TOPO in parallel/topo.py,
-# CYLON_TPU_TORCH_NO_AUTOTUNE in plan/feedback.py)
+# CYLON_TPU_TORCH_NO_AUTOTUNE in plan/feedback.py, CYLON_TPU_TORCH_NO_IVM
+# in stream/delta.py)
 # ----------------------------------------------------------------------
 SHUFFLE_BUDGET = EnvKnob(
     "CYLON_TPU_TORCH_SHUFFLE_BUDGET", "", kind="tuning",
@@ -195,8 +194,27 @@ FAULTS = EnvKnob(
     note="deterministic fault-injection spec (fault/inject.py): "
     "comma-separated 'seam[:p=0.05][:kind=ENOSPC][:n=3][:seed=7][:match=s]' "
     "clauses arming spill.write/spill.read/arena.alloc/obs.journal/obs.prof/"
-    "serve.batch_exec/serve.single_exec/serve.worker; read at import and at "
+    "serve.batch_exec/serve.single_exec/serve.worker/stream.append/"
+    "stream.refresh; read at import and at "
     "fault.inject.refresh()",
+)
+
+# -- streaming ingest and incremental views (stream/; the JAX package's
+# CYLON_TPU_STREAM_CHUNK_ROWS and _STATE_BUDGET). Host-side only: neither
+# reaches a kernel shape or a plan --
+STREAM_CHUNK_ROWS = EnvKnob(
+    "CYLON_TPU_TORCH_STREAM_CHUNK_ROWS", "", kind="tuning",
+    note="max rows copied into the stream state arena per staging chunk "
+    "(stream/ingest.py); bounds the per-append host copy and never reaches "
+    "a kernel shape (a snapshot's shards follow the total arena rows); "
+    "unset/empty = 65536",
+)
+STREAM_STATE_BUDGET = EnvKnob(
+    "CYLON_TPU_TORCH_STREAM_STATE_BUDGET", "", kind="tuning",
+    note="max state-arena bytes per appendable table (stream/ingest.py): an "
+    "append that would exceed it fails typed (StreamIngestError) and rolls "
+    "back before any buffer is touched, the prior generation untouched; "
+    "unset/empty = unlimited",
 )
 
 # -- the native runtime and the C ABI (native/; the JAX package's

@@ -585,13 +585,46 @@ def case_feedback(env):
     return {"own": own, "component": component, "result": lf.collect()}
 
 
+def stream_calls(ctx):
+    """Incremental views over appendable tables (stream/): a groupby view
+    over one source and a join -> groupby view over two, refreshed after
+    appends to each side. Every rank appends the same batches, of which a
+    snapshot stages each rank's own shards."""
+    rng = np.random.default_rng(SEED + 30)
+
+    def batch(n, key="k", val="v"):
+        k = rng.choice(WORDS[:20], n).astype(object)
+        k[rng.random(n) < 0.1] = None
+        return {key: k, val: rng.integers(-40, 40, n).astype(np.float32)}
+
+    left = ctt.AppendableTable(ctx, batch(300))
+    right = ctt.AppendableTable(ctx, batch(60, "rk", "w"))
+    agg = ctt.stream.view(lambda t: t.lazy().groupby("k", {"v": ["sum", "count", "max"]}), left)
+    join = ctt.stream.view(
+        lambda a, b: a.lazy().join(b.lazy(), left_on="k", right_on="rk").groupby(
+            "k", {"v": "sum", "w": "min"}), left, right)
+    out = {"agg0": agg.refresh(), "join0": join.refresh()}
+    left.append(batch(70))
+    right.append(batch(20, "rk", "w"))
+    out["agg1"], out["join1"] = agg.refresh(), join.refresh()
+    left.append(batch(9))
+    out["agg2"], out["join2"] = agg.refresh(), join.refresh()
+    out["stats"] = (dict(agg.stats), dict(join.stats))
+    return out
+
+
+def case_stream(env):
+    return stream_calls(env.context)
+
+
 PORT = OrderedDict([("pk", case_pk), ("ingest", case_ingest), ("env", case_env),
                     ("frame", case_frame), ("surface", case_surface), ("lazy", case_lazy),
                     ("semi", case_semi), ("fused", case_fused), ("out_of_core", case_out_of_core)])
 CASES = list(SHARED) + list(PORT)
 #: cases run only where a test names them (their own world)
 EXTRA = OrderedDict([("skew8", case_skew8), ("topo8", case_topo8), ("io", case_io),
-                     ("mesh2x2", case_mesh2x2), ("feedback", case_feedback)])
+                     ("mesh2x2", case_mesh2x2), ("feedback", case_feedback),
+                     ("stream", case_stream)])
 #: (init URL, device, backend, shards a process) of a rank process, for
 #: contexts a case makes
 RANK_ARGS = ()

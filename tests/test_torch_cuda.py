@@ -1151,3 +1151,48 @@ def test_traced_join_times_spans_with_events_and_reads_no_more(dev, monkeypatch)
     for s in range(4):
         for c in want.column_names:
             assert torch.equal(got._shards[s][c].data, want._shards[s][c].data), c
+
+
+@pytest.mark.parametrize("world", [1, 4])
+def test_stream_q3_view_on_card_matches_cpu(dev, world):
+    """A q3 view (stream/: an appendable left side joined to an appendable
+    right side, summed by key through the pushdown) refreshed after appends
+    to the left, to the right and to both: every refresh on the card equals
+    the same sequence on the CPU (integer-valued float32 sums, so exactly),
+    the dL join R_cur term at world 4 among them, and the card's refreshes
+    launch K1 (and the codec at world 4)."""
+    def run(device):
+        ctx = ctt.CylonContext.init_distributed(ctt.GPUConfig(device=device, world_size=world))
+        rng = np.random.default_rng(18)
+
+        def side(n, key, val):
+            return {key: rng.integers(0, 300, n).astype(np.int32),
+                    val: rng.integers(-50, 50, n).astype(np.float32)}
+
+        left = ctt.AppendableTable(ctx, side(40_000, "k", "v"))
+        right = ctt.AppendableTable(ctx, side(5_000, "rk", "w"))
+        view = ctt.stream.view(lambda a, b: a.lazy().join(b.lazy(), left_on="k", right_on="rk")
+                               .groupby("k", {"v": "sum"}), left, right)
+        outs = [view.refresh().to_pydict()]
+        for step in ("left", "right", "both"):
+            if step in ("left", "both"):
+                left.append(side(400, "k", "v"))
+            if step in ("right", "both"):
+                right.append(side(50, "rk", "w"))
+            outs.append(view.refresh().to_pydict())
+        assert view.stats == {"noop": 0, "full": 1, "fallback": 0, "inc": 3}
+        return outs
+
+    for d in (cuda_radix.LAUNCHES, cuda_codec.LAUNCHES):
+        for k in d:
+            d[k] = 0
+    got = run(str(dev))
+    assert cuda_radix.LAUNCHES["radix_lane_hist"] > 0 and cuda_radix.LAUNCHES["radix_onesweep"] > 0
+    if world > 1:
+        assert all(cuda_codec.LAUNCHES[k] > 0 for k in cuda_codec.LAUNCHES)
+    want = run("cpu")
+    for g, w in zip(got, want):
+        og, ow = np.argsort(g["k"], kind="stable"), np.argsort(w["k"], kind="stable")
+        for c in ("k", "v_sum"):
+            assert g[c].dtype == w[c].dtype
+            np.testing.assert_array_equal(g[c][og], w[c][ow])

@@ -62,12 +62,14 @@ def test_registry_holds_the_ports_knobs_and_only_those():
         "CYLON_TPU_TORCH_AUTOTUNE_MARGIN", "CYLON_TPU_TORCH_SERVE_P99_TARGET_MS",
         "CYLON_TPU_TORCH_SERVE_INFLIGHT_BYTES", "CYLON_TPU_TORCH_SERVE_QUEUE_DEPTH",
         "CYLON_TPU_TORCH_SERVE_BATCH_MAX", "CYLON_TPU_TORCH_SERVE_DEADLINE_MS",
+        "CYLON_TPU_TORCH_STREAM_CHUNK_ROWS", "CYLON_TPU_TORCH_STREAM_STATE_BUDGET",
+        "CYLON_TPU_TORCH_NO_IVM",
     }
     kinds = {k: v.kind for k, v in envgate.REGISTRY.items()}
     assert kinds["CYLON_TPU_TORCH_SHUFFLE_BUDGET"] == kinds["CYLON_TPU_TORCH_SKETCH_BITS"] == "tuning"
     assert kinds["CYLON_TPU_TORCH_QUANT_TOL"] == "dispatch"
-    # the spill, topology, native, observability, feedback and serving
-    # knobs take their JAX counterparts' kinds and defaults
+    # the spill, topology, native, observability, feedback, serving and
+    # streaming knobs take their JAX counterparts' kinds and defaults
     from cylon_tpu.plan import feedback as _jfb  # noqa: F401 - registers NO_AUTOTUNE
     from cylon_tpu.utils import envgate as jenv
     from cylon_tpu_torch.plan import feedback as _tfb  # noqa: F401
@@ -78,7 +80,7 @@ def test_registry_holds_the_ports_knobs_and_only_those():
                  "METRICS_PORT", "LEAK_GRACE_S", "OBS_DIR", "SLO_WINDOW_S", "NO_AUTOTUNE",
                  "AUTOTUNE_MIN_OBS", "AUTOTUNE_MARGIN", "SERVE_P99_TARGET_MS",
                  "SERVE_INFLIGHT_BYTES", "SERVE_QUEUE_DEPTH", "SERVE_BATCH_MAX",
-                 "SERVE_DEADLINE_MS"):
+                 "SERVE_DEADLINE_MS", "STREAM_CHUNK_ROWS", "STREAM_STATE_BUDGET", "NO_IVM"):
         mine, ref = envgate.REGISTRY["CYLON_TPU_TORCH_" + name], jenv.REGISTRY["CYLON_TPU_" + name]
         assert (mine.kind, mine.default) == (ref.kind, ref.default), name
     assert all(v.note or v.keyed_via for v in envgate.REGISTRY.values())

@@ -235,8 +235,9 @@ def test_spill_write_retry_heals(defaults, tmp_path):
     with pytest.raises(tfault.FaultSpecError):
         tfault.parse_spec("spill.read:kind=die")
     assert tfault.parse_spec("serve.worker:n=1")["serve.worker"].kind == "die"  # A9c's seam
+    assert tfault.parse_spec("stream.append:n=1")["stream.append"].kind == "ENOSPC"  # A9d's seam
     with pytest.raises(tfault.FaultSpecError):
-        tfault.parse_spec("stream.append:n=1")  # not a seam of the port (A9d)
+        tfault.parse_spec("stream.append:kind=die")  # an errno-only seam
 
 
 def test_spill_read_failure_types_and_closes_arenas(defaults, tmp_path):
